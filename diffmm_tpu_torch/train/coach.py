@@ -1,0 +1,299 @@
+"""Coach, cut down to what serving needs.
+
+Counterpart of ``diffmm_tpu/train/coach.py``: the graph-form choice
+(``choose_graph_form`` with ``dense_graph_budget_bytes`` and
+``estimate_state_bytes``, lines 69-186), the schedule, the CSR gather layout
+and the degree-bucket plan (314-346), the phase-2 rebuild of ``train_epoch``
+(845-863) as :meth:`Coach.rebuild_graphs`, and ``test_epoch`` (1232-1293).
+Training (``train_epoch``, ``run``, checkpoints, best capture) comes with
+the training slice; until then the parameters come from :meth:`init_params`
+or :meth:`load_params` (e.g. a JAX run's, through ``convert.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from diffmm_tpu_torch.config import Config, check_slice_support
+from diffmm_tpu_torch.convert import tree_to
+from diffmm_tpu_torch.data.loader import EDGE_ALIGN, HostData, to_device
+from diffmm_tpu_torch.diffusion.schedule import make_schedule
+from diffmm_tpu_torch.eval.ranking import dcg_table, eval_epoch
+from diffmm_tpu_torch.models.denoise import init_denoise_params
+from diffmm_tpu_torch.models.gcn import init_gcn_params
+from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
+from diffmm_tpu_torch.ops.topk import make_csr_gather_layout, plan_rebuild_buckets
+from diffmm_tpu_torch.train import steps
+from diffmm_tpu_torch.utils.device import resolve_device
+from diffmm_tpu_torch.utils.logging import Log
+
+# Blocks budget where the device reports no memory size (the CPU), as in
+# the JAX package; on the card the budget derives from its memory.
+DENSE_GRAPH_BUDGET_BYTES = 4 << 30
+_DENSE_BUDGET_HBM_FRACTION = 0.6
+
+_DENSE_STORES = {"int8": (torch.int8, 1.0), "bf16": (torch.bfloat16, 2.0)}
+
+
+def dense_graph_budget_bytes(device: torch.device, state_bytes: int = 0) -> int:
+    """Per-device memory budget for the dense-form interaction blocks:
+    0.6 x the card's memory (``torch.cuda.mem_get_info``) minus the other
+    resident state; the 4 GiB constant on the CPU."""
+    if device.type != "cuda":
+        return DENSE_GRAPH_BUDGET_BYTES
+    _, total = torch.cuda.mem_get_info(device)
+    return max(0, int(total * _DENSE_BUDGET_HBM_FRACTION) - state_bytes)
+
+
+def estimate_state_bytes(
+    n_modal: int, user_num: int, item_num: int, latdim: int,
+    hidden: list, d_emb_size: int, feat_dims, param_bytes: int = 4,
+) -> int:
+    """Dominant resident state besides the interaction blocks: the
+    denoisers' catalog-wide layers x 3 copies (params + Adam moments), the
+    GCN params x 3, and the (U, I) int8 train store. A lower bound, as in
+    the JAX package (the training slice brings the Adam copies)."""
+    h0, hl = int(hidden[0]), int(hidden[-1])
+    denoise = (item_num + d_emb_size) * h0 + hl * item_num
+    gcn = (user_num + item_num + int(sum(feat_dims))) * latdim
+    return n_modal * 3 * denoise * param_bytes + 3 * gcn * 4 + user_num * item_num
+
+
+def choose_graph_form(
+    form: str, n_modal: int, user_num: int, item_num: int,
+    bytes_per_cell: float = 1.0, budget_bytes: int = DENSE_GRAPH_BUDGET_BYTES,
+) -> bool:
+    """True -> dense form. ``form``: auto|dense|sparse. Under auto the
+    (n_modal + 1) blocks, plus one transient bf16 copy for narrower stores,
+    must fit ``budget_bytes``."""
+    if form == "auto":
+        bytes_needed = (n_modal + 1) * user_num * item_num * bytes_per_cell
+        if bytes_per_cell < 2:
+            bytes_needed += user_num * item_num * 2
+        return bytes_needed <= budget_bytes
+    if form in ("dense", "sparse"):
+        return form == "dense"
+    raise ValueError(f"train.graph_form must be auto|dense|sparse, got {form!r}")
+
+
+def _pad_blocks(n: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """Indices [0, n) padded to a multiple of ``batch`` + validity mask."""
+    n_blocks = max(1, -(-n // batch))
+    idx = np.zeros(n_blocks * batch, dtype=np.int32)
+    idx[:n] = np.arange(n, dtype=np.int32)
+    valid = np.zeros(n_blocks * batch, dtype=bool)
+    valid[:n] = True
+    return idx, valid
+
+
+class Coach:
+    """Rebuild, forward, eval and serving state for one dataset on one
+    device (``cuda`` unless ``device="cpu"``)."""
+
+    def __init__(
+        self,
+        config: Config,
+        host: HostData,
+        device: str | torch.device | None = None,
+        log: Log | None = None,
+    ):
+        self.device = resolve_device(device)
+        check_slice_support(config)
+        self.config = config
+        self.host = host
+        self.log = log or Log("coach", config.data.name)
+        self.n_modal = len(host.modalities)
+        # Checked as the JAX package checks them, then ignored: the port has
+        # one denoiser path (K2/K3 on the card, their plain versions on the
+        # CPU) and one top-k (``ops/topk.py::topk_table``).
+        for name, allowed in (
+            ("base.denoiser_impl", ("auto", "xla", "pallas")),
+            ("train.rebuild_topk", ("approx", "exact")),
+        ):
+            section, key = name.split(".")
+            value = getattr(getattr(config, section), key)
+            if value not in allowed:
+                raise ValueError(f"{name} must be {'|'.join(allowed)}, got {value!r}")
+
+        if config.train.dense_store not in _DENSE_STORES:
+            raise ValueError(
+                f"train.dense_store must be int8|bf16|int4, got {config.train.dense_store!r}"
+            )
+        self.dense_store_dtype, bytes_per_cell = _DENSE_STORES[config.train.dense_store]
+        budget = DENSE_GRAPH_BUDGET_BYTES
+        if config.train.graph_form == "auto":
+            if config.train.dense_budget_gb > 0:
+                budget = int(config.train.dense_budget_gb * (1 << 30))
+            else:
+                budget = dense_graph_budget_bytes(
+                    self.device,
+                    estimate_state_bytes(
+                        self.n_modal, host.user_num, host.item_num,
+                        config.base.latdim, config.base.denoise_dims(),
+                        config.base.d_emb_size, host.feat_dims,
+                    ),
+                )
+        dense = choose_graph_form(
+            config.train.graph_form, self.n_modal, host.user_num, host.item_num,
+            bytes_per_cell, budget,
+        )
+        if not dense:
+            raise NotImplementedError(
+                "the sparse graph form is not ported yet (ROADMAP.md A, slice 3); "
+                "this shape needs it under the dense blocks budget of "
+                f"{budget / 2**30:.2f} GiB"
+            )
+        store = config.train.train_store
+        if store not in ("auto", "dense", "csr"):
+            raise ValueError(f"train.train_store must be auto|dense|csr, got {store!r}")
+        self.data = to_device(host, self.device, "dense" if store == "auto" else store)
+
+        self.schedule = make_schedule(
+            config.hyper.noise_scale, config.hyper.noise_min, config.hyper.noise_max,
+            config.hyper.steps, device=self.device,
+        )
+        self.edge_buf_len = host.nnz + (-host.nnz % EDGE_ALIGN)
+        u_of_pos, lane_of_pos, pad_mask = make_csr_gather_layout(
+            host.user_degrees, self.edge_buf_len
+        )
+        batch = config.train.batch
+        if config.train.rebuild_order == "degree":
+            plan = plan_rebuild_buckets(host.user_degrees, batch, host.item_num)
+            u_of_pos = plan.row_of_user[u_of_pos]
+            blocks, widths, starts = plan.user_blocks, plan.widths, plan.row_starts
+        elif config.train.rebuild_order == "identity":
+            idx, _ = _pad_blocks(host.user_num, batch)
+            blocks, widths, starts = (idx.reshape(-1, batch),), (host.k_max,), (0,)
+        else:
+            raise ValueError(
+                "train.rebuild_order must be identity|degree, got "
+                f"{config.train.rebuild_order!r}"
+            )
+        self.rebuild_blocks = tuple(torch.as_tensor(b, device=self.device) for b in blocks)
+        self.rebuild_widths = tuple(int(w) for w in widths)
+        self.rebuild_starts = tuple(int(s) for s in starts)
+        self.csr_gather_layout = tuple(
+            torch.as_tensor(a, device=self.device) for a in (u_of_pos, lane_of_pos, pad_mask)
+        )
+        self.cum_dcg = dcg_table(config.base.topk, self.device)
+        self.data = self.data._replace(
+            adj=self._make_adj(self.data.train_rows, self.data.train_cols)
+        )
+        self.init_params(config.base.seed)
+
+        self.log.info(f"USER: {host.user_num}, ITEM: {host.item_num}")
+        self.log.info(f"NUM OF INTERACTIONS: {host.nnz}")
+        self.log.info(f"Graph form: dense | train store: dense | device: {self.device}")
+        if host.synthesized:
+            self.log.info(f"⚠️ synthesized missing feature blobs for: {host.synthesized}")
+
+    # ------------------------------------------------------------ params
+    def init_params(self, seed: int) -> None:
+        """Fresh random parameters from ``seed`` (the JAX package's
+        distributions, torch's own stream); drops any rebuilt graphs."""
+        cfg = self.config
+        host = self.host
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.gcn_params = init_gcn_params(
+            self.generator, host.user_num, host.item_num, cfg.base.latdim,
+            host.feat_dims, self.device,
+        )
+        self.dn_params = [
+            init_denoise_params(
+                self.generator, host.item_num, cfg.base.denoise_dims(),
+                cfg.base.d_emb_size, cfg.base.latdim, self.device,
+            )
+            for _ in range(self.n_modal)
+        ]
+        self.edge_buffers: list[torch.Tensor] | None = None
+        self.modal_adjs = None
+
+    def load_params(self, gcn_params: dict, dn_params: list[dict]) -> None:
+        """Take parameters in the port's layout (``convert.params_from_jax``
+        makes them from a JAX run's), copied to this Coach's device; drops
+        any rebuilt graphs."""
+        self.gcn_params = tree_to(gcn_params, self.device)
+        self.dn_params = tree_to(list(dn_params), self.device)
+        if len(self.dn_params) != self.n_modal:
+            raise ValueError(f"expected {self.n_modal} denoisers, got {len(self.dn_params)}")
+        self.edge_buffers = None
+        self.modal_adjs = None
+
+    def hp(self) -> dict:
+        h = self.config.hyper
+        return {
+            "modal_adj_weight": float(h.modal_adj_weight),
+            "residual_weight": float(h.residual_weight),
+        }
+
+    def _make_adj(self, rows: torch.Tensor, cols: torch.Tensor):
+        return build_dense_bi_adj_device(
+            rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype
+        )
+
+    # ------------------------------------------------------------ phases
+    @torch.no_grad()
+    def rebuild_graphs(self) -> list[torch.Tensor]:
+        """Phase 2 of an epoch: reverse-diffuse every user's train row per
+        modality, keep each user's top-degree items as that modality's graph
+        (reference `Main.py:195-253`). Sets ``edge_buffers`` and
+        ``modal_adjs`` and returns the buffers."""
+        cfg = self.config
+        self.edge_buffers = steps.rebuild_epoch(
+            self.schedule, self.dn_params, self.data.train_store,
+            self.rebuild_blocks, self.rebuild_widths, self.rebuild_starts,
+            *self.csr_gather_layout, self.host.item_num,
+            cfg.hyper.sampling_step, self.generator,
+        )
+        self.modal_adjs = [
+            self._make_adj(self.data.train_rows, buf) for buf in self.edge_buffers
+        ]
+        return self.edge_buffers
+
+    @torch.no_grad()
+    def forward(self):
+        """Final (user, item) embeddings over the rebuilt modality graphs."""
+        if self.modal_adjs is None:
+            raise RuntimeError("run rebuild_graphs() first: the forward reads the modality graphs")
+        return steps.gcn_forward(
+            self.gcn_params, self.data.adj, self.modal_adjs, self.data.raw_feats, self.hp()
+        )
+
+    @torch.no_grad()
+    def test_epoch(self, split: str = "test", embeddings=None) -> dict[str, float]:
+        """Full-catalog ranking eval (reference `Main.py:390-420`).
+        ``embeddings``: (u_final, i_final) to rank instead of this Coach's
+        forward."""
+        data = self.data
+        if split == "test":
+            e_users, e_items, e_counts = data.test_users, data.test_items, data.test_counts
+        elif split == "val":
+            if data.val_users is None:
+                raise ValueError(f"{self.host.name}: no valMat was loaded")
+            e_users, e_items, e_counts = data.val_users, data.val_items, data.val_counts
+        else:
+            raise ValueError(f"unknown eval split {split!r}")
+        n_test = int(e_users.shape[0])
+        if n_test == 0:
+            self.log.info(f"⚠️ eval split {split!r} has no users; skipping")
+            return {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0}
+        u_final, i_final = embeddings if embeddings is not None else self.forward()
+        batch = self.config.train.test_batch
+        idx, valid = _pad_blocks(n_test, batch)
+        idx_w = torch.as_tensor(idx % n_test, device=self.device).long()
+        nb = len(idx) // batch
+        sums = eval_epoch(
+            u_final, i_final,
+            e_users[idx_w].reshape(nb, batch),
+            torch.as_tensor(valid, device=self.device).reshape(nb, batch),
+            data.train_store,
+            e_items[idx_w].reshape(nb, batch, -1),
+            e_counts[idx_w].reshape(nb, batch),
+            self.cum_dcg, self.config.base.topk,
+        ).cpu().numpy()
+        return {
+            "Recall": float(sums[0]) / n_test,
+            "NDCG": float(sums[1]) / n_test,
+            "Precision": float(sums[2]) / n_test,
+        }

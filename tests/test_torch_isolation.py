@@ -1,0 +1,105 @@
+"""Guards of the port: it imports neither jax nor diffmm_tpu, its entry points
+and kernel wrappers refuse to run on the CPU unless asked to, and its source
+holds no torch.compile, no scaled_dot_product_attention and no ``except``
+around a kernel launch."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "diffmm_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for p in PKG.rglob("*.py")
+)
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'diffmm_tpu' or m.startswith('diffmm_tpu.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 20
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch, tmp_path):
+    from diffmm_tpu_torch.config import Config
+    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.eval import serving
+    from diffmm_tpu_torch.train.coach import Coach
+
+    _no_cuda(monkeypatch)
+    cfg = Config()
+    cfg.base.latdim, cfg.base.denoise_dim, cfg.train.batch = 16, "[32]", 16
+    host = make_synthetic_host_data(cfg, user_num=20, item_num=15, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Coach(cfg, host)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Coach(cfg, host, device="cuda")
+    coach = Coach(cfg, host, device="cpu")
+    coach.rebuild_graphs()
+    path = str(tmp_path / "idx.npz")
+    serving.save_index(serving.build_index(coach), path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.load_index(path)
+    assert serving.load_index(path, device="cpu").u_final.device.type == "cpu"
+
+
+def test_kernel_wrappers_raise_off_cuda_and_cpu():
+    """On a CUDA tensor a wrapper launches or raises; on the CPU it takes the
+    plain version; any other device raises."""
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_layer2, fused_denoise_mlp
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import spmm_dual
+
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        spmm_dual(torch.empty((4, 3), dtype=torch.int8, device=meta),
+                  torch.empty((4, 16), device=meta), torch.empty((3, 16), device=meta))
+    with pytest.raises(ValueError, match="denoise_layer1: unsupported device"):
+        fused_denoise_mlp(*(torch.empty(s, device=meta)
+                            for s in ((2, 3), (3, 4), (2, 4), (4, 3), (3,))))
+    with pytest.raises(ValueError, match="denoise_layer2: unsupported device"):
+        denoise_layer2(*(torch.empty(s, device=meta) for s in ((2, 4), (4, 3), (3,))))
+
+
+def _sources():
+    return [p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("needle", ["torch.compile", "scaled_dot_product_attention"])
+def test_no_library_stand_ins(needle):
+    hits = [str(p) for p in _sources() if needle in p.read_text()]
+    assert not hits, hits
+
+
+def test_no_except_around_a_kernel_launch():
+    """No try block in the port encloses a kernel wrapper or C entry call."""
+    launches = {"spmm_dual", "fused_denoise_mlp", "denoise_forward_fused", "_launch",
+                "spmm_dual_forward", "denoise_layer1", "denoise_layer2", "load_library"}
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.Try):
+                continue
+            for sub in ast.walk(ast.Module(body=node.body, type_ignores=[])):
+                if isinstance(sub, ast.Call):
+                    fn = sub.func
+                    name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+                    assert name not in launches, f"{path}: {name} inside try"
