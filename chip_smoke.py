@@ -9,20 +9,31 @@ exit, no result line):
 
 1. build: every kernel source (``diffmm_tpu_torch/csrc/*.cu``) with one
    ``nvcc`` each, all at once; prints ptxas's register/shared-memory lines.
-2. kernels: each kernel's wrapper on card tensors at the main path's shapes
+2. kernels: each kernel's wrapper on card tensors at the main paths' shapes
    (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8 and bf16 storage;
-   K2/K3 ``denoise_mlp`` at B 1,024, I 6,710, H 1,024) against its plain
-   PyTorch version within the stated tolerance; times (CUDA events, warm,
-   many launches) of the kernel, the plain version and one PyTorch library
-   call computing the same function, beside the bound.
+   K2/K3 ``denoise_mlp`` at B 1,024, H 1,024 and I 6,710 and 20,000; K4
+   ``segsum`` at the yelp shape: the user direction, n 38,403, nnz 307,200,
+   d 64; the item direction, n 20,000, ids with gaps; the stacked width
+   d 128; f32 and bf16 messages) against its plain PyTorch version within
+   the stated tolerance (K4 also bitwise across two launches); times (CUDA
+   events, warm, many launches) of the kernel, the plain version and one
+   PyTorch library call computing the same function, beside the bound.
 3. reference: a tiny synthetic Coach on the card against the same Coach on
-   the CPU (plain versions) with the same parameters.
-4. path A (tiktok shape): synthetic 9,308 x 6,710 at density 0.000953,
-   feature widths 128/768/128, conf/test.toml hypers, seed 1818: rebuild ->
-   test_epoch -> build_index -> 8 recommend requests (k=20).
-5. path B: the same on data/tiktok_mini at full model width (latdim 64,
-   hidden 1,024) with batch 256, so its real degree skew gives the
+   the CPU (plain versions) with the same parameters, dense form and sparse
+   form; the sparse one also against the dense one on the same graphs.
+4. path A (tiktok shape, dense form): synthetic 9,308 x 6,710 at density
+   0.000953, feature widths 128/768/128, conf/test.toml hypers, seed 1818:
+   rebuild -> test_epoch -> build_index -> 8 recommend requests (k=20),
+   then the same rebuild + eval once more under torch.profiler.
+5. path B: path A's steps on data/tiktok_mini at full model width (latdim
+   64, hidden 1,024) with batch 256, so its real degree skew gives the
    two-bucket rebuild plan.
+6. path C (yelp shape, sparse form): synthetic 38,403 x 20,000 at density
+   0.0004, image and text features at widths 4,096 and 1,024,
+   conf/yelp.toml hypers with ``train.graph_form="sparse"`` (the train
+   store resolves to CSR): path A's steps and profile; no (U, I) tensor.
+7. path D: path B with ``train.graph_form="sparse"``: the CSR store's
+   head/tail split and K4's hub segments.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. A full report
@@ -49,10 +60,15 @@ F32_FLOPS = 67e12
 
 # Tolerances of kernel vs plain version (elementwise, torch.allclose):
 # K1 sums exact products (0/1 x bf16) in f32 in another order than the
-# plain f32 matmul: rtol 1e-5, atol 1e-5. K2/K3 sum 6,710 (K2) or 1,024
-# (K3) f32 products in another order than cuBLAS (no TF32 on either side):
-# rtol 1e-5, atol 5e-5.
-TOL = {"spmm_dual": (1e-5, 1e-5), "denoise_layer1": (1e-5, 5e-5), "denoise_layer2": (1e-5, 5e-5)}
+# plain f32 matmul: rtol 1e-5, atol 1e-5. K2/K3 sum 6,710 or 20,000 (K2)
+# or 1,024 (K3) f32 products in another order than cuBLAS (no TF32 on
+# either side): rtol 1e-5, atol 5e-5. K4 sums each segment in edge order,
+# the plain index_add_ in the order its atomics land; a reordered f32 sum
+# moves by a few eps (1.2e-7) of the sum of its terms' magnitudes, which a
+# hub segment of thousands of edges makes large: |kernel - plain| <= rtol *
+# sum|msgs| + atol per output element, rtol 1e-6, atol 1e-6.
+TOL = {"spmm_dual": (1e-5, 1e-5), "denoise_layer1": (1e-5, 5e-5), "denoise_layer2": (1e-5, 5e-5),
+       "segsum": (1e-6, 1e-6)}
 
 KERNELS = {
     "spmm_dual": {
@@ -67,7 +83,15 @@ KERNELS = {
         "source": "diffmm_tpu_torch/csrc/denoise_mlp.cu",
         "replaces": "diffmm_tpu/ops/pallas/denoise_mlp.py:127",
     },
+    "segsum": {
+        "source": "diffmm_tpu_torch/csrc/segsum.cu",
+        "replaces": "diffmm_tpu/ops/pallas/segsum.py:127",
+    },
 }
+# Path C's shape: yelp's catalog and feature widths (conf/yelp.toml), and its
+# padded train edge count (307,180 edges + 20 sentinel pads)
+YELP = {"user_num": 38403, "item_num": 20000, "density": 0.0004, "feat_dims": [4096, 1024],
+        "edges": 307200}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -161,47 +185,124 @@ def phase_kernels(dev) -> dict:
         out[key] = rec
         print(f"[kernels] {key}: {json.dumps(rec)}")
 
-    # K2/K3 at the rebuild's shape
-    B, K, H = 1024, 6710, 1024
-    x = torch.randn((B, K), generator=gen, device=dev)
-    w1x = torch.randn((K, H), generator=gen, device=dev) * math.sqrt(2.0 / (K + 10 + H))
-    tp = torch.randn((B, H), generator=gen, device=dev) * 0.1
-    w2 = torch.randn((H, K), generator=gen, device=dev) * math.sqrt(2.0 / (H + K))
-    b2 = torch.randn((K,), generator=gen, device=dev) * 0.001
-    h = dm.layer1_plain(x, w1x, tp)
-    full = dm.fused_denoise_mlp(x, w1x, tp, w2, b2)
-    want_full = dm.layer2_plain(h, w2, b2)
-    for name, kern, plain, lib_call, n_bytes, flops in (
-        ("denoise_layer1", lambda: dm.denoise_layer1(x, w1x, tp),
-         lambda: dm.layer1_plain(x, w1x, tp),
-         lambda: torch.tanh(torch.addmm(tp, x, w1x)),
-         (B * K + K * H + 2 * B * H) * 4, 2 * B * K * H),
-        ("denoise_layer2", lambda: dm.denoise_layer2(h, w2, b2),
-         lambda: dm.layer2_plain(h, w2, b2),
-         lambda: torch.addmm(b2, h, w2),
-         (B * H + H * K + K + B * K) * 4, 2 * B * H * K),
-    ):
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        rtol, atol = TOL[name]
-        err = max_err(got, want)
-        ok = torch.allclose(got, want, rtol=rtol, atol=atol)
-        check(ok, f"{name} vs plain: max_abs_err {err}")
-        b, by = bound_ms(n_bytes, flops, F32_FLOPS)
-        rec = {
-            "ok": ok,
-            "max_abs_err": err,
-            "ms": time_ms(kern, 20),
-            "plain_ms": time_ms(plain, 20),
-            "bound_ms": b,
-            "bound_by": by,
-            "library_ms": time_ms(lib_call, 20),
-        }
-        out[name] = rec
-        print(f"[kernels] {name}: {json.dumps(rec)}")
-    err = max_err(full, want_full)
-    check(torch.allclose(full, want_full, rtol=1e-5, atol=1e-4), f"fused_denoise_mlp: {err}")
-    print(f"[kernels] fused_denoise_mlp wrapper vs plain: max_abs_err {err}")
+    # K2/K3 at the rebuild's shapes: tiktok's catalog (path A) and yelp's (path C)
+    B, H = 1024, 1024
+    for K, suffix in ((6710, ""), (YELP["item_num"], "_yelp")):
+        x = torch.randn((B, K), generator=gen, device=dev)
+        w1x = torch.randn((K, H), generator=gen, device=dev) * math.sqrt(2.0 / (K + 10 + H))
+        tp = torch.randn((B, H), generator=gen, device=dev) * 0.1
+        w2 = torch.randn((H, K), generator=gen, device=dev) * math.sqrt(2.0 / (H + K))
+        b2 = torch.randn((K,), generator=gen, device=dev) * 0.001
+        h = dm.layer1_plain(x, w1x, tp)
+        full = dm.fused_denoise_mlp(x, w1x, tp, w2, b2)
+        want_full = dm.layer2_plain(h, w2, b2)
+        for name, kern, plain, lib_call, n_bytes, flops in (
+            ("denoise_layer1", lambda: dm.denoise_layer1(x, w1x, tp),
+             lambda: dm.layer1_plain(x, w1x, tp),
+             lambda: torch.tanh(torch.addmm(tp, x, w1x)),
+             (B * K + K * H + 2 * B * H) * 4, 2 * B * K * H),
+            ("denoise_layer2", lambda: dm.denoise_layer2(h, w2, b2),
+             lambda: dm.layer2_plain(h, w2, b2),
+             lambda: torch.addmm(b2, h, w2),
+             (B * H + H * K + K + B * K) * 4, 2 * B * H * K),
+        ):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            rtol, atol = TOL[name]
+            err = max_err(got, want)
+            ok = torch.allclose(got, want, rtol=rtol, atol=atol)
+            check(ok, f"{name}{suffix} vs plain: max_abs_err {err}")
+            b, by = bound_ms(n_bytes, flops, F32_FLOPS)
+            rec = {
+                "ok": ok,
+                "shape": [B, K, H],
+                "max_abs_err": err,
+                "ms": time_ms(kern, 20),
+                "plain_ms": time_ms(plain, 20),
+                "bound_ms": b,
+                "bound_by": by,
+                "library_ms": time_ms(lib_call, 20),
+            }
+            out[name + suffix] = rec
+            print(f"[kernels] {name}{suffix}: {json.dumps(rec)}")
+        err = max_err(full, want_full)
+        check(torch.allclose(full, want_full, rtol=1e-5, atol=1e-4), f"fused_denoise_mlp{suffix}: {err}")
+        print(f"[kernels] fused_denoise_mlp{suffix} wrapper vs plain: max_abs_err {err}")
+        del x, w1x, tp, w2, b2, h, full, want_full
+
+    out.update(_segsum_cases(dev, gen))
+    return out
+
+
+def sorted_segment_ids(gen, n: int, nnz: int, pads: int, skew: float, device):
+    """(nnz,) int32 ascending segment ids, the last ``pads`` of them
+    sentinels equal to n. With ``skew`` > 1 the ids come from 90% of
+    [0, n), piled on the low ones (a hub segment first), so the rest of the
+    segments are empty: a rebuilt graph's item layout."""
+    import torch
+
+    present = torch.arange(n, device=device)
+    if skew > 1:
+        present = torch.sort(torch.randperm(n, generator=gen, device=device)[: n * 9 // 10]).values
+    u = torch.rand(nnz - pads, generator=gen, device=device) ** skew
+    ids = present[(u * len(present)).long().clamp_max(len(present) - 1)]
+    ids = torch.sort(ids.to(torch.int32)).values
+    return torch.cat([ids, torch.full((pads,), n, dtype=torch.int32, device=device)])
+
+
+def _segsum_cases(dev, gen) -> dict:
+    """K4 at path C's shapes: the user direction (38,403 segments of about
+    8 edges, the train rows), the item direction (20,000 segments, skewed
+    ids with gaps: :func:`sorted_segment_ids`), the stacked user direction
+    at d 128; f32 and bf16 messages; 307,180 real edges plus 20 sentinel
+    pads whose messages (NaN here) are never read."""
+    import torch
+
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+
+    U, I, nnz = YELP["user_num"], YELP["item_num"], YELP["edges"]
+    out = {}
+    for case, n, d, skew in (("user", U, 64, 1.0), ("item", I, 64, 2.0), ("stacked", U, 128, 1.0)):
+        offsets = sg.segment_offsets(sorted_segment_ids(gen, n, nnz, 20, skew, dev), n)
+        real = int(offsets[-1])
+        for dtype in (torch.float32, torch.bfloat16):
+            msgs = torch.randn((nnz, d), generator=gen, device=dev).to(dtype)
+            msgs[real:] = float("nan")
+            got = sg.segsum(msgs, offsets)
+            again = sg.segsum(msgs, offsets)
+            want = sg.segsum_plain(msgs, offsets)
+            torch.cuda.synchronize()
+            rtol, atol = TOL["segsum"]
+            err = max_err(got, want)
+            scale = sg.segsum_plain(msgs.abs(), offsets)
+            ok = bool(((got - want).abs() <= rtol * scale + atol).all()) and torch.equal(got, again)
+            check(ok, f"segsum[{case}, {dtype}] vs plain: max_abs_err {err}, "
+                      f"bitwise across launches: {torch.equal(got, again)}")
+            # each input the kernel takes (messages, offsets) read once, the
+            # output written once; one add per message element of the real edges
+            n_bytes = msgs.numel() * msgs.element_size() + offsets.numel() * 8 + n * d * 4
+            b, by = bound_ms(n_bytes, real * d, F32_FLOPS)
+            rec = {
+                "ok": ok,
+                "shape": [n, nnz, d],
+                "msgs": str(dtype).removeprefix("torch."),
+                "empty_segments": int((offsets.diff() == 0).sum()),
+                "max_segment": int(offsets.diff().max()),
+                "max_abs_err": err,
+                "max_err_over_abs_sum": float(((got - want).abs() / (scale + 1e-30)).max()),
+                "ms": time_ms(lambda: sg.segsum(msgs, offsets), 50),
+                "plain_ms": time_ms(lambda: sg.segsum_plain(msgs, offsets), 20),
+                "bound_ms": b,
+                "bound_by": by,
+                # torch.segment_reduce sums bf16 input in bf16 (measured
+                # 5.7 off on 980 terms): the same function only for f32
+                "library_ms": time_ms(
+                    lambda: torch.segment_reduce(msgs, "sum", offsets=offsets, axis=0), 20)
+                if dtype == torch.float32 else None,
+            }
+            key = f"segsum_{case}" + ("" if dtype == torch.float32 else "_bf16")
+            out[key] = rec
+            print(f"[kernels] {key}: {json.dumps(rec)}")
     return out
 
 
@@ -217,15 +318,14 @@ def _small_config():
     return cfg
 
 
-def phase_reference(dev) -> dict:
-    """A tiny Coach on the card (kernels) against the same Coach on the CPU
-    (plain versions), same data and parameters."""
-    import torch
-
+def _reference_pair(dev, cfg):
+    """A tiny synthetic Coach on the CPU (plain versions) and the same Coach
+    on the card with the CPU one's parameters, each after its own rebuild;
+    the card's graphs are then set to the CPU's, so the forwards compare on
+    the same graphs. Returns (cpu coach, card coach, edge agreement)."""
     from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
     from diffmm_tpu_torch.train.coach import Coach
 
-    cfg = _small_config()
     host = make_synthetic_host_data(cfg, user_num=300, item_num=200, density=0.05, seed=5)
     cpu = Coach(cfg, host, device="cpu")
     gpu = Coach(cfg, host, device=dev)
@@ -236,30 +336,103 @@ def phase_reference(dev) -> dict:
     # scores differ in the last bits (f32 sums in another order), which may
     # swap items on exact ties only
     check(min(same) >= 0.99, f"edge buffers agree on {same}")
-    # same graphs on both sides, then forward + eval
     gpu.edge_buffers = [b.to(dev) for b in bufs_c]
     gpu.modal_adjs = [gpu._make_adj(gpu.data.train_rows, b) for b in gpu.edge_buffers]
-    u_c, i_c = cpu.forward()
-    u_g, i_g = gpu.forward()
-    err = max(max_err(u_g.cpu(), u_c), max_err(i_g.cpu(), i_c))
-    check(torch.allclose(u_g.cpu(), u_c, rtol=1e-2, atol=1e-3)
-          and torch.allclose(i_g.cpu(), i_c, rtol=1e-2, atol=1e-3), f"embeddings: {err}")
-    m_c = cpu.test_epoch(embeddings=(u_c, i_c))
-    m_g = gpu.test_epoch(embeddings=(u_c.to(dev), i_c.to(dev)))
-    check(all(abs(m_c[k] - m_g[k]) < 1e-6 for k in m_c), f"metrics {m_c} vs {m_g}")
-    rec = {"edge_agreement": same, "embedding_max_abs_err": err, "metrics": m_g}
+    return cpu, gpu, same
+
+
+def _check_close(got, want, rtol, atol, what) -> float:
+    import torch
+
+    err = max(max_err(g.cpu(), w.cpu()) for g, w in zip(got, want))
+    ok = all(torch.allclose(g.cpu(), w.cpu(), rtol=rtol, atol=atol) for g, w in zip(got, want))
+    check(ok, f"{what}: max_abs_err {err}")
+    return err
+
+
+def phase_reference(dev) -> dict:
+    """Tiny Coaches on the card (kernels) against the same Coaches on the CPU
+    (plain versions), same data, parameters and graphs: the dense form
+    (bf16 tolerance on both sides, rtol 1e-2, atol 1e-3), the sparse form
+    (f32 throughout, rtol 1e-4, atol 1e-5), and the card's sparse form
+    against its dense form on the same graphs (the dense form's bf16
+    rounding of z: rtol 1e-2, atol 1e-3; with bf16 messages the sparse form
+    rounds z the same way, so only the f32 order of K1's and K4's sums
+    differs, over two hops: rtol 1e-5, atol 1e-5)."""
+    cfg = _small_config()
+    rec = {}
+    for form in ("dense", "sparse"):
+        cfg.train.graph_form = form
+        cpu, gpu, same = _reference_pair(dev, cfg)
+        emb_c, emb_g = cpu.forward(), gpu.forward()
+        tol = (1e-2, 1e-3) if form == "dense" else (1e-4, 1e-5)
+        err = _check_close(emb_g, emb_c, *tol, f"{form} embeddings, card vs CPU")
+        m_c = cpu.test_epoch(embeddings=emb_c)
+        m_g = gpu.test_epoch(embeddings=tuple(e.to(dev) for e in emb_c))
+        check(all(abs(m_c[k] - m_g[k]) < 1e-6 for k in m_c), f"{form} metrics {m_c} vs {m_g}")
+        rec[form] = {"edge_agreement": same, "embedding_max_abs_err": err, "metrics": m_g,
+                     "train_store": gpu.train_store_form}
+    check(rec["sparse"]["train_store"] == "csr", f"sparse reference store {rec['sparse']}")
+
+    # the card's sparse Coach against its dense one, on the sparse one's graphs
+    for compute, tol in (("f32", (1e-2, 1e-3)), ("bf16", (1e-5, 1e-5))):
+        cfg.train.graph_form, cfg.train.segsum_compute = "dense", "f32"
+        dense = _twin(dev, cfg, gpu)
+        cfg.train.graph_form, cfg.train.segsum_compute = "sparse", compute
+        sparse = _twin(dev, cfg, gpu)
+        err = _check_close(sparse.forward(), dense.forward(), *tol,
+                           f"sparse ({compute} messages) vs dense form on the card")
+        rec[f"sparse_{compute}_vs_dense_max_abs_err"] = err
     print(f"[reference] {json.dumps(rec)}")
     return rec
 
 
-def drive_path(dev, cfg, host, label: str) -> dict:
+def _twin(dev, cfg, like):
+    """A Coach for ``cfg`` on the card with ``like``'s parameters and graphs."""
+    from diffmm_tpu_torch.train.coach import Coach
+
+    coach = Coach(cfg, like.host, device=dev)
+    coach.load_params(like.gcn_params, like.dn_params)
+    coach.edge_buffers = like.edge_buffers
+    coach.modal_adjs = [coach._make_adj(coach.data.train_rows, b) for b in like.edge_buffers]
+    return coach
+
+
+def _counters():
+    from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual
+
+    return (spmm_dual.LAUNCHES, denoise_mlp.LAUNCHES, segsum.LAUNCHES)
+
+
+def tensor_numels(obj) -> set:
+    """Element counts of every tensor ``obj`` holds, through dicts, lists,
+    tuples and dataclasses; of a Coach, pass ``vars(coach)``: its data,
+    store, adjacencies, parameters and graphs."""
+    import dataclasses
+
+    import torch
+
+    sizes, todo = set(), [obj]
+    while todo:
+        obj = todo.pop()
+        if isinstance(obj, torch.Tensor):
+            sizes.add(obj.numel())
+        elif isinstance(obj, dict):
+            todo.extend(obj.values())
+        elif isinstance(obj, (list, tuple)):
+            todo.extend(obj)
+        elif dataclasses.is_dataclass(obj):
+            todo.extend(getattr(obj, f.name) for f in dataclasses.fields(obj))
+    return sizes
+
+
+def drive_path(dev, cfg, host, label: str):
     """Rebuild -> test_epoch -> build_index -> 8 recommend requests, with
-    every kernel counter set to 0 just before and read just after."""
+    every kernel counter set to 0 just before and read just after. Returns
+    the record and the Coach (warm, for the profile)."""
     import torch
 
     from diffmm_tpu_torch.eval.serving import build_index, recommend
-    from diffmm_tpu_torch.ops.kernels import denoise_mlp as dm
-    from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
     from diffmm_tpu_torch.train.coach import Coach
 
     times = {}
@@ -272,7 +445,7 @@ def drive_path(dev, cfg, host, label: str) -> dict:
     coach = Coach(cfg, host, device=dev)
     fence("setup_s", t0)
     torch.cuda.reset_peak_memory_stats(dev)
-    for counts in (sd.LAUNCHES, dm.LAUNCHES):
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
     t0 = time.perf_counter()
@@ -291,7 +464,7 @@ def drive_path(dev, cfg, host, label: str) -> dict:
     for u in requests:
         answers.append(recommend(index, u.view(1), 20))
     fence("recommend_8_s", t0)
-    launches = {**sd.LAUNCHES, **dm.LAUNCHES}
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated(dev)
 
     check(all(b.shape == (coach.edge_buf_len,) for b in bufs), "edge buffer shape")
@@ -307,14 +480,28 @@ def drive_path(dev, cfg, host, label: str) -> dict:
         user_seen = set(seen[1][seen[0][u]:seen[0][u + 1]].tolist())
         check(not (set(ids.tolist()) & user_seen), f"{label} seen item served to user {u}")
     n_fwd = 2  # test_epoch and build_index
-    per_fwd = coach.n_modal + 2  # one per modality graph, two over the main graph
     blocks = sum(int(b.shape[0]) for b in coach.rebuild_blocks)
     want_dn = coach.n_modal * cfg.hyper.steps * blocks
-    check(launches["spmm_dual"] >= per_fwd * n_fwd, f"{label} spmm_dual launches {launches}")
     check(launches["denoise_layer1"] == want_dn and launches["denoise_layer2"] == want_dn,
           f"{label} denoise launches {launches}, want {want_dn} each")
+    if coach.dense_graphs:
+        # one per modality graph, two over the main graph
+        per_fwd, kernel, other = coach.n_modal + 2, "spmm_dual", "segsum"
+    else:
+        # two per main-graph propagation, one stacked user direction, one
+        # item direction per modality
+        per_fwd, kernel, other = 2 * 2 + 1 + coach.n_modal, "segsum", "spmm_dual"
+    check(launches[kernel] >= per_fwd * n_fwd and launches[other] == 0,
+          f"{label} launches {launches}, want {kernel} >= {per_fwd * n_fwd} and no {other}")
+    if not coach.dense_graphs:
+        # K4's longest segments: the largest item degree of the main graph
+        # and of each rebuilt modality graph
+        hubs = [int(a.iu_offsets.diff().max()) for a in (coach.data.adj, *coach.modal_adjs)]
     rec = {
         "shape": [host.user_num, host.item_num, host.nnz],
+        "graph_form": "dense" if coach.dense_graphs else "sparse",
+        "max_item_degree": None if coach.dense_graphs else hubs,
+        "train_store": coach.train_store_form,
         "metrics": metrics,
         "times": times,
         "peak_mem_bytes": peak,
@@ -323,7 +510,7 @@ def drive_path(dev, cfg, host, label: str) -> dict:
         "gcn_forwards": n_fwd,
     }
     print(f"[path {label}] {json.dumps(rec)}")
-    return rec
+    return rec, coach
 
 
 def _tiktok_shape():
@@ -340,23 +527,13 @@ def _tiktok_shape():
     return cfg, host
 
 
-def phase_path_a(dev) -> dict:
-    return drive_path(dev, *_tiktok_shape(), "A")
-
-
-def phase_profile(dev, report_dir: str) -> dict:
-    """torch.profiler over one warm rebuild + eval at tiktok shape: device
+def phase_profile(coach, label: str, report_dir: str) -> dict:
+    """torch.profiler over one warm rebuild + eval of a path's Coach: device
     time by kernel name and the device's busy share of the wall time. The
-    table goes to ``<report_dir>/profile_path_A.txt``."""
+    table goes to ``<report_dir>/profile_path_<label>.txt``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from diffmm_tpu_torch.train.coach import Coach
-
-    cfg, host = _tiktok_shape()
-    coach = Coach(cfg, host, device=dev)
-    coach.rebuild_graphs()
-    coach.test_epoch()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -370,16 +547,22 @@ def phase_profile(dev, report_dir: str) -> dict:
     dev_us = {e.key: e.self_device_time_total for e in kernels}
     busy = sum(dev_us.values()) / 1e6
     top = sorted(((v, k) for k, v in dev_us.items() if v > 0), reverse=True)[:14]
-    with open(os.path.join(report_dir, "profile_path_A.txt"), "w") as fh:
+    with open(os.path.join(report_dir, f"profile_path_{label}.txt"), "w") as fh:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     counts = {e.key: e.count for e in kernels}
     rec = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
            "top_device_ms": [[k[:60], v / 1e3, counts[k]] for v, k in top]}
-    print(f"[profile A] {json.dumps(rec)}")
+    print(f"[profile {label}] {json.dumps(rec)}")
     return rec
 
 
-def phase_path_b(dev) -> dict:
+def phase_path_a(dev, report_dir: str) -> tuple[dict, dict]:
+    rec, coach = drive_path(dev, *_tiktok_shape(), "A")
+    check(rec["graph_form"] == "dense" and rec["train_store"] == "dense", f"A form {rec}")
+    return rec, phase_profile(coach, "A", report_dir)
+
+
+def _tiktok_mini(sparse: bool):
     from diffmm_tpu_torch.config import load_config
     from diffmm_tpu_torch.data.loader import load_host_data
 
@@ -388,9 +571,48 @@ def phase_path_b(dev) -> dict:
     # 600 users make one block at batch 1024; at 256 the real degree skew
     # (max 576, median 2) gives the two-bucket rebuild plan
     cfg.train.batch = 256
-    host = load_host_data(cfg, data_root=os.path.join(REPO, "data"))
-    rec = drive_path(dev, cfg, host, "B")
+    if sparse:
+        cfg.train.graph_form = "sparse"
+    return cfg, load_host_data(cfg, data_root=os.path.join(REPO, "data"))
+
+
+def phase_path_b(dev) -> dict:
+    rec, _ = drive_path(dev, *_tiktok_mini(sparse=False), "B")
     check(len(rec["rebuild_widths"]) == 2, f"B rebuild plan {rec['rebuild_widths']}")
+    return rec
+
+
+def phase_path_c(dev, report_dir: str) -> tuple[dict, dict]:
+    from diffmm_tpu_torch.config import load_config
+    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+
+    cfg = load_config(os.path.join(REPO, "conf", "yelp.toml"))
+    cfg.train.graph_form = "sparse"  # the train store stays "auto"
+    t0 = time.perf_counter()
+    host = make_synthetic_host_data(
+        cfg, user_num=YELP["user_num"], item_num=YELP["item_num"], density=YELP["density"],
+        modalities=["image", "text"], feat_dims=YELP["feat_dims"], seed=cfg.base.seed,
+    )
+    print(f"[path C] synthetic data in {time.perf_counter() - t0:.1f} s")
+    rec, coach = drive_path(dev, cfg, host, "C")
+    check(rec["graph_form"] == "sparse" and rec["train_store"] == "csr", f"C form {rec}")
+    blocks = -(-host.user_num // cfg.train.batch)  # 38 at 1,024 users a block
+    check(rec["launches"]["denoise_layer1"] == 2 * cfg.hyper.steps * blocks,
+          f"C denoise launches {rec['launches']}")
+    ui = host.user_num * host.item_num
+    check(ui not in tensor_numels(vars(coach)), "C holds a (U, I) tensor")
+    rec["holds_ui_tensor"] = False
+    return rec, phase_profile(coach, "C", report_dir)
+
+
+def phase_path_d(dev) -> dict:
+    rec, coach = drive_path(dev, *_tiktok_mini(sparse=True), "D")
+    store = coach.data.train_store
+    check(rec["train_store"] == "csr" and store.heavy_ids is not None and store.k_cut < store.k_max,
+          f"D store {rec['train_store']}: no head/tail split")
+    rec["head_tail"] = {"k_cut": store.k_cut, "k_max": store.k_max, "heavy": int(store.heavy_ids.numel())}
+    check(coach.host.user_num * coach.host.item_num not in tensor_numels(vars(coach)),
+          "D holds a (U, I) tensor")
     return rec
 
 
@@ -419,23 +641,34 @@ def main(argv=None) -> int:
     report["build"] = phase_build()
     report["kernels"] = phase_kernels(dev)
     report["reference"] = phase_reference(dev)
-    report["path_A"] = phase_path_a(dev)
+    report["path_A"], report["profile_A"] = phase_path_a(dev, args.report_dir)
     report["path_B"] = phase_path_b(dev)
-    report["profile_A"] = phase_profile(dev, args.report_dir)
+    report["path_C"], report["profile_C"] = phase_path_c(dev, args.report_dir)
+    report["path_D"] = phase_path_d(dev)
 
+    # each kernel's launches come from the path that runs it: K1-K3 from A
+    # (dense form), K4 from C (sparse form); the other paths' beside them
+    kernels = report["kernels"]
     rows = []
     for name, meta in KERNELS.items():
-        k = report["kernels"][name]
-        launches = report["path_A"]["launches"][name]
+        main_path, others = ("C", "D") if name == "segsum" else ("A", "BCD")
+        k = kernels["segsum_user" if name == "segsum" else name]
+        launches = report[f"path_{main_path}"]["launches"][name]
         row = {"name": name, "route": "cuda", "source": meta["source"],
                "replaces": meta["replaces"], "launches": launches,
-               "launches_B": report["path_B"]["launches"][name],
+               **{f"launches_{p}": report[f"path_{p}"]["launches"][name] for p in others},
                **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
-               "ok": bool(k["ok"]) and launches > 0}
+                                          "bound_by", "library_ms")}}
         if name == "spmm_dual":
-            row["bf16_store"] = report["kernels"]["spmm_dual_bf16"]
-            row["ok"] = row["ok"] and bool(row["bf16_store"]["ok"])
+            extra = {"bf16_store": kernels["spmm_dual_bf16"]}
+        elif name == "segsum":
+            extra = {"cases": {key: rec for key, rec in kernels.items()
+                               if key.startswith("segsum_") and key != "segsum_user"}}
+        else:
+            extra = {"yelp_shape": kernels[name + "_yelp"]}
+        cases = [k, *(extra["cases"].values() if name == "segsum" else extra.values())]
+        row.update(extra)
+        row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0
         rows.append(row)
     ok = all(row["ok"] for row in rows)
     report["ok"] = ok

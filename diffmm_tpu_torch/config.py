@@ -8,7 +8,8 @@ keeps the schema and the defaults.
 
 The port reads none of the JAX package's environment knobs
 (``DIFFMM_SPMM``, ``DIFFMM_SEGSUM*``): on the card the dense form always
-goes through the ``spmm_dual`` kernel. The data knobs ``DIFFMM_DATA_ROOT``,
+goes through the ``spmm_dual`` kernel and the sparse form through the
+``segsum`` kernel, with no other route. The data knobs ``DIFFMM_DATA_ROOT``,
 ``DIFFMM_FEAT_CACHE`` and ``DIFFMM_SYNTH_MODE`` keep their meaning
 (``data/loader.py``).
 
@@ -222,7 +223,7 @@ def check_slice_support(config: Config) -> None:
         raise NotImplementedError(
             "a denoiser with more than one hidden layer is not ported yet: "
             "the denoise_mlp kernel takes one hidden layer "
-            "(ROADMAP.md A, slice 2: diffusion training)"
+            "(ROADMAP.md A, slice 3: training)"
         )
     if config.hyper.use_knn_adj:
         raise NotImplementedError(

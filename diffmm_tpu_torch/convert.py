@@ -1,9 +1,11 @@
-"""Carry a JAX run's parameters into the port.
+"""Carry a JAX run's parameters and sparse-form graph state into the port.
 
 :func:`params_from_jax` takes the ``diffmm_tpu`` parameter pytrees as numpy
 arrays (``jax.device_get`` of ``Coach.gcn_params`` and ``Coach.dn_params``)
 and returns the port's parameters, after which both packages compute the
-same functions.
+same functions. :func:`bi_adj_from_jax` and :func:`train_csr_from_jax` do
+the same for a sparse-form adjacency (``BiAdj``) and a CSR train store
+(``TrainCSR``), read field by field as numpy arrays.
 
 Layout: both packages store a Linear as ``{"w": (d_in, d_out), "b":
 (d_out,)}`` and compute ``x @ w + b`` (torch's ``nn.Linear`` keeps the
@@ -21,6 +23,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from diffmm_tpu_torch.data.membership import TrainCSR, make_train_csr
+from diffmm_tpu_torch.ops.graph import BiAdj, assemble_bi_adj
 
 
 def tree_to(tree, device):
@@ -57,3 +62,29 @@ def params_from_jax(gcn_params: dict, dn_params_list: list, device: str | torch.
         gcn_params_from_jax(gcn_params, device),
         [denoise_params_from_jax(p, device) for p in dn_params_list],
     )
+
+
+def bi_adj_from_jax(adj, device: str | torch.device = "cpu") -> BiAdj:
+    """A JAX ``BiAdj`` (numpy fields, e.g. ``jax.device_get`` of one) as the
+    port's: the same edges, permutation and scales, with the port's
+    item-major pair and offsets made from them (``rank_aux`` is dropped)."""
+
+    def put(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    scales = [put(adj.s_user, np.float32), put(adj.s_item, np.float32)]
+    return assemble_bi_adj(
+        put(adj.ui_rows, np.int32), put(adj.ui_cols, np.int32), put(adj.iu_perm, np.int32),
+        scales[0].shape[0], scales[1].shape[0], scales,
+    )
+
+
+def train_csr_from_jax(store, device: str | torch.device = "cpu") -> TrainCSR:
+    """A JAX ``TrainCSR`` (numpy fields) as the port's, head/tail plan kept."""
+
+    def put(a):
+        return torch.as_tensor(np.array(a, dtype=np.int32), device=device)
+
+    heavy = None if store.heavy_ids is None else np.asarray(store.heavy_ids)
+    return make_train_csr(put(store.cols), put(store.offsets), put(store.degrees),
+                          store.k_max, store.k_cut, heavy)

@@ -7,7 +7,8 @@ feature blobs synthesised deterministically (zeros, drop, randn, svd,
 svd_tfidf). The host arrays are numpy and equal to the JAX package's.
 
 :func:`to_device` places them on a torch device with the dense (U, I) int8
-train store. The O(nnz) CSR store comes with the sparse-form slice.
+train store or the O(nnz) CSR store, and the sparse-form main adjacency
+when the run asks for it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import scipy.sparse as sp
 import torch
 
 from diffmm_tpu_torch.config import Config
+from diffmm_tpu_torch.data.membership import make_train_csr, plan_head_tail
+from diffmm_tpu_torch.ops.graph import build_bi_adj_host
 
 # Modality layout per dataset (reference `DataHandler.py:33-37`)
 MODALITIES = {"tiktok": ["image", "text", "audio"]}
@@ -199,15 +202,16 @@ class HostData:
 
 
 class DeviceData(NamedTuple):
-    """Device-resident tensors. ``adj`` is the dense main-graph adjacency,
-    set by the Coach once built."""
+    """Device-resident tensors. ``adj`` is the main-graph adjacency: a
+    ``BiAdj`` built here on the sparse form, a ``DenseBiAdj`` set by the
+    Coach on the dense form."""
 
     adj: object
     train_rows: torch.Tensor  # (nnz_pad,) int32, sentinel-padded
     train_cols: torch.Tensor
     user_degrees: torch.Tensor
     csr_offsets: torch.Tensor
-    train_store: torch.Tensor  # (U, I) int8
+    train_store: object  # (U, I) int8 tensor or membership.TrainCSR
     raw_feats: list[torch.Tensor]
     test_users: torch.Tensor
     test_items: torch.Tensor
@@ -350,28 +354,45 @@ def pad_edges(
 
 
 def to_device(
-    host: HostData, device: torch.device | str, train_store: str = "dense"
+    host: HostData,
+    device: torch.device | str,
+    train_store: str = "dense",
+    with_sparse_adj: bool = False,
+    batch: int = 1024,
 ) -> DeviceData:
-    """Place the host arrays on ``device`` with the dense (U, I) int8 train
-    store (reference `DataHandler.py:128`)."""
-    if train_store == "csr":
-        raise NotImplementedError(
-            "train_store='csr' is not ported yet (ROADMAP.md A, slice 3: sparse form)"
-        )
-    if train_store != "dense":
-        raise ValueError(f"train_store must be dense|csr, got {train_store!r}")
+    """Place the host arrays on ``device`` (JAX ``to_device``).
+
+    ``train_store``: "dense" places the (U, I) int8 matrix (reference
+    `DataHandler.py:128`); "csr" a ``TrainCSR`` over the same padded
+    columns, offsets and degrees placed here, with the head/tail split
+    planned for rebuild blocks of ``batch`` users; the host's dense matrix
+    is then never built. ``with_sparse_adj`` builds the sparse-form main
+    adjacency from the host edges."""
     rows_p, cols_p = pad_edges(host.train_rows, host.train_cols, host.user_num, host.item_num)
 
     def put(a):
         return None if a is None else torch.as_tensor(a, device=device)
 
+    cols_dev = put(cols_p)
+    degrees_dev = put(host.user_degrees)
+    offsets_dev = put(host.csr_offsets)
+    if train_store == "dense":
+        store = put(host.train_dense)
+    elif train_store == "csr":
+        k_cut, heavy_ids = plan_head_tail(host.user_degrees, host.k_max, block=batch)
+        store = make_train_csr(cols_dev, offsets_dev, degrees_dev, host.k_max, k_cut, heavy_ids)
+    else:
+        raise ValueError(f"train_store must be dense|csr, got {train_store!r}")
+    adj = None
+    if with_sparse_adj:
+        adj = build_bi_adj_host(rows_p, cols_p, host.user_num, host.item_num, device)
     return DeviceData(
-        adj=None,
+        adj=adj,
         train_rows=put(rows_p),
-        train_cols=put(cols_p),
-        user_degrees=put(host.user_degrees),
-        csr_offsets=put(host.csr_offsets),
-        train_store=put(host.train_dense),
+        train_cols=cols_dev,
+        user_degrees=degrees_dev,
+        csr_offsets=offsets_dev,
+        train_store=store,
         raw_feats=[put(f) for f in host.raw_feats],
         test_users=put(host.test_users),
         test_items=put(host.test_items),

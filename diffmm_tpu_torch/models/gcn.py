@@ -10,8 +10,12 @@ Dataflow of :func:`gcn_mm`: project each modality's features, propagate
 propagate ``[u_embs ; i_embs]`` once over the main graph, mix, fuse with the
 softmax modality weights, then one more hop with the residual quirk
 ``final = (1 + rw) * (fused + A@fused)`` (the reference's in-place chain
-aliases ``modal_embs``, `Model.py:129-131`). The stacked-modal and segment-sum
-arguments of the JAX function belong to the sparse form and are left out.
+aliases ``modal_embs``, `Model.py:129-131`). On the sparse form with more
+than one modality the modal loop always runs stacked
+(``ops/graph.py::spmm_bi_modal_stacked``): ``train.stack_modal``, the JAX
+package's opt-out from a gate it measured on the TPU, is read and ignored
+(``train/coach.py``). ``segsum_compute`` sets the messages' type. The JAX
+function's static plans have no counterpart (the K4 kernel needs none).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from diffmm_tpu_torch.ops.graph import DenseBiAdj, spmm_bi
+from diffmm_tpu_torch.ops.graph import BiAdj, spmm_bi, spmm_bi_modal_stacked
 from diffmm_tpu_torch.ops.losses import l2_normalize
 
 Params = dict[str, Any]
@@ -83,36 +87,41 @@ def project_features(params: Params, raw_feats: list[torch.Tensor]) -> list[torc
 
 def gcn_mm(
     params: Params,
-    adj: DenseBiAdj,
-    modal_adjs: list[DenseBiAdj],
+    adj,
+    modal_adjs: list,
     raw_feats: list[torch.Tensor],
     modal_adj_weight: float,
     residual_weight: float,
+    segsum_compute: str = "f32",
 ) -> GCNOutput:
-    """Multi-modal graph aggregation (reference `Model.py:60-134`): five
-    propagations on the dense form, one per modality graph and two over the
-    main graph."""
+    """Multi-modal graph aggregation (reference `Model.py:60-134`): one
+    propagation per modality graph and two over the main graph, on
+    ``DenseBiAdj``s or ``BiAdj``s."""
     u_embs = params["u_embs"]
     i_embs = params["i_embs"]
     feats = project_features(params, raw_feats)
     weight = torch.softmax(params["modal_weight"], dim=0)
 
-    modal_u, modal_i = [], []
-    for m_adj, f in zip(modal_adjs, feats):
-        mu, mi = spmm_bi(m_adj, u_embs, l2_normalize(f, dim=1))
-        modal_u.append(mu)
-        modal_i.append(mi)
-    modal_u = torch.stack(modal_u)  # (M, U, d)
-    modal_i = torch.stack(modal_i)  # (M, I, d)
+    feats_n = [l2_normalize(f, dim=1) for f in feats]
+    if len(modal_adjs) > 1 and isinstance(modal_adjs[0], BiAdj):
+        modal_u, modal_i = spmm_bi_modal_stacked(modal_adjs, u_embs, feats_n, segsum_compute)
+    else:
+        modal_u, modal_i = [], []
+        for m_adj, f in zip(modal_adjs, feats_n):
+            mu, mi = spmm_bi(m_adj, u_embs, f, segsum_compute)
+            modal_u.append(mu)
+            modal_i.append(mi)
+        modal_u = torch.stack(modal_u)  # (M, U, d)
+        modal_i = torch.stack(modal_i)  # (M, I, d)
 
-    id_u, id_i = spmm_bi(adj, u_embs, i_embs)
+    id_u, id_i = spmm_bi(adj, u_embs, i_embs, segsum_compute)
 
     aware_u = id_u[None] + modal_adj_weight * modal_u
     aware_i = id_i[None] + modal_adj_weight * modal_i
     fused_u = torch.einsum("m,mud->ud", weight, aware_u)
     fused_i = torch.einsum("m,mid->id", weight, aware_i)
 
-    hop_u, hop_i = spmm_bi(adj, fused_u, fused_i)
+    hop_u, hop_i = spmm_bi(adj, fused_u, fused_i, segsum_compute)
     final_u = (1.0 + residual_weight) * (fused_u + hop_u)
     final_i = (1.0 + residual_weight) * (fused_i + hop_i)
     return GCNOutput(

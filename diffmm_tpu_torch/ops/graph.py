@@ -1,21 +1,28 @@
-"""Bipartite-graph propagation, dense form.
+"""Bipartite-graph propagation, dense and sparse forms.
 
-Counterpart of the dense form in ``diffmm_tpu/ops/graph.py``: the
-symmetric-normalised bipartite adjacency ``D^-1/2 (A + I) D^-1/2`` over the
-(user, item) nodes (reference `DataHandler.py:68-93`) with the self-loop
-folded analytically, ``y = s * (A (s * x)) + s^2 * x``, and the 0/1 block A
-held as a dense (U, I) matrix. Both propagation directions go through the
-``spmm_dual`` kernel (K1) on the card, with bf16 operands and f32
-accumulation as in the JAX package. The sparse form (``BiAdj``, segment
-sums, kernel K4) comes with a later slice.
+Counterpart of ``diffmm_tpu/ops/graph.py``: the symmetric-normalised
+bipartite adjacency ``D^-1/2 (A + I) D^-1/2`` over the (user, item) nodes
+(reference `DataHandler.py:68-93`) with the self-loop folded analytically,
+``y = s * (A (s * x)) + s^2 * x``. The 0/1 block A is held either
+
+* dense (:class:`DenseBiAdj`): a (U, I) int8 or bf16 matrix; both
+  propagation directions go through the ``spmm_dual`` kernel (K1) on the
+  card, with bf16 operands and f32 accumulation as in the JAX package; or
+* sparse (:class:`BiAdj`): the edges sorted user-major plus a permutation
+  to item-major order; each direction gathers one message per edge and
+  reduces them by ascending segment id through the ``segsum`` kernel (K4)
+  on the card, in f32 (or with bf16 messages, ``compute="bf16"``). Nothing
+  of size O(U·I) exists in this form.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum
 from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, spmm_dual
 
 
@@ -40,6 +47,49 @@ class DenseBiAdj(NamedTuple):
     @property
     def item_num(self) -> int:
         return self.mat.shape[1]
+
+
+class BiAdj(NamedTuple):
+    """The normalised bipartite operator in sparse form: the JAX package's
+    fields, with per-direction CSR offsets in place of its ``rank_aux``.
+
+    Attributes:
+      ui_rows: (nnz,) int32 user per edge, ascending; sentinel pads
+        ``(user_num, item_num)`` sit at the tail.
+      ui_cols: (nnz,) int32 item per edge.
+      iu_perm: (nnz,) int32 stable permutation with ``ui_cols[iu_perm]``
+        ascending (the item-major order of the same edges).
+      s_user: (U,) f32 ``(deg_u + 1)^-1/2``.
+      s_item: (I,) f32 ``(deg_i + 1)^-1/2``.
+      iu_inv: (nnz,) int32 inverse of ``iu_perm`` (the backward's order).
+      iu_rows: (nnz,) int32 ``ui_cols[iu_perm]``, the item-major segment ids.
+      iu_cols: (nnz,) int32 ``ui_rows[iu_perm]``, the user per item-major edge.
+      ui_offsets: (U + 1,) int64 CSR offsets of ``ui_rows``.
+      iu_offsets: (I + 1,) int64 CSR offsets of ``iu_rows``.
+
+    The item-major pair and both offsets are fixed per build, so they are
+    made once there (the JAX package recomputes the pair per call inside its
+    compiled program and hoists ``rank_aux`` the same way).
+    """
+
+    ui_rows: torch.Tensor
+    ui_cols: torch.Tensor
+    iu_perm: torch.Tensor
+    s_user: torch.Tensor
+    s_item: torch.Tensor
+    iu_inv: torch.Tensor
+    iu_rows: torch.Tensor
+    iu_cols: torch.Tensor
+    ui_offsets: torch.Tensor
+    iu_offsets: torch.Tensor
+
+    @property
+    def user_num(self) -> int:
+        return self.s_user.shape[0]
+
+    @property
+    def item_num(self) -> int:
+        return self.s_item.shape[0]
 
 
 def build_dense_bi_adj_device(
@@ -72,17 +122,135 @@ def build_dense_bi_adj_device(
     )
 
 
-def spmm_bi(adj: DenseBiAdj, x_user: torch.Tensor, x_item: torch.Tensor):
+def assemble_bi_adj(ui_rows, ui_cols, iu_perm, user_num, item_num, scales=None) -> BiAdj:
+    """Complete a :class:`BiAdj` from its user-major edges and item-major
+    permutation: the inverse permutation, the item-major pair, the offsets
+    and, unless given, the scales from the CSR span lengths (the degrees)."""
+    perm = iu_perm.long()
+    iu_inv = torch.empty_like(iu_perm)
+    iu_inv[perm] = torch.arange(perm.shape[0], dtype=iu_perm.dtype, device=iu_perm.device)
+    iu_rows = ui_cols[perm]
+    ui_offsets = segment_offsets(ui_rows, user_num)
+    iu_offsets = segment_offsets(iu_rows, item_num)
+    if scales is None:
+        scales = [torch.rsqrt(o.diff().to(torch.float32) + 1.0) for o in (ui_offsets, iu_offsets)]
+    return BiAdj(
+        ui_rows=ui_rows,
+        ui_cols=ui_cols,
+        iu_perm=iu_perm,
+        s_user=scales[0],
+        s_item=scales[1],
+        iu_inv=iu_inv,
+        iu_rows=iu_rows,
+        iu_cols=ui_rows[perm],
+        ui_offsets=ui_offsets,
+        iu_offsets=iu_offsets,
+    )
+
+
+def build_bi_adj_host(
+    rows: np.ndarray, cols: np.ndarray, user_num: int, item_num: int,
+    device: torch.device | str = "cpu",
+) -> BiAdj:
+    """Sparse-form adjacency from host edges (JAX ``build_bi_adj_host``):
+    a stable sort by user, a stable item-major permutation, and the scales
+    in f64 rounded to f32, as the JAX package computes them. Duplicate
+    edges must already be removed; sentinel pads ``(user_num, item_num)``
+    at the tail are excluded from the degrees."""
+    order = np.argsort(rows, kind="stable")
+    rows = np.asarray(rows, dtype=np.int32)[order]
+    cols = np.asarray(cols, dtype=np.int32)[order]
+    iu_perm = np.argsort(cols, kind="stable").astype(np.int32)
+    deg_u = np.bincount(rows, minlength=user_num)[:user_num].astype(np.float64)
+    deg_i = np.bincount(cols, minlength=item_num)[:item_num].astype(np.float64)
+    scales = [
+        torch.as_tensor(((deg + 1.0) ** -0.5).astype(np.float32), device=device)
+        for deg in (deg_u, deg_i)
+    ]
+    return assemble_bi_adj(
+        torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device),
+        torch.as_tensor(iu_perm, device=device), user_num, item_num, scales,
+    )
+
+
+def build_bi_adj_device(
+    ui_rows: torch.Tensor, ui_cols: torch.Tensor, user_num: int, item_num: int,
+) -> BiAdj:
+    """Sparse-form adjacency from device edges sorted by user (JAX
+    ``build_bi_adj_device``, the epoch's graph rebuild): a stable argsort
+    for the item-major order and the degrees as CSR span lengths. Sentinel
+    pads sort past the last segment in both orders, so they fall out of the
+    degrees and out of every reduction."""
+    ui_cols = ui_cols.to(torch.int32)
+    iu_perm = torch.argsort(ui_cols, stable=True).to(torch.int32)
+    return assemble_bi_adj(ui_rows.to(torch.int32), ui_cols, iu_perm, user_num, item_num)
+
+
+def _cast(z: torch.Tensor, compute: str) -> torch.Tensor:
+    """The messages' type: ``compute="bf16"`` rounds z before the gather
+    (JAX ``_get_propagator``: half the (nnz, d) transient, f32 sums)."""
+    return z.to(torch.bfloat16) if compute == "bf16" else z
+
+
+def _gather(z: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``z[src]`` per edge. The pads' source index (one past the last row)
+    is clamped: out of range it would fault on the card, where the JAX
+    gather fills NaN; the reduction never reads the pads."""
+    return z.index_select(0, src.clamp_max(z.shape[0] - 1))
+
+
+def _propagate_sorted(z, src, offsets, compute):
+    """One direction: ``y[r] = sum_{ids[e] = r} z[src[e]]`` for ascending
+    ``ids`` with CSR ``offsets``, reduced by K4 (JAX ``_propagate_sorted``
+    forward; its ``_reduce_sorted`` has the one route here, :func:`segsum`)."""
+    return segsum(_gather(_cast(z, compute), src), offsets)
+
+
+def spmm_bi(adj, x_user: torch.Tensor, x_item: torch.Tensor, compute: str = "f32"):
     """``y = D^-1/2 (A + I) D^-1/2 x`` on the split (user, item) embedding
-    pair (reference `Model.py:90`), dense form (JAX ``_spmm_bi_dense``).
-    Returns ``(y_user, y_item)``."""
-    if not isinstance(adj, DenseBiAdj):
-        raise NotImplementedError(
-            "the sparse graph form is not ported yet (ROADMAP.md A, slice 3)"
-        )
+    pair (reference `Model.py:90`), dispatched on the adjacency's form:
+    K1 on a :class:`DenseBiAdj`, K4 in both directions on a
+    :class:`BiAdj`. ``compute`` sets the sparse form's message type (the
+    dense form always rounds z to bf16). Returns ``(y_user, y_item)``."""
     z_u = x_user * adj.s_user[:, None]
     z_i = x_item * adj.s_item[:, None]
-    m_u, m_i = spmm_dual(adj.mat, z_u, z_i)
+    if isinstance(adj, DenseBiAdj):
+        m_u, m_i = spmm_dual(adj.mat, z_u, z_i)
+    else:
+        m_u = _propagate_sorted(z_i, adj.ui_cols, adj.ui_offsets, compute)
+        m_i = _propagate_sorted(z_u, adj.iu_cols, adj.iu_offsets, compute)
     y_u = adj.s_user[:, None] * (m_u + z_u)
     y_i = adj.s_item[:, None] * (m_i + z_i)
     return y_u, y_i
+
+
+def spmm_bi_modal_stacked(
+    adjs: list[BiAdj], x_user: torch.Tensor, x_items: list[torch.Tensor], compute: str = "f32",
+):
+    """All M modality propagations of ``gcn_mm``'s modal loop at once:
+    ``(modal_u (M, U, d), modal_i (M, I, d))``, equal to M :func:`spmm_bi`
+    calls up to f32 summation order (JAX ``spmm_bi_modal_stacked``).
+
+    The rebuilt modality graphs share the train rows (``ops/topk.py``), so
+    the M user-direction reductions run as ONE K4 launch at width M·d over
+    the shared ``ui_rows``; the item direction has a layout per modality
+    and runs one launch each. The shared rows are asserted (the JAX
+    docstring states the precondition without checking it)."""
+    rows = adjs[0].ui_rows
+    for a in adjs[1:]:
+        if a.ui_rows is not rows and not torch.equal(a.ui_rows, rows):
+            raise ValueError("spmm_bi_modal_stacked: the adjacencies must share ui_rows")
+    M, d = len(adjs), x_user.shape[1]
+    U = adjs[0].user_num
+    z_u = [x_user * a.s_user[:, None] for a in adjs]
+    z_i = [x * a.s_item[:, None] for x, a in zip(x_items, adjs)]
+    msgs = torch.cat([_gather(_cast(z, compute), a.ui_cols) for z, a in zip(z_i, adjs)], dim=1)
+    wide = segsum(msgs, adjs[0].ui_offsets)  # (U, M * d)
+    m_u = wide.view(U, M, d).permute(1, 0, 2)
+    m_i = [
+        _propagate_sorted(z, a.iu_cols, a.iu_offsets, compute)
+        for z, a in zip(z_u, adjs)
+    ]
+    s_u = torch.stack([a.s_user for a in adjs])[:, :, None]
+    s_i = torch.stack([a.s_item for a in adjs])[:, :, None]
+    return s_u * (m_u + torch.stack(z_u)), s_i * (torch.stack(m_i) + torch.stack(z_i))

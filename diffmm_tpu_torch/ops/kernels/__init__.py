@@ -9,6 +9,8 @@ package with the same name:
 * ``denoise_mlp`` — K2 and K3, the single-hidden-layer denoiser forward
   (replaces ``ops/pallas/denoise_mlp.py::_layer1_kernel`` and
   ``_layer2_kernel``).
+* ``segsum``      — K4, the sorted segment sum of the sparse graph form over
+  CSR offsets (replaces ``ops/pallas/segsum.py::_segsum_kernel``).
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``, at first use, into
@@ -31,7 +33,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("spmm_dual", "denoise_mlp")
+SOURCES = ("spmm_dual", "denoise_mlp", "segsum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

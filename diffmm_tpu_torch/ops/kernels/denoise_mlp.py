@@ -144,7 +144,7 @@ def denoise_forward_fused(params, x_t: torch.Tensor, timesteps: torch.Tensor) ->
     if len(params["in_layers"]) != 1 or len(params["out_layers"]) != 1:
         raise NotImplementedError(
             "the denoise_mlp kernels take a single hidden layer "
-            "(ROADMAP.md A, slice 2: diffusion training)"
+            "(ROADMAP.md A, slice 3: training)"
         )
     emb = timestep_embedding(timesteps, params["emb"]["w"].shape[0])
     time_emb = emb @ params["emb"]["w"] + params["emb"]["b"]

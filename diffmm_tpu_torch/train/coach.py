@@ -2,7 +2,8 @@
 
 Counterpart of ``diffmm_tpu/train/coach.py``: the graph-form choice
 (``choose_graph_form`` with ``dense_graph_budget_bytes`` and
-``estimate_state_bytes``, lines 69-186), the schedule, the CSR gather layout
+``estimate_state_bytes``, lines 69-186) and the train store that follows
+it (281-293), the schedule, the CSR gather layout
 and the degree-bucket plan (314-346), the phase-2 rebuild of ``train_epoch``
 (845-863) as :meth:`Coach.rebuild_graphs`, and ``test_epoch`` (1232-1293).
 Training (``train_epoch``, ``run``, checkpoints, best capture) comes with
@@ -22,7 +23,7 @@ from diffmm_tpu_torch.diffusion.schedule import make_schedule
 from diffmm_tpu_torch.eval.ranking import dcg_table, eval_epoch
 from diffmm_tpu_torch.models.denoise import init_denoise_params
 from diffmm_tpu_torch.models.gcn import init_gcn_params
-from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
+from diffmm_tpu_torch.ops.graph import build_bi_adj_device, build_dense_bi_adj_device
 from diffmm_tpu_torch.ops.topk import make_csr_gather_layout, plan_rebuild_buckets
 from diffmm_tpu_torch.train import steps
 from diffmm_tpu_torch.utils.device import resolve_device
@@ -106,7 +107,9 @@ class Coach:
         self.n_modal = len(host.modalities)
         # Checked as the JAX package checks them, then ignored: the port has
         # one denoiser path (K2/K3 on the card, their plain versions on the
-        # CPU) and one top-k (``ops/topk.py::topk_table``).
+        # CPU) and one top-k (``ops/topk.py::topk_table``). So is
+        # ``train.stack_modal``: the sparse form always stacks its modal
+        # propagations (``models/gcn.py``).
         for name, allowed in (
             ("base.denoiser_impl", ("auto", "xla", "pallas")),
             ("train.rebuild_topk", ("approx", "exact")),
@@ -134,20 +137,32 @@ class Coach:
                         config.base.d_emb_size, host.feat_dims,
                     ),
                 )
-        dense = choose_graph_form(
+        self.dense_graphs = choose_graph_form(
             config.train.graph_form, self.n_modal, host.user_num, host.item_num,
             bytes_per_cell, budget,
         )
-        if not dense:
-            raise NotImplementedError(
-                "the sparse graph form is not ported yet (ROADMAP.md A, slice 3); "
-                "this shape needs it under the dense blocks budget of "
-                f"{budget / 2**30:.2f} GiB"
+        if config.train.graph_form == "auto" and not self.dense_graphs:
+            self.log.info(
+                f"auto graph form: sparse (dense blocks over the budget of "
+                f"{budget / 2**30:.2f} GiB; train.dense_budget_gb overrides)"
+            )
+        if config.train.segsum_compute not in ("f32", "bf16"):
+            raise ValueError(
+                f"train.segsum_compute must be f32|bf16, got {config.train.segsum_compute!r}"
             )
         store = config.train.train_store
-        if store not in ("auto", "dense", "csr"):
+        if store == "auto":
+            # the sparse form exists because O(U·I) does not fit, so its
+            # membership store is O(nnz) too (JAX coach.py:281-287)
+            self.train_store_form = "dense" if self.dense_graphs else "csr"
+        elif store in ("dense", "csr"):
+            self.train_store_form = store
+        else:
             raise ValueError(f"train.train_store must be auto|dense|csr, got {store!r}")
-        self.data = to_device(host, self.device, "dense" if store == "auto" else store)
+        self.data = to_device(
+            host, self.device, self.train_store_form,
+            with_sparse_adj=not self.dense_graphs, batch=config.train.batch,
+        )
 
         self.schedule = make_schedule(
             config.hyper.noise_scale, config.hyper.noise_min, config.hyper.noise_max,
@@ -177,14 +192,18 @@ class Coach:
             torch.as_tensor(a, device=self.device) for a in (u_of_pos, lane_of_pos, pad_mask)
         )
         self.cum_dcg = dcg_table(config.base.topk, self.device)
-        self.data = self.data._replace(
-            adj=self._make_adj(self.data.train_rows, self.data.train_cols)
-        )
+        if self.dense_graphs:
+            self.data = self.data._replace(
+                adj=self._make_adj(self.data.train_rows, self.data.train_cols)
+            )
         self.init_params(config.base.seed)
 
         self.log.info(f"USER: {host.user_num}, ITEM: {host.item_num}")
         self.log.info(f"NUM OF INTERACTIONS: {host.nnz}")
-        self.log.info(f"Graph form: dense | train store: dense | device: {self.device}")
+        self.log.info(
+            f"Graph form: {'dense' if self.dense_graphs else 'sparse'} | "
+            f"train store: {self.train_store_form} | device: {self.device}"
+        )
         if host.synthesized:
             self.log.info(f"⚠️ synthesized missing feature blobs for: {host.synthesized}")
 
@@ -228,9 +247,12 @@ class Coach:
         }
 
     def _make_adj(self, rows: torch.Tensor, cols: torch.Tensor):
-        return build_dense_bi_adj_device(
-            rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype
-        )
+        """A normalised adjacency in the run's graph form."""
+        if self.dense_graphs:
+            return build_dense_bi_adj_device(
+                rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype
+            )
+        return build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num)
 
     # ------------------------------------------------------------ phases
     @torch.no_grad()
@@ -257,7 +279,8 @@ class Coach:
         if self.modal_adjs is None:
             raise RuntimeError("run rebuild_graphs() first: the forward reads the modality graphs")
         return steps.gcn_forward(
-            self.gcn_params, self.data.adj, self.modal_adjs, self.data.raw_feats, self.hp()
+            self.gcn_params, self.data.adj, self.modal_adjs, self.data.raw_feats, self.hp(),
+            self.config.train.segsum_compute,
         )
 
     @torch.no_grad()

@@ -22,7 +22,7 @@ from diffmm_tpu_torch.ops.topk import csr_gather_build, topk_table
 def rebuild_block_tables(
     schedule: DiffusionSchedule,
     dn_params_list: list,
-    train_store: torch.Tensor,
+    train_store,
     users: torch.Tensor,
     item_num: int,
     sampling_step: int,
@@ -46,7 +46,7 @@ def rebuild_block_tables(
 def rebuild_epoch(
     schedule: DiffusionSchedule,
     dn_params_list: list,
-    train_store: torch.Tensor,
+    train_store,
     bucket_blocks: tuple[torch.Tensor, ...],
     widths: tuple[int, ...],
     starts: tuple[int, ...],
@@ -100,11 +100,12 @@ def rebuild_epoch(
     return buffers
 
 
-def gcn_forward(gcn_params, adj, modal_adjs, raw_feats, hp: dict):
+def gcn_forward(gcn_params, adj, modal_adjs, raw_feats, hp: dict, segsum_compute: str = "f32"):
     """Final (user, item) embeddings for eval and serving."""
     out = gcn_mm(
         gcn_params, adj, list(modal_adjs), raw_feats,
         modal_adj_weight=hp["modal_adj_weight"],
         residual_weight=hp["residual_weight"],
+        segsum_compute=segsum_compute,
     )
     return out.u_final, out.i_final

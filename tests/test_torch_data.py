@@ -100,5 +100,9 @@ def test_to_device_and_gather_rows():
     got = gather_rows(dev.train_store, users, 40)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), host.train_dense[[3, 0, 49, 3]].astype(np.float32))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tl.to_device(host, "cpu", train_store="csr")
+    # the CSR store gives the same rows
+    csr = tl.to_device(host, "cpu", train_store="csr", with_sparse_adj=True)
+    np.testing.assert_array_equal(gather_rows(csr.train_store, users, 40).numpy(), got.numpy())
+    assert csr.adj.ui_rows.shape == (len(rows_p),) and dev.adj is None
+    with pytest.raises(ValueError, match="dense|csr"):
+        tl.to_device(host, "cpu", train_store="coo")

@@ -6,7 +6,11 @@ on a machine with a card: ``python -m pytest tests/test_torch_gpu.py -q``.
 
 Tolerances as in chip_smoke.py: K1 rtol 1e-5 / atol 1e-5 (exact products,
 f32 sums in another order); K2/K3 rtol 1e-5 / atol 5e-5 (f32 sums of up to
-thousands of products in another order than cuBLAS)."""
+thousands of products in another order than cuBLAS); K4 |kernel - plain|
+<= 1e-6 * sum|msgs| + 1e-6 per output element (the kernel sums each segment
+in edge order, the plain version's index_add_ in the order its atomics land;
+a reordered f32 sum moves by a few eps = 1.2e-7 of the sum of its terms'
+magnitudes, which a hub segment of thousands of edges makes large)."""
 
 import pytest
 import torch
@@ -78,3 +82,85 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         spmm_dual(torch.zeros((4, 3), device=cuda),
                   torch.zeros((4, 16), device=cuda), torch.zeros((3, 16), device=cuda))
+
+
+def segsum_close(got, want, msgs, offsets) -> bool:
+    """K4's tolerance: the f32 summation order only, scaled by the sum of
+    the magnitudes of each output's terms."""
+    from diffmm_tpu_torch.ops.kernels.segsum import segsum_plain
+
+    return bool(((got - want).abs() <= 1e-6 * segsum_plain(msgs.abs(), offsets) + 1e-6).all())
+
+
+# (n, nnz, d, skew): the yelp-shape user and item directions and the stacked
+# width, then ragged widths that take 1, 2 and 2 column tiles of the kernel
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape", [(38403, 307200, 64, 1.0), (20000, 307200, 64, 2.0), (38403, 307200, 128, 1.0),
+              (50, 1000, 16, 2.0), (333, 4000, 300, 1.0), (7, 513, 257, 1.0)]
+)
+def test_segsum_kernel_matches_plain(cuda, dtype, shape):
+    from chip_smoke import sorted_segment_ids
+    from diffmm_tpu_torch.ops.kernels.segsum import LAUNCHES, segment_offsets, segsum, segsum_plain
+
+    n, nnz, d, skew = shape
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    ids = sorted_segment_ids(gen, n, nnz, 20, skew, cuda)
+    msgs = torch.randn((nnz, d), generator=gen, device=cuda).to(dtype)
+    msgs[-20:] = float("nan")  # the pads are never read
+    offsets = segment_offsets(ids, n)
+    before = LAUNCHES["segsum"]
+    got = segsum(msgs, offsets)
+    again = segsum(msgs, offsets)
+    want = segsum_plain(msgs, offsets)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segsum"] == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    assert segsum_close(got, want, msgs, offsets), float((got - want).abs().max())
+    empty = offsets.diff() == 0
+    assert not got[empty].any()
+
+
+def test_segsum_rejects_what_the_kernel_does_not_take(cuda):
+    from diffmm_tpu_torch.ops.kernels.segsum import segsum
+
+    with pytest.raises(TypeError):
+        segsum(torch.zeros((4, 8), dtype=torch.int32, device=cuda), torch.zeros(3, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="offsets"):
+        segsum(torch.zeros((4, 8), device=cuda), torch.zeros(3, dtype=torch.int32, device=cuda))
+
+
+def test_segsum_cuts_offsets_to_the_messages(cuda):
+    """Boundaries outside [0, nnz] read no row outside msgs, on the card
+    as in the plain version."""
+    from diffmm_tpu_torch.ops.kernels.segsum import segsum, segsum_plain
+
+    msgs = torch.randn((6, 40), device=cuda)
+    offsets = torch.tensor([-3, 2, 2, 5, 9], dtype=torch.int64, device=cuda)
+    got = segsum(msgs, offsets)
+    want = torch.stack([msgs[0:2].sum(0), torch.zeros(40, device=cuda), msgs[2:5].sum(0), msgs[5:6].sum(0)])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(segsum_plain(msgs, offsets), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_sparse_propagation_on_the_card_matches_the_cpu(cuda, compute):
+    from diffmm_tpu_torch.ops.graph import build_bi_adj_device, spmm_bi, spmm_bi_modal_stacked
+
+    U, I, d, nnz, M = 500, 300, 64, 4000, 2
+    gen = torch.Generator().manual_seed(3)
+    flat = torch.sort(torch.randperm(U * I, generator=gen)[:nnz]).values
+    rows = torch.cat([flat // I, torch.full((16,), U)]).to(torch.int32)
+    cols = [torch.cat([torch.randint(0, I // 2, (nnz,), generator=gen), torch.full((16,), I)]).to(torch.int32)
+            for _ in range(M)]
+    x_u = torch.randn((U, d), generator=gen)
+    feats = [torch.randn((I, d), generator=gen) for _ in range(M)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        adjs = [build_bi_adj_device(rows.to(dev), c.to(dev), U, I) for c in cols]
+        outs[str(dev)] = [t.cpu() for t in (
+            *spmm_bi(adjs[0], x_u.to(dev), feats[0].to(dev), compute),
+            *spmm_bi_modal_stacked(adjs, x_u.to(dev), [f.to(dev) for f in feats], compute),
+        )]
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

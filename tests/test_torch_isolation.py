@@ -61,12 +61,20 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serving.load_index(path)
     assert serving.load_index(path, device="cpu").u_final.device.type == "cpu"
+    cfg.train.graph_form = "sparse"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Coach(cfg, host)
+    sparse = Coach(cfg, host, device="cpu")
+    assert not sparse.dense_graphs and sparse.train_store_form == "csr"
+    sparse.rebuild_graphs()
+    assert serving.build_index(sparse).u_final.device.type == "cpu"
 
 
 def test_kernel_wrappers_raise_off_cuda_and_cpu():
     """On a CUDA tensor a wrapper launches or raises; on the CPU it takes the
     plain version; any other device raises."""
     from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_layer2, fused_denoise_mlp
+    from diffmm_tpu_torch.ops.kernels.segsum import segsum
     from diffmm_tpu_torch.ops.kernels.spmm_dual import spmm_dual
 
     meta = torch.device("meta")
@@ -78,6 +86,8 @@ def test_kernel_wrappers_raise_off_cuda_and_cpu():
                             for s in ((2, 3), (3, 4), (2, 4), (4, 3), (3,))))
     with pytest.raises(ValueError, match="denoise_layer2: unsupported device"):
         denoise_layer2(*(torch.empty(s, device=meta) for s in ((2, 4), (4, 3), (3,))))
+    with pytest.raises(ValueError, match="segsum: unsupported device"):
+        segsum(torch.empty((5, 64), device=meta), torch.zeros(4, dtype=torch.int64, device=meta))
 
 
 def _sources():
@@ -93,7 +103,8 @@ def test_no_library_stand_ins(needle):
 def test_no_except_around_a_kernel_launch():
     """No try block in the port encloses a kernel wrapper or C entry call."""
     launches = {"spmm_dual", "fused_denoise_mlp", "denoise_forward_fused", "_launch",
-                "spmm_dual_forward", "denoise_layer1", "denoise_layer2", "load_library"}
+                "spmm_dual_forward", "denoise_layer1", "denoise_layer2", "load_library",
+                "segsum", "segsum_forward"}
     for path in _sources():
         for node in ast.walk(ast.parse(path.read_text())):
             if not isinstance(node, ast.Try):

@@ -119,8 +119,8 @@ def test_coach_rejects_what_the_slice_cannot_run():
     _, tcfg = _configs("identity")
     host = t_synth(copy.deepcopy(tcfg), user_num=20, item_num=15, seed=1)
     for section, key, value, exc in (
-        ("train", "graph_form", "sparse", NotImplementedError),
-        ("train", "train_store", "csr", NotImplementedError),
+        ("train", "segsum_compute", "f16", ValueError),
+        ("train", "train_store", "coo", ValueError),
         ("train", "dense_store", "int4", NotImplementedError),
         ("train", "rebuild_order", "random", ValueError),
         ("train", "graph_form", "bogus", ValueError),
