@@ -11,7 +11,9 @@ exit, no result line):
    ``nvcc`` each, all at once; prints ptxas's register/shared-memory lines.
 2. kernels: each kernel's wrapper on card tensors at the main paths' shapes
    (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8 and bf16 storage;
-   K2/K3 ``denoise_mlp`` at B 1,024, H 1,024 and I 6,710 and 20,000; K4
+   K2/K3 ``denoise_mlp`` at B 1,024, H 1,024 and I 6,710 and 20,000, on
+   weights prepared once (also bitwise across two launches and within twice
+   the plain f32 product's error against float64); K4
    ``segsum`` at the yelp shape: the user direction, n 38,403, nnz 307,200,
    d 64; the item direction, n 20,000, ids with gaps; the stacked width
    d 128; f32 and bf16 messages) against its plain PyTorch version within
@@ -53,20 +55,24 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (dense): HBM bytes/s, bf16 and f32 FLOP/s.
+# Published H100 SXM peaks (dense): HBM bytes/s, bf16, TF32 and f32 FLOP/s.
+# TF32 is the card's fastest rate for f32 operands: the bound of an f32
+# product.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 # Tolerances of kernel vs plain version (elementwise, torch.allclose):
 # K1 sums exact products (0/1 x bf16) in f32 in another order than the
 # plain f32 matmul: rtol 1e-5, atol 1e-5. K2/K3 sum 6,710 or 20,000 (K2)
-# or 1,024 (K3) f32 products in another order than cuBLAS (no TF32 on
-# either side): rtol 1e-5, atol 5e-5. K4 sums each segment in edge order,
-# the plain index_add_ in the order its atomics land; a reordered f32 sum
-# moves by a few eps (1.2e-7) of the sum of its terms' magnitudes, which a
-# hub segment of thousands of edges makes large: |kernel - plain| <= rtol *
-# sum|msgs| + atol per output element, rtol 1e-6, atol 1e-6.
+# or 1,024 (K3) 3xTF32 products (f32 accuracy) in another order than
+# cuBLAS's f32 ones (no TF32 on the plain side): rtol 1e-5, atol 5e-5.
+# K4 sums each segment in edge order, the plain index_add_ in the order
+# its atomics land; a reordered f32 sum moves by a few eps (1.2e-7) of the
+# sum of its terms' magnitudes, which a hub segment of thousands of edges
+# makes large: |kernel - plain| <= rtol * sum|msgs| + atol per output
+# element, rtol 1e-6, atol 1e-6.
 TOL = {"spmm_dual": (1e-5, 1e-5), "denoise_layer1": (1e-5, 5e-5), "denoise_layer2": (1e-5, 5e-5),
        "segsum": (1e-6, 1e-6)}
 
@@ -135,7 +141,7 @@ def phase_build() -> dict:
     secs = time.perf_counter() - t0
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                 print(f"[ptxas {name}] {line.strip()}")
     print(f"[build] {len(reports)} kernel sources in {secs:.1f} s")
     return {"seconds": secs}
@@ -185,7 +191,24 @@ def phase_kernels(dev) -> dict:
         out[key] = rec
         print(f"[kernels] {key}: {json.dumps(rec)}")
 
-    # K2/K3 at the rebuild's shapes: tiktok's catalog (path A) and yelp's (path C)
+    out.update(_denoise_cases(dev, gen))
+    out.update(_segsum_cases(dev, gen))
+    return out
+
+
+def _denoise_cases(dev, gen) -> dict:
+    """K2/K3 at the rebuild's shapes, tiktok's catalog (path A) and yelp's
+    (path C), on weights prepared once as the rebuild prepares them (the
+    preparation timed beside them): each against its plain version within
+    TOL, bitwise across two launches, and within twice the plain f32
+    product's max error against float64. Three bounds: the function's
+    (``bound_ms``: its products at the TF32 rate), the design's (3xTF32,
+    three TF32 products per f32 one) and the f32 FMA rate's."""
+    import torch
+
+    from diffmm_tpu_torch.ops.kernels import denoise_mlp as dm
+
+    out = {}
     B, H = 1024, 1024
     for K, suffix in ((6710, ""), (YELP["item_num"], "_yelp")):
         x = torch.randn((B, K), generator=gen, device=dev)
@@ -193,44 +216,64 @@ def phase_kernels(dev) -> dict:
         tp = torch.randn((B, H), generator=gen, device=dev) * 0.1
         w2 = torch.randn((H, K), generator=gen, device=dev) * math.sqrt(2.0 / (H + K))
         b2 = torch.randn((K,), generator=gen, device=dev) * 0.001
+        w1p, w2p = dm.prepare_weight(w1x), dm.prepare_weight(w2)
+        prep_ms = {"w1x": time_ms(lambda: dm.prepare_weight(w1x), 5),
+                   "w2": time_ms(lambda: dm.prepare_weight(w2), 5)}
+        print(f"[kernels] prepare_weight{suffix}, once per rebuild and modality, ms: {json.dumps(prep_ms)}")
         h = dm.layer1_plain(x, w1x, tp)
         full = dm.fused_denoise_mlp(x, w1x, tp, w2, b2)
         want_full = dm.layer2_plain(h, w2, b2)
-        for name, kern, plain, lib_call, n_bytes, flops in (
-            ("denoise_layer1", lambda: dm.denoise_layer1(x, w1x, tp),
+        for name, kern, plain, exact, lib_call, n_bytes, prep in (
+            ("denoise_layer1", lambda: dm.denoise_layer1(x, w1p, tp),
              lambda: dm.layer1_plain(x, w1x, tp),
+             lambda: torch.tanh(x.double() @ w1x.double() + tp.double()),
              lambda: torch.tanh(torch.addmm(tp, x, w1x)),
-             (B * K + K * H + 2 * B * H) * 4, 2 * B * K * H),
-            ("denoise_layer2", lambda: dm.denoise_layer2(h, w2, b2),
+             (B * K + K * H + 2 * B * H) * 4, prep_ms["w1x"]),
+            ("denoise_layer2", lambda: dm.denoise_layer2(h, w2p, b2),
              lambda: dm.layer2_plain(h, w2, b2),
+             lambda: h.double() @ w2.double() + b2.double(),
              lambda: torch.addmm(b2, h, w2),
-             (B * H + H * K + K + B * K) * 4, 2 * B * H * K),
+             (B * H + H * K + K + B * K) * 4, prep_ms["w2"]),
         ):
-            got, want = kern(), plain()
+            got, again, want = kern(), kern(), plain()
+            ref = exact()
             torch.cuda.synchronize()
             rtol, atol = TOL[name]
             err = max_err(got, want)
-            ok = torch.allclose(got, want, rtol=rtol, atol=atol)
-            check(ok, f"{name}{suffix} vs plain: max_abs_err {err}")
-            b, by = bound_ms(n_bytes, flops, F32_FLOPS)
+            err_f64, plain_f64 = max_err(got.double(), ref), max_err(want.double(), ref)
+            del ref
+            bitwise = torch.equal(got, again)
+            ok = torch.allclose(got, want, rtol=rtol, atol=atol) and bitwise and err_f64 <= 2 * plain_f64
+            check(ok, f"{name}{suffix}: max_abs_err {err} vs plain, {err_f64} vs f64 (plain "
+                      f"{plain_f64}), bitwise across launches: {bitwise}")
+            # the function's bound: its 2·B·K·H f32 products at the card's
+            # fastest rate for f32 operands (TF32 tensor cores)
+            flops = 2 * B * K * H
+            b, by = bound_ms(n_bytes, flops, TF32_FLOPS)
             rec = {
                 "ok": ok,
                 "shape": [B, K, H],
                 "max_abs_err": err,
+                "max_err_vs_f64": err_f64,
+                "plain_max_err_vs_f64": plain_f64,
+                "bitwise_across_launches": bitwise,
                 "ms": time_ms(kern, 20),
                 "plain_ms": time_ms(plain, 20),
                 "bound_ms": b,
                 "bound_by": by,
+                "bound_design_ms": bound_ms(n_bytes, 3 * flops, TF32_FLOPS)[0],
+                "bound_design": "3xTF32: 3 TF32 products per f32 one at 495 TFLOP/s",
+                "bound_f32_fma_ms": bound_ms(n_bytes, flops, F32_FLOPS)[0],
                 "library_ms": time_ms(lib_call, 20),
+                "prepare_ms": prep,
             }
             out[name + suffix] = rec
             print(f"[kernels] {name}{suffix}: {json.dumps(rec)}")
         err = max_err(full, want_full)
         check(torch.allclose(full, want_full, rtol=1e-5, atol=1e-4), f"fused_denoise_mlp{suffix}: {err}")
-        print(f"[kernels] fused_denoise_mlp{suffix} wrapper vs plain: max_abs_err {err}")
-        del x, w1x, tp, w2, b2, h, full, want_full
-
-    out.update(_segsum_cases(dev, gen))
+        print(f"[kernels] fused_denoise_mlp{suffix} wrapper (weights prepared per call) vs plain: "
+              f"max_abs_err {err}")
+        del x, w1x, tp, w2, b2, w1p, w2p, h, full, want_full
     return out
 
 
@@ -666,6 +709,9 @@ def main(argv=None) -> int:
                                if key.startswith("segsum_") and key != "segsum_user"}}
         else:
             extra = {"yelp_shape": kernels[name + "_yelp"]}
+            row.update({key: k[key] for key in ("bound_design_ms", "bound_design", "bound_f32_fma_ms",
+                                                "max_err_vs_f64", "plain_max_err_vs_f64",
+                                                "prepare_ms")})
         cases = [k, *(extra["cases"].values() if name == "segsum" else extra.values())]
         row.update(extra)
         row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0

@@ -6,27 +6,37 @@ Counterpart of ``diffmm_tpu/ops/pallas/denoise_mlp.py``
     K2: h   = tanh(x @ W1x + temb_proj)      (b1 folded into temb_proj)
     K3: out = h @ W2 + b2
 
-in full f32. The hand kernels are ``csrc/denoise_mlp.cu``; its source note
-gives their design and bound. :func:`denoise_forward_fused` is the
-counterpart of ``denoise_forward_pallas``: the rebuild's reverse loop calls
-it for every step and block.
+with f32 accuracy. The hand kernels are ``csrc/denoise_mlp.cu``: 3xTF32
+products on the tensor cores, whose source note gives their design and
+bound. They take the weights in their own layout, :class:`KernelWeight`,
+made by :func:`prepare_weight`: transposed, padded, split into TF32 hi and
+lo halves and swizzled. The weights do not change during a rebuild, so the
+rebuild prepares each denoiser once (:func:`prepare_denoiser`) and
+:func:`denoise_forward_fused`, the counterpart of ``denoise_forward_pallas``,
+runs every step and block on the prepared form. The wrappers
+:func:`denoise_layer1`, :func:`denoise_layer2` and :func:`fused_denoise_mlp`
+also take the JAX layouts and then prepare per call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from diffmm_tpu_torch.models.denoise import timestep_embedding
-from diffmm_tpu_torch.ops.kernels import check_launch, load_library, sm_count
+from diffmm_tpu_torch.ops.kernels import check_launch, load_library, round_up, sm_count
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # Launches of each kernel, counted by its wrapper where it launches.
 LAUNCHES = {"denoise_layer1": 0, "denoise_layer2": 0}
+
+KT = 32  # contraction depth of a kernel tile (kBK in csrc/denoise_mlp.cu)
+NT = 128  # N padding of the prepared weights (kPadN)
 
 
 def layer1_plain(x: torch.Tensor, w1x: torch.Tensor, temb_proj: torch.Tensor) -> torch.Tensor:
@@ -39,24 +49,85 @@ def layer2_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.T
     return h @ w2 + b2
 
 
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi`` = f32 ``w`` rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero: the kernel's ``cvt.rna.tf32.f32``)
+    and ``lo = w - hi``, exact in f32, so ``hi + lo == w`` bit for bit."""
+    bits = w.view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    # add half of the 13 dropped bits to the magnitude, then drop them
+    # (inf and NaN kept as they are)
+    rounded = torch.where(mag < 0x7F800000, (mag + 0x1000) & -0x2000, mag)
+    hi = (rounded | (bits & -0x80000000)).view(torch.float32)
+    lo = w - hi
+    # a zero lo takes w's sign, so that hi + lo gives back -0 too
+    return hi, torch.where(lo == 0, torch.copysign(lo, w), lo)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelWeight:
+    """A (k, n) f32 weight in K2/K3's layout: ``data`` (2, ceil(k / 32),
+    round_up(n, 128), 32) holds the TF32 hi half of the transpose in [0] and
+    the lo half in [1], as 32-deep slabs with zeros past k and n, each row
+    permuted and swizzled as ``csrc/denoise_mlp.cu`` describes."""
+
+    data: torch.Tensor
+    k: int
+    n: int
+
+
+@functools.cache
+def _slab_columns(device: torch.device) -> torch.Tensor:
+    """(8, 32): the slab column that each stored position of a row holds,
+    for each row class n % 8. Position t holds p = ((t / 4) ^ r) * 4 + t % 4
+    (the 128-byte swizzle), and p holds column 8 (p % 4) + 2 (p / 8) +
+    (p % 8) / 4, which gives each thread's wgmma fragment of a tile in 8
+    consecutive columns of x."""
+    cols = [
+        [8 * (p % 4) + 2 * (p // 8) + (p % 8) // 4
+         for p in (((t // 4) ^ r) * 4 + t % 4 for t in range(KT))]
+        for r in range(8)
+    ]
+    return torch.tensor(cols, dtype=torch.long, device=device)
+
+
+def prepare_weight(w: torch.Tensor) -> KernelWeight:
+    """A (k, n) f32 weight in the kernels' layout (:class:`KernelWeight`),
+    on ``w``'s device."""
+    k, n = w.shape
+    kt, n_pad = -(-k // KT), round_up(n, NT)
+    wt = torch.zeros((n_pad, kt * KT), dtype=torch.float32, device=w.device)
+    wt[:n, :k] = w.T
+    slabs = torch.empty_like(wt)
+    base = KT * torch.arange(kt, device=w.device)[:, None]
+    cols = _slab_columns(w.device)
+    for r in range(8):
+        slabs[r::8] = wt[r::8].index_select(1, (base + cols[r]).view(-1))
+    hi, lo = tf32_split(slabs.view(n_pad, kt, KT).transpose(0, 1))
+    return KernelWeight(torch.stack([hi, lo]), k, n)
+
+
 def _lib():
     lib = load_library("denoise_mlp")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.denoise_layer1, lib.denoise_layer2):
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             fn.restype = i
-        lib.denoise_splits.argtypes = [i, i, i, i]
-        lib.denoise_splits.restype = i
+        for fn in (lib.denoise_splits, lib.denoise_tile_n):
+            fn.argtypes = [i, i, i, i]
+            fn.restype = i
         lib._typed = True
     return lib
 
 
 @functools.cache
-def _splits(m: int, n: int, k: int, device: torch.device) -> int:
-    """The kernel's split-K count for an (M, K) x (K, N) product on this
-    card (one ctypes call per shape)."""
-    return _lib().denoise_splits(m, n, k, sm_count(device))
+def _plan(m: int, n: int, k: int, device: torch.device) -> tuple[int, int]:
+    """The kernel's split-K count and tile width for an (M, K) x (K, N)
+    product on this card (ctypes calls once per shape)."""
+    lib, n_sm = _lib(), sm_count(device)
+    splits = lib.denoise_splits(m, n, k, n_sm)
+    return splits, lib.denoise_tile_n(m, n, splits, n_sm)
 
 
 def _on_cuda(what: str, t: torch.Tensor) -> bool:
@@ -79,18 +150,35 @@ def _check(what: str, name: str, t: torch.Tensor, shape: tuple, device: torch.de
     return t.contiguous()
 
 
-def _launch(what: str, a: torch.Tensor, b: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """``epilogue(a (M, K) @ b (K, N), e)`` by kernel ``what``, with the
+def _out_dim(w) -> int:
+    return w.n if isinstance(w, KernelWeight) else w.shape[1]
+
+
+def _weight(what: str, name: str, w, k: int, n: int, device: torch.device) -> KernelWeight:
+    """``w`` as the kernel takes it: a (k, n) f32 tensor prepared here, or
+    a :class:`KernelWeight` checked against the layout."""
+    if not isinstance(w, KernelWeight):
+        return prepare_weight(_check(what, name, w, (k, n), device))
+    if (w.k, w.n) != (k, n):
+        raise ValueError(f"{what}: {name} was prepared for ({w.k}, {w.n}), want ({k}, {n})")
+    _check(what, name, w.data, (2, -(-k // KT), round_up(n, NT), KT), device)
+    if not w.data.is_contiguous():
+        raise ValueError(f"{what}: {name} is not in the kernel's layout (not contiguous)")
+    return w
+
+
+def _launch(what: str, a: torch.Tensor, w: KernelWeight, e: torch.Tensor) -> torch.Tensor:
+    """``epilogue(a (M, K) @ w (K, N), e)`` by kernel ``what``, with the
     split-K scratch the kernel asks for."""
     lib = _lib()
-    (m, k), n, dev = a.shape, b.shape[1], a.device
-    splits = _splits(m, n, k, dev)
+    (m, k), n, dev = a.shape, w.n, a.device
+    splits, tile_n = _plan(m, n, k, dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     part = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32, device=dev)
     check_launch(
         getattr(lib, what)(
-            a.data_ptr(), b.data_ptr(), e.data_ptr(), out.data_ptr(), part.data_ptr(),
-            m, k, n, splits, torch.cuda.current_stream(dev).cuda_stream,
+            a.data_ptr(), w.data.data_ptr(), e.data_ptr(), out.data_ptr(), part.data_ptr(),
+            m, k, n, splits, tile_n, torch.cuda.current_stream(dev).cuda_stream,
         ),
         what,
     )
@@ -98,32 +186,39 @@ def _launch(what: str, a: torch.Tensor, b: torch.Tensor, e: torch.Tensor) -> tor
     return out
 
 
-def denoise_layer1(x: torch.Tensor, w1x: torch.Tensor, temb_proj: torch.Tensor) -> torch.Tensor:
+def _plain_weight(what: str, w) -> torch.Tensor:
+    if isinstance(w, KernelWeight):
+        raise ValueError(f"{what}: a prepared weight is for the card; on the CPU pass the tensor")
+    return w
+
+
+def denoise_layer1(x: torch.Tensor, w1x, temb_proj: torch.Tensor) -> torch.Tensor:
     """K2, ``tanh(x @ w1x + temb_proj)``: the hand kernel for CUDA tensors,
-    the plain version for CPU tensors (only there). x (B, K), w1x (K, H),
-    temb_proj (B, H) with b1 folded in, all f32."""
+    the plain version for CPU tensors (only there). x (B, K), temb_proj (B,
+    H) with b1 folded in, f32; w1x a (K, H) f32 tensor or, on the card, its
+    :class:`KernelWeight`."""
     if not _on_cuda("denoise_layer1", x):
-        return layer1_plain(x, w1x, temb_proj)
-    (B, K), H, dev = x.shape, w1x.shape[1], x.device
+        return layer1_plain(x, _plain_weight("denoise_layer1", w1x), temb_proj)
+    (B, K), H, dev = x.shape, _out_dim(w1x), x.device
     return _launch(
         "denoise_layer1",
         _check("denoise_layer1", "x", x, (B, K), dev),
-        _check("denoise_layer1", "w1x", w1x, (K, H), dev),
+        _weight("denoise_layer1", "w1x", w1x, K, H, dev),
         _check("denoise_layer1", "temb_proj", temb_proj, (B, H), dev),
     )
 
 
-def denoise_layer2(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+def denoise_layer2(h: torch.Tensor, w2, b2: torch.Tensor) -> torch.Tensor:
     """K3, ``h @ w2 + b2``: the hand kernel for CUDA tensors, the plain
-    version for CPU tensors (only there). h (B, H), w2 (H, N), b2 (N,), all
-    f32."""
+    version for CPU tensors (only there). h (B, H), b2 (N,), f32; w2 an
+    (H, N) f32 tensor or, on the card, its :class:`KernelWeight`."""
     if not _on_cuda("denoise_layer2", h):
-        return layer2_plain(h, w2, b2)
-    (B, H), N, dev = h.shape, w2.shape[1], h.device
+        return layer2_plain(h, _plain_weight("denoise_layer2", w2), b2)
+    (B, H), N, dev = h.shape, _out_dim(w2), h.device
     return _launch(
         "denoise_layer2",
         _check("denoise_layer2", "h", h, (B, H), dev),
-        _check("denoise_layer2", "w2", w2, (H, N), dev),
+        _weight("denoise_layer2", "w2", w2, H, N, dev),
         _check("denoise_layer2", "b2", b2, (N,), dev),
     )
 
@@ -134,24 +229,51 @@ def fused_denoise_mlp(x, w1x, temb_proj, w2, b2) -> torch.Tensor:
     return denoise_layer2(denoise_layer1(x, w1x, temb_proj), w2, b2)
 
 
-def denoise_forward_fused(params, x_t: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
-    """The denoiser forward without modality conditioning, through K2/K3.
+@dataclasses.dataclass(frozen=True)
+class PreparedDenoiser:
+    """A single-hidden-layer denoiser as the rebuild runs it: the time
+    embedding's layer and W1's time rows in the JAX layout, W1x and W2 as
+    :class:`KernelWeight` on the card (the plain (I, H) and (H, I) tensors
+    on the CPU)."""
 
-    Counterpart of ``denoise_forward_pallas`` with ``modal_feat=None``, the
-    only form the rebuild reaches (``p_mean`` passes no modality features).
-    The time embedding's projection ``t @ W1[I:] + b1`` is a (B, d_emb) x
-    (d_emb, H) product computed here, outside the kernels."""
+    emb_w: torch.Tensor
+    emb_b: torch.Tensor
+    w1_time: torch.Tensor
+    b1: torch.Tensor
+    w1x: torch.Tensor | KernelWeight
+    w2: torch.Tensor | KernelWeight
+    b2: torch.Tensor
+
+
+def prepare_denoiser(params) -> PreparedDenoiser:
+    """A denoiser's params (the JAX layout) in the form K2/K3 take."""
     if len(params["in_layers"]) != 1 or len(params["out_layers"]) != 1:
         raise NotImplementedError(
             "the denoise_mlp kernels take a single hidden layer "
             "(ROADMAP.md A, slice 3: training)"
         )
-    emb = timestep_embedding(timesteps, params["emb"]["w"].shape[0])
-    time_emb = emb @ params["emb"]["w"] + params["emb"]["b"]
     w1 = params["in_layers"][0]["w"]  # (I + d_emb, H)
-    item_num = x_t.shape[1]
-    temb_proj = time_emb @ w1[item_num:] + params["in_layers"][0]["b"]
-    return fused_denoise_mlp(
-        x_t, w1[:item_num], temb_proj,
-        params["out_layers"][0]["w"], params["out_layers"][0]["b"],
+    item_num = w1.shape[0] - params["emb"]["w"].shape[0]
+    w2 = params["out_layers"][0]["w"]
+    prep = prepare_weight if w1.device.type == "cuda" else (lambda w: w)
+    return PreparedDenoiser(
+        params["emb"]["w"], params["emb"]["b"], w1[item_num:], params["in_layers"][0]["b"],
+        prep(w1[:item_num]), prep(w2), params["out_layers"][0]["b"],
     )
+
+
+def denoise_forward_fused(params, x_t: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """The denoiser forward without modality conditioning, through K2/K3.
+
+    Counterpart of ``denoise_forward_pallas`` with ``modal_feat=None``, the
+    only form the rebuild reaches (``p_mean`` passes no modality features).
+    ``params`` is a :class:`PreparedDenoiser` (the rebuild's) or, for a
+    single call as the tests make one, a params dict, prepared here per
+    call. The time embedding's projection ``t @
+    W1[I:] + b1`` is a (B, d_emb) x (d_emb, H) product computed here,
+    outside the kernels."""
+    p = params if isinstance(params, PreparedDenoiser) else prepare_denoiser(params)
+    emb = timestep_embedding(timesteps, p.emb_w.shape[0])
+    time_emb = emb @ p.emb_w + p.emb_b
+    temb_proj = time_emb @ p.w1_time + p.b1
+    return fused_denoise_mlp(x_t, p.w1x, temb_proj, p.w2, p.b2)

@@ -15,13 +15,17 @@ from diffmm_tpu_torch.data.membership import gather_rows
 from diffmm_tpu_torch.diffusion.gaussian import generate_view
 from diffmm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from diffmm_tpu_torch.models.gcn import gcn_mm
-from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_forward_fused
+from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
+    PreparedDenoiser,
+    denoise_forward_fused,
+    prepare_denoiser,
+)
 from diffmm_tpu_torch.ops.topk import csr_gather_build, topk_table
 
 
 def rebuild_block_tables(
     schedule: DiffusionSchedule,
-    dn_params_list: list,
+    denoisers: list[PreparedDenoiser],
     train_store,
     users: torch.Tensor,
     item_num: int,
@@ -31,10 +35,14 @@ def rebuild_block_tables(
 ) -> list[torch.Tensor]:
     """Reverse-diffuse a user block per modality -> value-sorted (B,
     k_table) top-index tables, one per modality. The denoiser runs through
-    the denoise_mlp kernels (K2, K3) on the card."""
+    the denoise_mlp kernels (K2, K3) on the card, on ``denoisers`` as
+    :func:`rebuild_epoch` prepares them (only prepared forms: a params dict
+    would be put in the kernels' layout again at every step)."""
+    if not all(isinstance(p, PreparedDenoiser) for p in denoisers):
+        raise TypeError("rebuild_block_tables takes prepare_denoiser forms")
     x0 = gather_rows(train_store, users, item_num)
     tables = []
-    for params in dn_params_list:
+    for params in denoisers:
         denoised = generate_view(
             schedule, params, x0, sampling_step, generator=generator,
             denoise_apply=denoise_forward_fused,
@@ -64,13 +72,16 @@ def rebuild_epoch(
     the stacked table. Identity order is the single bucket ``(k_max,)``
     from row 0; degree order is the two-bucket plan of
     ``ops/topk.py::plan_rebuild_buckets``. ``row_of_pos``/``lane_of_pos``
-    map each CSR position to its (row, lane) of the stacked table."""
-    n_modal = len(dn_params_list)
+    map each CSR position to its (row, lane) of the stacked table. Each
+    denoiser's weights are put in the kernels' layout once, here, for all
+    blocks and steps."""
+    denoisers = [prepare_denoiser(p) for p in dn_params_list]
+    n_modal = len(denoisers)
     bucket_tables = []  # [bucket][modality] -> (rows_b, k_b)
     for blocks_b, k_b in zip(bucket_blocks, widths):
         per_block = [
             rebuild_block_tables(
-                schedule, dn_params_list, train_store, users, item_num,
+                schedule, denoisers, train_store, users, item_num,
                 sampling_step, k_b, generator,
             )
             for users in blocks_b

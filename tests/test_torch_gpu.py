@@ -5,9 +5,10 @@ without one (the decision is made in the fixture, never at import). Run them
 on a machine with a card: ``python -m pytest tests/test_torch_gpu.py -q``.
 
 Tolerances as in chip_smoke.py: K1 rtol 1e-5 / atol 1e-5 (exact products,
-f32 sums in another order); K2/K3 rtol 1e-5 / atol 5e-5 (f32 sums of up to
-thousands of products in another order than cuBLAS); K4 |kernel - plain|
-<= 1e-6 * sum|msgs| + 1e-6 per output element (the kernel sums each segment
+f32 sums in another order); K2/K3 rtol 1e-5 / atol 5e-5 (3xTF32 products
+summed in another order than cuBLAS's f32 ones), and a max error against
+float64 at most twice the plain f32 product's; K4 |kernel - plain| <= 1e-6
+* sum|msgs| + 1e-6 per output element (the kernel sums each segment
 in edge order, the plain version's index_add_ in the order its atomics land;
 a reordered f32 sum moves by a few eps = 1.2e-7 of the sum of its terms'
 magnitudes, which a hub segment of thousands of edges makes large)."""
@@ -47,14 +48,31 @@ def test_spmm_dual_kernel_matches_plain(cuda, store, shape):
     torch.testing.assert_close(yi, pi, rtol=1e-5, atol=1e-5)
 
 
-# (B, K, H): the rebuild's shape (K2 split four ways, 8-byte loads), then
-# ragged ones with 4-, 2- and 1-float loads, split and unsplit
+def _f64_gate(got, plain, exact) -> tuple[float, float]:
+    """Max error against float64 of the kernel and of the plain f32 version;
+    the kernel's may be at most twice the plain one's (plus 1e-7, about an
+    ulp of the outputs, for shapes where both are exact)."""
+    err_k = float((got.double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    assert err_k <= 2 * err_p + 1e-7, (err_k, err_p)
+    return err_k, err_p
+
+
+# (B, K, H): the rebuild's shapes at tiktok's and yelp's catalogs (K2 split
+# two ways, K3 in 104-wide tiles at 6,710 and 128-wide unsplit ones at
+# 20,000), paths B/D's batch 256, then ragged ones:
+# B not a multiple of 64, K not a multiple of 32 (4-, 2- and 1-float loads
+# of x, K 17 under one tile), N odd and under one tile, and N 250, whose
+# last 104-wide tile holds 48 rows of the padded weight
 @pytest.mark.parametrize(
-    "shape", [(1024, 6710, 1024), (7, 133, 48), (300, 1000, 64), (200, 2100, 96), (129, 1030, 64)]
+    "shape",
+    [(1024, 6710, 1024), (1024, 20000, 1024), (256, 6710, 1024), (7, 133, 48), (300, 1000, 64),
+     (200, 2100, 96), (129, 1030, 64), (100, 17, 33), (65, 20000, 77), (130, 250, 64)],
 )
 def test_denoise_kernels_match_plain(cuda, shape):
     from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
-        LAUNCHES, fused_denoise_mlp, layer1_plain, layer2_plain,
+        LAUNCHES, denoise_layer1, denoise_layer2, fused_denoise_mlp, layer1_plain, layer2_plain,
+        prepare_weight,
     )
 
     B, K, H = shape
@@ -71,6 +89,38 @@ def test_denoise_kernels_match_plain(cuda, shape):
     assert LAUNCHES["denoise_layer1"] == before["denoise_layer1"] + 1
     assert LAUNCHES["denoise_layer2"] == before["denoise_layer2"] + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+    # each kernel on prepared weights, as the rebuild runs it: the plain
+    # version's tolerance, the same bits on a second launch, the f64 gate
+    w1p, w2p = prepare_weight(w1), prepare_weight(w2)
+    h = denoise_layer1(x, w1p, tp)
+    out = denoise_layer2(h, w2p, b2)
+    h_plain, out_plain = layer1_plain(x, w1, tp), layer2_plain(h, w2, b2)
+    torch.testing.assert_close(h, h_plain, rtol=1e-5, atol=5e-5)
+    torch.testing.assert_close(out, out_plain, rtol=1e-5, atol=5e-5)
+    assert torch.equal(h, denoise_layer1(x, w1p, tp))
+    assert torch.equal(out, denoise_layer2(h, w2p, b2))
+    _f64_gate(h, h_plain, torch.tanh(x.double() @ w1.double() + tp.double()))
+    _f64_gate(out, out_plain, h.double() @ w2.double() + b2.double())
+
+
+def test_denoise_wrappers_reject_bad_prepared_weights(cuda):
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import KernelWeight, denoise_layer1, prepare_weight
+
+    x, tp = torch.randn((8, 70), device=cuda), torch.randn((8, 40), device=cuda)
+    good = prepare_weight(torch.randn((70, 40), device=cuda))
+    d = good.data
+    with pytest.raises(TypeError, match="f32"):
+        denoise_layer1(x, KernelWeight(d.double(), 70, 40), tp)
+    with pytest.raises(ValueError, match="shape"):
+        denoise_layer1(x, KernelWeight(d[:, :, :64], 70, 40), tp)
+    with pytest.raises(ValueError, match="prepared for"):
+        denoise_layer1(x, prepare_weight(torch.randn((71, 40), device=cuda)), tp)
+    with pytest.raises(ValueError, match="layout"):
+        strided = torch.zeros((*d.shape[:3], 2 * d.shape[3]), device=cuda)[..., ::2]
+        denoise_layer1(x, KernelWeight(strided, 70, 40), tp)
+    with pytest.raises(ValueError, match="is on cpu"):
+        denoise_layer1(x, prepare_weight(torch.randn((70, 40))), tp)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
