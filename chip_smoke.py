@@ -10,13 +10,15 @@ exit, no result line):
 1. build: every kernel source (``diffmm_tpu_torch/csrc/*.cu``) with one
    ``nvcc`` each, all at once; prints ptxas's register/shared-memory lines.
 2. kernels: each kernel's wrapper on card tensors at the main paths' shapes
-   (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8 and bf16 storage;
+   (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8 and bf16 storage,
+   also bitwise across two launches, with its launch plan and scratch;
    K2/K3 ``denoise_mlp`` at B 1,024, H 1,024 and I 6,710 and 20,000, on
    weights prepared once (also bitwise across two launches and within twice
    the plain f32 product's error against float64); K4
    ``segsum`` at the yelp shape: the user direction, n 38,403, nnz 307,200,
    d 64; the item direction, n 20,000, ids with gaps; the stacked width
-   d 128; f32 and bf16 messages) against its plain PyTorch version within
+   d 128; the item direction of a rebuilt graph, one hub of 38,389 edges;
+   f32 and bf16 messages) against its plain PyTorch version within
    the stated tolerance (K4 also bitwise across two launches); times (CUDA
    events, warm, many launches) of the kernel, the plain version and one
    PyTorch library call computing the same function, beside the bound.
@@ -169,17 +171,26 @@ def phase_kernels(dev) -> dict:
         mat = sd.dense_storage(U, I, store, dev)
         mat.copy_(mask)
         yu, yi = sd.spmm_dual(mat, z_u, z_i)
+        yu2, yi2 = sd.spmm_dual(mat, z_u, z_i)
         pu, pi = sd.spmm_dual_plain(mat, z_u, z_i)
         torch.cuda.synchronize()
         err = max(max_err(yu, pu), max_err(yi, pi))
-        ok = torch.allclose(yu, pu, rtol=rtol, atol=atol) and torch.allclose(yi, pi, rtol=rtol, atol=atol)
-        check(ok, f"spmm_dual[{store}] vs plain: max_abs_err {err}")
+        bitwise = torch.equal(yu, yu2) and torch.equal(yi, yi2)
+        ok = (torch.allclose(yu, pu, rtol=rtol, atol=atol) and torch.allclose(yi, pi, rtol=rtol, atol=atol)
+              and bitwise)
+        check(ok, f"spmm_dual[{store}] vs plain: max_abs_err {err}, bitwise across launches: {bitwise}")
         m16 = mask.to(torch.bfloat16)
-        n_bytes = mat.numel() * mat.element_size() + (U + I) * d * 2 + (U + I) * d * 4
+        # M and the f32 z the kernel takes read once, the f32 y written once
+        n_bytes = mat.numel() * mat.element_size() + (U + I) * d * 4 + (U + I) * d * 4
         b, by = bound_ms(n_bytes, 2 * 2 * U * I * d, BF16_FLOPS)
+        p = sd.plan(U, I, d, store == torch.int8, dev)
         rec = {
             "ok": ok,
             "max_abs_err": err,
+            "bitwise_across_launches": bitwise,
+            "plan": {"cluster": p.cluster, "col_blocks": p.col_blocks, "row_blocks": p.row_blocks,
+                     "rows": p.rows, "groups": p.groups},
+            "scratch_bytes": p.partial_bytes(U, I, d),
             "ms": time_ms(lambda: sd.spmm_dual(mat, z_u, z_i), 50),
             "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, z_u, z_i), 10),
             "bound_ms": b,
@@ -293,20 +304,41 @@ def sorted_segment_ids(gen, n: int, nnz: int, pads: int, skew: float, device):
     return torch.cat([ids, torch.full((pads,), n, dtype=torch.int32, device=device)])
 
 
+def hub_segment_ids(gen, n: int, nnz: int, pads: int, hub: int, device):
+    """(nnz,) int32 ascending segment ids with path C's rebuilt item layout:
+    one id (drawn from ``gen``) holds ``hub`` edges, the other real edges are
+    spread uniformly over the other n - 1 ids, and the last ``pads`` are
+    sentinels equal to n."""
+    import torch
+
+    hub_id = int(torch.randint(0, n, (1,), generator=gen, device=device))
+    others = torch.randint(0, n - 1, (nnz - pads - hub,), generator=gen, device=device)
+    others = others + (others >= hub_id).long()
+    ids = torch.cat([others, torch.full((hub,), hub_id, device=device)])
+    ids = torch.sort(ids.to(torch.int32)).values
+    return torch.cat([ids, torch.full((pads,), n, dtype=torch.int32, device=device)])
+
+
 def _segsum_cases(dev, gen) -> dict:
     """K4 at path C's shapes: the user direction (38,403 segments of about
     8 edges, the train rows), the item direction (20,000 segments, skewed
     ids with gaps: :func:`sorted_segment_ids`), the stacked user direction
-    at d 128; f32 and bf16 messages; 307,180 real edges plus 20 sentinel
-    pads whose messages (NaN here) are never read."""
+    at d 128, and the item direction of a rebuilt graph (one hub segment of
+    38,389 edges: :func:`hub_segment_ids`); f32 and bf16 messages; 307,180
+    real edges plus 20 sentinel pads whose messages (NaN here) are never
+    read."""
     import torch
 
     from diffmm_tpu_torch.ops.kernels import segsum as sg
 
     U, I, nnz = YELP["user_num"], YELP["item_num"], YELP["edges"]
     out = {}
-    for case, n, d, skew in (("user", U, 64, 1.0), ("item", I, 64, 2.0), ("stacked", U, 128, 1.0)):
-        offsets = sg.segment_offsets(sorted_segment_ids(gen, n, nnz, 20, skew, dev), n)
+    # path C's rebuilt modality graphs put 38,389 of 38,403 users on one item
+    for case, n, d, skew in (("user", U, 64, 1.0), ("item", I, 64, 2.0), ("stacked", U, 128, 1.0),
+                             ("item_hub", I, 64, None)):
+        ids = (hub_segment_ids(gen, n, nnz, 20, 38389, dev) if skew is None
+               else sorted_segment_ids(gen, n, nnz, 20, skew, dev))
+        offsets = sg.segment_offsets(ids, n)
         real = int(offsets[-1])
         for dtype in (torch.float32, torch.bfloat16):
             msgs = torch.randn((nnz, d), generator=gen, device=dev).to(dtype)
@@ -593,8 +625,12 @@ def phase_profile(coach, label: str, report_dir: str) -> dict:
     with open(os.path.join(report_dir, f"profile_path_{label}.txt"), "w") as fh:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     counts = {e.key: e.count for e in kernels}
+    # the port's own kernels, whether or not they make the top rows
+    own = ("dual_kernel", "gemm_3xtf32", "splitk_sum", "segsum_kernel")
     rec = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-           "top_device_ms": [[k[:60], v / 1e3, counts[k]] for v, k in top]}
+           "top_device_ms": [[k[:60], v / 1e3, counts[k]] for v, k in top],
+           "port_kernels_ms": [[k[:60], v / 1e3, counts[k]] for k, v in dev_us.items()
+                               if any(name in k for name in own)]}
     print(f"[profile {label}] {json.dumps(rec)}")
     return rec
 

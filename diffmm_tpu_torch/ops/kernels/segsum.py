@@ -4,8 +4,10 @@ Counterpart of ``diffmm_tpu/ops/pallas/segsum.py`` (``sorted_segment_sum``;
 kernel ``_segsum_kernel`` via ``_sorted_segment_sum_impl``):
 ``out[s] = sum_{e: ids[e] = s} msgs[e]`` for ascending ``ids``, f32 or bf16
 messages, f32 accumulation, pad edges ``ids[e] == n`` ignored. The hand
-kernel is ``csrc/segsum.cu``; its source note gives its design (one warp per
-segment, no atomics) and its bound.
+kernel is ``csrc/segsum.cu``; its source note gives its design (one warp a
+segment of at most 256 edges; a longer one cut into pieces of 256 edges,
+one warp a piece, the pieces' sums added in piece order; no atomics on
+values) and its bound.
 
 The kernel and its plain version take the segment boundaries ``offsets``
 (n + 1,) in place of the ids, so both read the segments from the same
@@ -22,6 +24,7 @@ This slice ports the forward. The JAX VJP is a gather of the cotangent by
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,10 +60,26 @@ def _lib():
     lib = load_library("segsum")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segsum_forward.argtypes = [p, i, p, p, i, ctypes.c_longlong, i, p]
+        lib.segsum_scratch.argtypes = [i, ctypes.c_longlong, i, p]
+        lib.segsum_scratch.restype = None
+        lib.segsum_forward.argtypes = [p, i, p, p, p, p, i, ctypes.c_longlong, i, p]
         lib.segsum_forward.restype = i
         lib._typed = True
     return lib
+
+
+@functools.cache
+def _workspace(n: int, nnz: int, d: int, device: torch.device) -> tuple:
+    """The scratch of a call of this shape on this card, made once (this
+    cache keeps it alive): the f32 partials of the segments that cross
+    pieces and their int32 tickets, zeroed here and left at zero by every
+    launch. Calls run on one stream at a time, so one scratch serves them
+    all. Returns the two tensors and their data pointers."""
+    sizes = (ctypes.c_longlong * 2)()
+    _lib().segsum_scratch(n, nnz, d, sizes)
+    parts = torch.empty(sizes[0], dtype=torch.float32, device=device)
+    tickets = torch.zeros(sizes[1], dtype=torch.int32, device=device)
+    return parts, tickets, parts.data_ptr(), tickets.data_ptr()
 
 
 def _launch(msgs: torch.Tensor, offsets: torch.Tensor):
@@ -75,10 +94,13 @@ def _launch(msgs: torch.Tensor, offsets: torch.Tensor):
     offsets = offsets.contiguous()
     (nnz, d), n = msgs.shape, offsets.shape[0] - 1
     dev = msgs.device
+    if nnz == 0 or n == 0 or d == 0:
+        return torch.zeros((n, d), dtype=torch.float32, device=dev)
+    _, _, parts, tickets = _workspace(n, nnz, d, dev)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     err = lib.segsum_forward(
         msgs.data_ptr(), int(msgs.dtype == torch.bfloat16), offsets.data_ptr(), out.data_ptr(),
-        n, nnz, d, torch.cuda.current_stream(dev).cuda_stream,
+        parts, tickets, n, nnz, d, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(err, "segsum")
     LAUNCHES["segsum"] += 1

@@ -3,9 +3,10 @@
 Counterpart of ``diffmm_tpu/ops/pallas/spmm_dual.py`` (``_dual_call``;
 kernel ``_dual_kernel``): ``(y_u, y_i) = (M @ z_i, Mᵀ @ z_u)`` for the (U, I)
 0/1 block M stored int8 or bf16, with z rounded to bf16 and f32
-accumulation. The hand kernel is ``csrc/spmm_dual.cu``; its source note
-gives its design (a deterministic two-pass cross-block reduction) and its
-bound.
+accumulation. The hand kernel is ``csrc/spmm_dual.cu``: one launch, M fed
+to ``wgmma`` by TMA, z rounded to bf16 on chip, the cross-block sums in
+distributed shared memory and in L2, in a fixed order; its source note gives
+the design and its bound.
 
 PyTorch has no int8 x bf16 product with f32 output, so the plain version
 below materialises an f32 copy of M on every call; the kernel converts each
@@ -19,6 +20,8 @@ wrapper in a ``torch.autograd.Function`` the same way.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -50,26 +53,74 @@ def _lib():
     lib = load_library("spmm_dual")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.spmm_dual_forward.argtypes = [p, i, ctypes.c_longlong] + [p] * 6 + [i] * 8 + [p]
+        lib.spmm_dual_plan.argtypes = [i, i, i, i, i, p]
+        lib.spmm_dual_plan.restype = i
+        lib.spmm_dual_max_items.argtypes = [i, i, i]
+        lib.spmm_dual_max_items.restype = i
+        lib.spmm_dual_forward.argtypes = [p, i, ctypes.c_longlong] + [p] * 7 + [i] * 3 + [p, p]
         lib.spmm_dual_forward.restype = i
-        lib.spmm_dual_block_items.argtypes = [i]
-        lib.spmm_dual_block_items.restype = i
-        lib.spmm_dual_tile_rows.argtypes = []
-        lib.spmm_dual_tile_rows.restype = i
         lib._typed = True
     return lib
 
 
+@dataclass(frozen=True)
+class Plan:
+    """The kernel's launch plan for one (U, I, D, storage) on one card (see
+    ``csrc/spmm_dual.cu``): ``cluster`` blocks a cluster along I,
+    ``col_blocks`` (a multiple of it) by ``row_blocks`` blocks, each column
+    block ``items`` I columns and each row block ``rows`` U rows, ``groups``
+    clusters along I and ``strips`` 128-row strips of U. ``raw`` is the C
+    array the kernel takes."""
+
+    cluster: int
+    col_blocks: int
+    row_blocks: int
+    rows: int
+    groups: int
+    strips: int
+    items: int
+    raw: ctypes.Array
+
+    def partial_bytes(self, user_num: int, item_num: int, d: int) -> int:
+        """f32 scratch of the cross-block sums: Pu (groups, U, D) when
+        groups > 1 and Pi (row_blocks, I, D) when row_blocks > 1."""
+        pu = self.groups * user_num if self.groups > 1 else 0
+        pi = self.row_blocks * item_num if self.row_blocks > 1 else 0
+        return (pu + pi) * d * 4
+
+
+@functools.cache
+def plan(user_num: int, item_num: int, d: int, int8: bool, device: torch.device) -> Plan:
+    """The launch plan (looked up once per shape, storage and card). Raises
+    where I is too wide for the grid to be one wave."""
+    raw = (ctypes.c_int * 7)()
+    check_launch(_lib().spmm_dual_plan(user_num, item_num, d, int(int8), sm_count(device), raw),
+                 "spmm_dual plan")
+    return Plan(*raw[:7], raw=raw)
+
+
+# The kernel's grid barrier: two int32 words a card, zeroed once (the kernel
+# leaves the arrival count at zero). Calls run on one stream at a time.
+_BARRIER: dict[torch.device, torch.Tensor] = {}
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    if device not in _BARRIER:
+        _BARRIER[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _BARRIER[device]
+
+
 def dense_storage(user_num: int, item_num: int, dtype: torch.dtype, device) -> torch.Tensor:
     """A zeroed (U, I) matrix whose rows start on 16-byte boundaries: a
-    view of (U, ld) storage, ld * itemsize a multiple of 16. The kernel
-    reads M in 16-byte vectors; the dense adjacency is built this way."""
+    view of (U, ld) storage, ld * itemsize a multiple of 16. The kernel's
+    tensor map reads M in rows of that stride; the dense adjacency is built
+    this way."""
     per = 16 // torch.empty((), dtype=dtype).element_size()
     return torch.zeros((user_num, round_up(item_num, per)), dtype=dtype, device=device)[:, :item_num]
 
 
 def _vector_rows(mat: torch.Tensor) -> torch.Tensor:
-    """``mat`` if its rows can be read in 16-byte vectors, else a padded copy."""
+    """``mat`` if its rows can be read by the tensor map, else a padded copy."""
     size = mat.element_size()
     if (mat.stride(1) == 1 and (mat.stride(0) * size) % 16 == 0
             and mat.data_ptr() % 16 == 0):
@@ -77,6 +128,42 @@ def _vector_rows(mat: torch.Tensor) -> torch.Tensor:
     out = dense_storage(mat.shape[0], mat.shape[1], mat.dtype, mat.device)
     out.copy_(mat)
     return out
+
+
+def _f32_rows(z: torch.Tensor) -> torch.Tensor:
+    """z as contiguous, 16-byte-aligned f32 (no copy for the main path's z;
+    the kernel rounds it to bf16 itself)."""
+    z = z.to(torch.float32).contiguous()
+    return z if z.data_ptr() % 16 == 0 else z.clone()
+
+
+@functools.cache
+def max_items(d: int, int8: bool, device: torch.device) -> int:
+    """The widest I one launch takes: its grid must be one wave of blocks."""
+    n = _lib().spmm_dual_max_items(d, int(int8), sm_count(device))
+    if n <= 0:
+        raise RuntimeError("spmm_dual: no launch plan fits this card")
+    return n
+
+
+def _launch_one(mat, zu, zi, y_i) -> torch.Tensor:
+    """One launch over M's columns: writes y_i (the columns' rows), returns
+    y_u over those columns."""
+    (U, I), d = mat.shape, zu.shape[1]
+    dev = mat.device
+    p = plan(U, I, d, mat.dtype == torch.int8, dev)
+    y_u = torch.empty((U, d), dtype=torch.float32, device=dev)
+    p_u = torch.empty((p.groups, U, d) if p.groups > 1 else (0,), dtype=torch.float32, device=dev)
+    p_i = torch.empty((p.row_blocks, I, d) if p.row_blocks > 1 else (0,), dtype=torch.float32,
+                      device=dev)
+    err = _lib().spmm_dual_forward(
+        mat.data_ptr(), int(mat.dtype == torch.int8), mat.stride(0), zu.data_ptr(), zi.data_ptr(),
+        y_u.data_ptr(), y_i.data_ptr(), p_u.data_ptr(), p_i.data_ptr(), _barrier(dev).data_ptr(),
+        U, I, d, p.raw, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch(err, "spmm_dual")
+    LAUNCHES["spmm_dual"] += 1
+    return y_u
 
 
 def _launch(mat: torch.Tensor, z_u: torch.Tensor, z_i: torch.Tensor):
@@ -93,32 +180,22 @@ def _launch(mat: torch.Tensor, z_u: torch.Tensor, z_i: torch.Tensor):
         )
     if not (z_u.device == z_i.device == mat.device):
         raise ValueError("spmm_dual: M, z_u and z_i must be on one device")
-    lib = _lib()
-    mat = _vector_rows(mat)
-    zu = z_u.to(torch.bfloat16).contiguous()
-    zi = z_i.to(torch.bfloat16).contiguous()
     dev = mat.device
-    # grid: C blocks along I (each owns SI columns), R along U, R * C at
-    # most one block per SM (one ~206 KB block fills an SM's shared memory)
-    si = lib.spmm_dual_block_items(d)
-    tu = lib.spmm_dual_tile_rows()
-    nc = -(-I // si)
-    nr_target = max(1, sm_count(dev) // nc)
-    su = round_up(-(-U // nr_target), tu)
-    nr = -(-U // su)
-    u_pad, i_pad = nr * su, nc * si
-    y_u = torch.empty((U, d), dtype=torch.float32, device=dev)
+    if U == 0 or I == 0:
+        return (torch.zeros((U, d), dtype=torch.float32, device=dev),
+                torch.zeros((I, d), dtype=torch.float32, device=dev))
+    mat = _vector_rows(mat)
+    zu, zi = _f32_rows(z_u), _f32_rows(z_i)
     y_i = torch.empty((I, d), dtype=torch.float32, device=dev)
-    p_u = torch.empty((nc, u_pad, d), dtype=torch.float32, device=dev)
-    p_i = torch.empty((nr, i_pad, d), dtype=torch.float32, device=dev)
-    err = lib.spmm_dual_forward(
-        mat.data_ptr(), int(mat.dtype == torch.int8), mat.stride(0), zu.data_ptr(), zi.data_ptr(),
-        y_u.data_ptr(), y_i.data_ptr(), p_u.data_ptr(), p_i.data_ptr(),
-        U, I, d, su, nr, nc, u_pad, i_pad,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_launch(err, "spmm_dual")
-    LAUNCHES["spmm_dual"] += 1
+    # a catalog wider than one wave of blocks goes in column chunks (each a
+    # multiple of a block's columns, so every chunk starts 16-byte aligned);
+    # their y_u add up in chunk order
+    width = max_items(d, mat.dtype == torch.int8, dev)
+    y_u = None
+    for a in range(0, I, width):
+        b = min(a + width, I)
+        part = _launch_one(mat[:, a:b], zu, zi[a:b], y_i[a:b])
+        y_u = part if y_u is None else y_u.add_(part)
     return y_u, y_i
 
 

@@ -46,6 +46,71 @@ def test_spmm_dual_kernel_matches_plain(cuda, store, shape):
     assert LAUNCHES["spmm_dual"] == before + 1
     torch.testing.assert_close(yu, pu, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(yi, pi, rtol=1e-5, atol=1e-5)
+    yu2, yi2 = spmm_dual(mat, z_u, z_i)
+    assert torch.equal(yu, yu2) and torch.equal(yi, yi2)  # no atomics on values
+
+
+# (U, I): I under one block's 384 columns; U of one 128-row strip or less;
+# I one column past 8 blocks (9 column blocks, so cluster groups); three
+# blocks; U and I one past a strip and a block; 53 column blocks (several
+# cluster groups, one row block); the tiktok shape
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("shape", [(100, 100), (128, 384), (70, 3073), (1000, 1100), (129, 385),
+                                   (300, 20000), (9308, 6710)])
+def test_spmm_dual_ragged_plans(cuda, store, d, shape):
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, plan, spmm_dual, spmm_dual_plain
+
+    U, I = shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    mat = dense_storage(U, I, store, cuda).copy_(torch.rand((U, I), generator=gen, device=cuda) < 0.1)
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    got = spmm_dual(mat, z_u, z_i)
+    again = spmm_dual(mat, z_u, z_i)
+    want = spmm_dual_plain(mat, z_u, z_i)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g, a)
+    p = plan(U, I, d, store == torch.int8, cuda)
+    assert p.col_blocks % p.cluster == 0 and p.col_blocks * p.items >= I
+    assert p.row_blocks * p.rows >= U and p.rows % 128 == 0
+
+
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+def test_spmm_dual_wide_catalog_in_chunks(cuda, store):
+    """I past one wave of blocks: column chunks, each one launch."""
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import (
+        LAUNCHES, dense_storage, max_items, spmm_dual, spmm_dual_plain)
+
+    U, d = 200, 32
+    I = max_items(d, store == torch.int8, cuda) + 1000
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    mat = dense_storage(U, I, store, cuda).copy_(torch.rand((U, I), generator=gen, device=cuda) < 0.05)
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    before = LAUNCHES["spmm_dual"]
+    got = spmm_dual(mat, z_u, z_i)
+    assert LAUNCHES["spmm_dual"] == before + 2
+    again = spmm_dual(mat, z_u, z_i)
+    for g, a, w in zip(got, again, spmm_dual_plain(mat, z_u, z_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g, a)
+
+
+def test_spmm_dual_int8_values_are_exact(cuda):
+    """Any int8 value of M, not only 0/1, converts exactly to bf16."""
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, spmm_dual, spmm_dual_plain
+
+    U, I, d = 256, 512, 32
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mat = dense_storage(U, I, torch.int8, cuda)
+    mat.copy_(torch.randint(-128, 128, (U, I), generator=gen, device=cuda, dtype=torch.int32))
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    for g, w in zip(spmm_dual(mat, z_u, z_i), spmm_dual_plain(mat, z_u, z_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-2)
 
 
 def _f64_gate(got, plain, exact) -> tuple[float, float]:
@@ -169,6 +234,46 @@ def test_segsum_kernel_matches_plain(cuda, dtype, shape):
     assert segsum_close(got, want, msgs, offsets), float((got - want).abs().max())
     empty = offsets.diff() == 0
     assert not got[empty].any()
+
+
+def _offsets_of(counts, device):
+    return torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(torch.tensor(counts), 0)]).to(device)
+
+
+# segment edge counts (kernel pieces are 256 edges): one segment of every
+# edge; segments straddling piece boundaries; fewer edges than a piece;
+# runs of empty segments, at the start, inside, on piece boundaries and at
+# the end; path C's rebuilt item layout (one hub of 38,389 of 307,200 edges)
+@pytest.mark.parametrize("case", ["one_segment", "straddle", "under_a_piece", "empty_runs", "item_hub"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 64, 300])
+def test_segsum_split_cases(cuda, case, dtype, d):
+    from diffmm_tpu_torch.ops.kernels.segsum import segsum, segsum_plain
+
+    gen = torch.Generator().manual_seed(6)
+    if case == "one_segment":
+        counts = [3000]
+    elif case == "straddle":
+        counts = [100, 300, 256, 1, 511, 2, 254, 600, 7]
+    elif case == "under_a_piece":
+        counts = [3, 0, 50, 1, 0]
+    elif case == "empty_runs":
+        counts = [0, 0, 256, 0, 0, 0, 256, 0, 5, 0, 251, 0, 0, 300] + [0] * 10
+    else:
+        rest = torch.multinomial(torch.ones(19999), 307200 - 20 - 38389, replacement=True, generator=gen)
+        counts = [38389] + torch.bincount(rest, minlength=19999).tolist()
+    pads = 20
+    offsets = _offsets_of(counts, cuda)
+    nnz = int(offsets[-1]) + pads
+    msgs = torch.randn((nnz, d), generator=gen).to(dtype).to(cuda)
+    msgs[nnz - pads:] = float("nan")  # the pads are never read
+    got = segsum(msgs, offsets)
+    again = segsum(msgs, offsets)
+    want = segsum_plain(msgs, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert segsum_close(got, want, msgs, offsets), float((got - want).abs().max())
+    assert not got[offsets.diff() == 0].any()
 
 
 def test_segsum_rejects_what_the_kernel_does_not_take(cuda):
