@@ -11,33 +11,49 @@ exit, no result line):
    ``nvcc`` each, all at once; prints ptxas's register/shared-memory lines.
 2. kernels: each kernel's wrapper on card tensors at the main paths' shapes
    (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8 and bf16 storage,
-   also bitwise across two launches, with its launch plan and scratch;
-   K2/K3 ``denoise_mlp`` at B 1,024, H 1,024 and I 6,710 and 20,000, on
-   weights prepared once (also bitwise across two launches and within twice
-   the plain f32 product's error against float64); K4
-   ``segsum`` at the yelp shape: the user direction, n 38,403, nnz 307,200,
-   d 64; the item direction, n 20,000, ids with gaps; the stacked width
-   d 128; the item direction of a rebuilt graph, one hub of 38,389 edges;
-   f32 and bf16 messages) against its plain PyTorch version within
-   the stated tolerance (K4 also bitwise across two launches); times (CUDA
-   events, warm, many launches) of the kernel, the plain version and one
-   PyTorch library call computing the same function, beside the bound.
+   also bitwise across two launches, with its launch plan and scratch, and
+   its backward through autograd (``SpmmDual``); K2/K3 ``denoise_mlp`` at
+   B 1,024, H 1,024 and I 6,710 and 20,000, on weights prepared once (also
+   bitwise across two launches and within twice the plain f32 product's
+   error against float64); K4 ``segsum`` at the yelp shape: the user
+   direction, n 38,403, nnz 307,200, d 64; the item direction, n 20,000,
+   ids with gaps; the stacked width d 128; the item direction of a rebuilt
+   graph, one hub of 38,389 edges; f32 and bf16 messages; and the backward
+   of the sparse form's three autograd Functions, user and item
+   directions, stacked user and multi-item) against its plain PyTorch
+   version within the stated tolerance (K1's and K4's also bitwise across
+   two launches); times (CUDA events, warm, many launches) of the kernel,
+   the plain version and one PyTorch library call computing the same
+   function, beside the bound.
 3. reference: a tiny synthetic Coach on the card against the same Coach on
    the CPU (plain versions) with the same parameters, dense form and sparse
-   form; the sparse one also against the dense one on the same graphs.
+   form; the sparse one also against the dense one on the same graphs; and
+   one diffusion_block and one joint_block on both from the same
+   parameters, Adam states and injected draws.
 4. path A (tiktok shape, dense form): synthetic 9,308 x 6,710 at density
    0.000953, feature widths 128/768/128, conf/test.toml hypers, seed 1818:
-   rebuild -> test_epoch -> build_index -> 8 recommend requests (k=20),
-   then the same rebuild + eval once more under torch.profiler.
+   rebuild -> test_epoch -> build_index -> 8 recommend requests (k=20).
 5. path B: path A's steps on data/tiktok_mini at full model width (latdim
    64, hidden 1,024) with batch 256, so its real degree skew gives the
    two-bucket rebuild plan.
 6. path C (yelp shape, sparse form): synthetic 38,403 x 20,000 at density
    0.0004, image and text features at widths 4,096 and 1,024,
    conf/yelp.toml hypers with ``train.graph_form="sparse"`` (the train
-   store resolves to CSR): path A's steps and profile; no (U, I) tensor.
+   store resolves to CSR): path A's steps; no (U, I) tensor.
 7. path D: path B with ``train.graph_form="sparse"``: the CSR store's
    head/tail split and K4's hub segments.
+8. path E (training, dense form): path A's data and Coach settings,
+   ``train_epoch(0)`` and ``train_epoch(1)`` fenced, then ``test_epoch``:
+   per-phase seconds, losses, peak memory, launches; K1 launched forward
+   and backward in every joint step.
+9. path F (training, sparse form): path C's data and settings, one epoch
+   and ``test_epoch``, the same records; K4 forward and backward in every
+   joint step; no (U, I) tensor.
+10. path G: two epochs on data/tiktok_mini with the configuration of
+    tests/test_regression_mini.py; Recall@20 in that test's band.
+11. profiles (torch.profiler, after every path's host-clock times): A's
+    and C's rebuild + eval, and one more joint phase of E at epoch 1's
+    learning rate.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. A full report
@@ -48,6 +64,7 @@ limit, and last ``{"ok": true, "device": {...}}``. A full report
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -96,10 +113,14 @@ KERNELS = {
         "replaces": "diffmm_tpu/ops/pallas/segsum.py:127",
     },
 }
-# Path C's shape: yelp's catalog and feature widths (conf/yelp.toml), and its
-# padded train edge count (307,180 edges + 20 sentinel pads)
+# Path A's shape: tiktok's catalog at its density, its feature widths
+# (conf/test.toml's dataset; the full data is not in the repository)
+TIKTOK = {"user_num": 9308, "item_num": 6710, "density": 0.000953, "feat_dims": [128, 768, 128]}
+# Path C's shape: yelp's catalog and feature widths (conf/yelp.toml), its
+# padded train edge count (307,180 edges + 20 sentinel pads), and the hub of
+# its rebuilt item directions (38,389 of 38,403 users on one item)
 YELP = {"user_num": 38403, "item_num": 20000, "density": 0.0004, "feat_dims": [4096, 1024],
-        "edges": 307200}
+        "edges": 307200, "hub": 38389}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -160,8 +181,8 @@ def phase_kernels(dev) -> dict:
     out = {}
 
     # K1 at tiktok shape: realistic density (the kernel's work is dense)
-    U, I, d = 9308, 6710, 64
-    mask = torch.rand((U, I), generator=gen, device=dev) < 0.000953
+    U, I, d = TIKTOK["user_num"], TIKTOK["item_num"], 64
+    mask = torch.rand((U, I), generator=gen, device=dev) < TIKTOK["density"]
     z_u = torch.randn((U, d), generator=gen, device=dev)
     z_i = torch.randn((I, d), generator=gen, device=dev)
     zu16, zi16 = z_u.to(torch.bfloat16), z_i.to(torch.bfloat16)
@@ -201,10 +222,59 @@ def phase_kernels(dev) -> dict:
         key = "spmm_dual" if store == torch.int8 else "spmm_dual_bf16"
         out[key] = rec
         print(f"[kernels] {key}: {json.dumps(rec)}")
+        if store == torch.int8:  # the paths' storage: the backward too
+            out["spmm_dual_backward"] = _spmm_dual_backward(dev, gen, mat)
 
     out.update(_denoise_cases(dev, gen))
     out.update(_segsum_cases(dev, gen))
+    out.update(_segsum_backward_cases(dev, gen))
     return out
+
+
+def _spmm_dual_backward(dev, gen, mat) -> dict:
+    """K1's backward through autograd (``SpmmDual``) at the path's shape:
+    the cotangents' gradients against the plain version's (the same call
+    with the cotangents in place of z), within TOL, bitwise across two
+    backward calls, one launch a call; timed as a whole autograd call and as
+    its launch alone."""
+    import torch
+
+    from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+
+    (U, I), d = mat.shape, 64
+    z_u = torch.randn((U, d), generator=gen, device=dev).requires_grad_()
+    z_i = torch.randn((I, d), generator=gen, device=dev).requires_grad_()
+    g_u = torch.randn((U, d), generator=gen, device=dev)
+    g_i = torch.randn((I, d), generator=gen, device=dev)
+    outs = sd.SpmmDual.apply(mat, z_u, z_i)
+
+    def backward():
+        return torch.autograd.grad(outs, (z_u, z_i), (g_u, g_i), retain_graph=True)
+
+    before = sd.LAUNCHES["spmm_dual"]
+    got, again = backward(), backward()
+    launches = (sd.LAUNCHES["spmm_dual"] - before) / 2
+    want = sd.spmm_dual_plain(mat, g_u, g_i)  # (M @ g_i, Mᵀ @ g_u)
+    torch.cuda.synchronize()
+    rtol, atol = TOL["spmm_dual"]
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = (all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in zip(got, want)) and bitwise
+          and launches == 1)
+    check(ok, f"spmm_dual backward vs plain: max_abs_err {err}, bitwise {bitwise}, launches {launches}")
+    g16 = g_u.to(torch.bfloat16), g_i.to(torch.bfloat16)
+    m16 = mat.to(torch.bfloat16)
+    n_bytes = mat.numel() * mat.element_size() + 2 * (U + I) * d * 4
+    b, by = bound_ms(n_bytes, 2 * 2 * U * I * d, BF16_FLOPS)
+    # ms: the backward's launch alone (the kernel on the cotangents);
+    # backward_ms: the whole autograd call, host included
+    rec = {"ok": ok, "shape": [U, I, d], "max_abs_err": err, "bitwise_across_launches": bitwise,
+           "launches_per_backward": launches, "backward_ms": time_ms(backward, 50),
+           "ms": time_ms(lambda: sd.spmm_dual(mat, g_u, g_i), 50),
+           "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, g_u, g_i), 10), "bound_ms": b,
+           "bound_by": by, "library_ms": time_ms(lambda: (m16 @ g16[1], m16.T @ g16[0]), 50)}
+    print(f"[kernels] spmm_dual_backward: {json.dumps(rec)}")
+    return rec
 
 
 def _denoise_cases(dev, gen) -> dict:
@@ -221,7 +291,7 @@ def _denoise_cases(dev, gen) -> dict:
 
     out = {}
     B, H = 1024, 1024
-    for K, suffix in ((6710, ""), (YELP["item_num"], "_yelp")):
+    for K, suffix in ((TIKTOK["item_num"], ""), (YELP["item_num"], "_yelp")):
         x = torch.randn((B, K), generator=gen, device=dev)
         w1x = torch.randn((K, H), generator=gen, device=dev) * math.sqrt(2.0 / (K + 10 + H))
         tp = torch.randn((B, H), generator=gen, device=dev) * 0.1
@@ -336,7 +406,7 @@ def _segsum_cases(dev, gen) -> dict:
     # path C's rebuilt modality graphs put 38,389 of 38,403 users on one item
     for case, n, d, skew in (("user", U, 64, 1.0), ("item", I, 64, 2.0), ("stacked", U, 128, 1.0),
                              ("item_hub", I, 64, None)):
-        ids = (hub_segment_ids(gen, n, nnz, 20, 38389, dev) if skew is None
+        ids = (hub_segment_ids(gen, n, nnz, 20, YELP["hub"], dev) if skew is None
                else sorted_segment_ids(gen, n, nnz, 20, skew, dev))
         offsets = sg.segment_offsets(ids, n)
         real = int(offsets[-1])
@@ -378,6 +448,127 @@ def _segsum_cases(dev, gen) -> dict:
             key = f"segsum_{case}" + ("" if dtype == torch.float32 else "_bf16")
             out[key] = rec
             print(f"[kernels] {key}: {json.dumps(rec)}")
+    return out
+
+
+def _yelp_graphs(gen, dev, n_modal: int = 2):
+    """Path C's graph layout at the yelp shape: the train edges (users of
+    about 8 edges, items drawn uniformly, 20 sentinel pads) as a ``BiAdj``,
+    and ``n_modal`` rebuilt modality graphs on the same rows, the first with
+    path C's item hub (38,389 edges on one item), the others uniform."""
+    import torch
+
+    from diffmm_tpu_torch.ops.graph import build_bi_adj_device
+
+    U, I, nnz = YELP["user_num"], YELP["item_num"], YELP["edges"]
+    rows = sorted_segment_ids(gen, U, nnz, 20, 1.0, dev)
+    real = nnz - 20
+
+    def cols_of(ids):
+        shuffled = ids[:real][torch.randperm(real, generator=gen, device=dev)]
+        return torch.cat([shuffled, torch.full((20,), I, dtype=torch.int32, device=dev)])
+
+    uniform = lambda: torch.randint(0, I, (nnz,), generator=gen, device=dev).to(torch.int32)  # noqa: E731
+    main = build_bi_adj_device(rows, cols_of(uniform()), U, I)
+    modal = [build_bi_adj_device(rows, cols_of(hub_segment_ids(gen, I, nnz, 20, YELP["hub"], dev) if m == 0
+                                               else uniform()), U, I)
+             for m in range(n_modal)]
+    return main, modal
+
+
+def _segsum_backward_cases(dev, gen) -> dict:
+    """K4 in the backward of the sparse form's three Functions at path C's
+    shape (``ops/graph.py``): a user-direction and an item-direction
+    ``Propagate``, ``StackedUserPropagate`` (one launch a modality, the
+    first over a hub) and ``MultiItemPropagate`` (one wide launch at M·d).
+    Each backward call's gradient against its plain twin (the same
+    cotangent messages through ``segsum_plain``) within TOL["segsum"]
+    scaled by the sum of each output's |terms|, bitwise across two calls,
+    its K4 launches a call, the call's time, and its K4 launches alone
+    (kernel, plain, library, bound) on the call's messages."""
+    import torch
+
+    from diffmm_tpu_torch.ops import graph as og
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+
+    main, modal = _yelp_graphs(gen, dev)
+    U, I, d = main.user_num, main.item_num, 64
+    M = len(modal)
+    cases = {
+        # name: (function of z, z shape, output shape, [(bwd_src, bwd_offsets)] per launch, widths)
+        "user_direction": (lambda z: og.Propagate.apply(z, main.ui_cols, main.ui_offsets, main.iu_cols,
+                                                        main.iu_offsets, "f32"),
+                           (I, d), (U, d), [("g", main.iu_cols, main.iu_offsets)]),
+        "item_direction": (lambda z: og.Propagate.apply(z, main.iu_cols, main.iu_offsets, main.ui_cols,
+                                                        main.ui_offsets, "f32"),
+                           (U, d), (I, d), [("g", main.ui_cols, main.ui_offsets)]),
+        "stacked_user": (lambda z: og.StackedUserPropagate.apply(z, tuple(modal), "f32"),
+                         (M, I, d), (M, U, d), [(m, a.iu_cols, a.iu_offsets) for m, a in enumerate(modal)]),
+        "multi_item": (lambda z: og.MultiItemPropagate.apply(z, tuple(modal), "f32"),
+                       (M, U, d), (M, I, d), [("wide", [a.ui_cols for a in modal], modal[0].ui_offsets)]),
+    }
+    out = {}
+    rtol, atol = TOL["segsum"]
+    for name, (fn, z_shape, y_shape, launches) in cases.items():
+        z = torch.randn(z_shape, generator=gen, device=dev).requires_grad_()
+        g = torch.randn(y_shape, generator=gen, device=dev)
+        y = fn(z)
+
+        def backward():
+            return torch.autograd.grad(y, z, g, retain_graph=True)[0]
+
+        before = sg.LAUNCHES["segsum"]
+        got, again = backward(), backward()
+        per_call = (sg.LAUNCHES["segsum"] - before) / 2
+        # the backward's messages and offsets, launch by launch
+        msgs_offsets = []
+        for part, src, offsets in launches:
+            if part == "g":
+                msgs = og._gather_cotangent(g, src, "f32")
+            elif part == "wide":
+                msgs = torch.cat([og._gather_cotangent(g[m], s, "f32") for m, s in enumerate(src)], dim=1)
+            else:
+                msgs = og._gather_cotangent(g[part], src, "f32")
+            msgs_offsets.append((msgs, offsets))
+        want = [sg.segsum_plain(m, o) for m, o in msgs_offsets]
+        scale = [sg.segsum_plain(m.abs(), o) for m, o in msgs_offsets]
+        if name == "multi_item":
+            want = [w.view(U, M, d).permute(1, 0, 2) for w in want]
+            scale = [s_.view(U, M, d).permute(1, 0, 2) for s_ in scale]
+            got_parts = [got]
+        elif name == "stacked_user":
+            got_parts = list(got)
+        else:
+            got_parts = [got]
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(got_parts, want))
+        close = all(bool(((a - b).abs() <= rtol * s_ + atol).all()) for a, b, s_ in zip(got_parts, want, scale))
+        bitwise = torch.equal(got, again)
+        ok = close and bitwise and per_call == len(launches)
+        check(ok, f"segsum backward[{name}] vs plain: max_abs_err {err}, bitwise {bitwise}, "
+                  f"launches {per_call} (want {len(launches)})")
+        bound = [bound_ms(m.numel() * 4 + o.numel() * 8 + (o.numel() - 1) * m.shape[1] * 4,
+                          int(o[-1]) * m.shape[1], F32_FLOPS) for m, o in msgs_offsets]
+        rec = {
+            "ok": ok, "z_shape": list(z_shape), "launches_per_backward": per_call,
+            "segments": [int(o.numel() - 1) for _, o in msgs_offsets],
+            "widths": [int(m.shape[1]) for m, _ in msgs_offsets],
+            "max_segment": max(int(o.diff().max()) for _, o in msgs_offsets),
+            "max_abs_err": err,
+            "max_err_over_abs_sum": max(float(((a - b).abs() / (s_ + 1e-30)).max())
+                                        for a, b, s_ in zip(got_parts, want, scale)),
+            "bitwise_across_launches": bitwise,
+            "backward_ms": time_ms(backward, 20),
+            "ms": sum(time_ms(lambda m=m, o=o: sg.segsum(m, o), 50) for m, o in msgs_offsets),
+            "plain_ms": sum(time_ms(lambda m=m, o=o: sg.segsum_plain(m, o), 10) for m, o in msgs_offsets),
+            "bound_ms": sum(b for b, _ in bound),
+            "bound_by": bound[0][1],
+            "library_ms": sum(time_ms(lambda m=m, o=o: torch.segment_reduce(m, "sum", offsets=o, axis=0), 20)
+                              for m, o in msgs_offsets),
+        }
+        out[f"segsum_backward_{name}"] = rec
+        print(f"[kernels] segsum_backward_{name}: {json.dumps(rec)}")
+        del z, g, y, got, again, msgs_offsets, want, scale
     return out
 
 
@@ -458,7 +649,80 @@ def phase_reference(dev) -> dict:
         err = _check_close(sparse.forward(), dense.forward(), *tol,
                            f"sparse ({compute} messages) vs dense form on the card")
         rec[f"sparse_{compute}_vs_dense_max_abs_err"] = err
+    for form in ("dense", "sparse"):
+        rec[f"train_step_{form}"] = _train_step_reference(dev, _small_config(), form)
     print(f"[reference] {json.dumps(rec)}")
+    return rec
+
+
+def _train_step_reference(dev, cfg, form: str) -> dict:
+    """One diffusion_block and one joint_block on the card and on the CPU
+    from the same parameters, Adam states (after one CPU epoch, so the
+    updates are smooth functions of the gradients) and injected draws:
+    losses and updated parameters. Diffusion: f32 on both sides (cuBLAS
+    without TF32), rtol 1e-4 / atol 1e-5; joint: the sparse form f32, rtol
+    1e-4 / atol 1e-5, the dense form at its bf16 tolerance, rtol 1e-2 /
+    atol 1e-3. The card's joint step must launch K1 (dense) or K4 (sparse)
+    as often backward as forward."""
+    import torch
+
+    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.models.gcn import project_features
+    from diffmm_tpu_torch.train import steps
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    cfg.train.graph_form = form
+    host = make_synthetic_host_data(cfg, user_num=300, item_num=200, density=0.05, seed=5)
+    cpu = Coach(cfg, host, device="cpu")
+    cpu.train_epoch(0)
+    gpu = Coach(cfg, host, device=dev)
+    gpu.load_params(cpu.gcn_params, cpu.dn_params, cpu.gcn_opt_state, cpu.dn_opt_states)
+    gpu.edge_buffers = [b.to(dev) for b in cpu.edge_buffers]
+    gpu.modal_adjs = [gpu._make_adj(gpu.data.train_rows, b) for b in gpu.edge_buffers]
+    M, B, I, d = cpu.n_modal, cfg.train.batch, host.item_num, cfg.base.latdim
+    gen = torch.Generator().manual_seed(3)
+    users = torch.randperm(host.user_num, generator=gen)[:B].to(torch.int32)
+    weights = (torch.arange(B) < B - 5).to(torch.float32)
+    t = torch.randint(0, cfg.hyper.steps, (M, B), generator=gen)
+    noise = torch.randn((M, B, I), generator=gen)
+    pick = torch.randint(0, host.nnz, (B,), generator=gen)
+    rows, cols = torch.as_tensor(host.train_rows), torch.as_tensor(host.train_cols)
+    batch = (rows[pick], cols[pick], torch.randint(0, I, (B,), generator=gen).to(torch.int32))
+    cl_noise = [torch.rand((host.user_num if j % 2 == 0 else I, d), generator=gen) for j in range(6)]
+    out = []
+    for coach in (cpu, gpu):
+        dv = coach.device
+        hp = coach.hp()
+        with torch.no_grad():
+            feats = project_features(coach.gcn_params, coach.data.raw_feats)
+        for counts in _counters():
+            for k in counts:
+                counts[k] = 0
+        diff = steps.diffusion_block(
+            coach.schedule, coach.dn_params, coach.dn_opt_states, feats, coach.gcn_params["i_embs"],
+            coach.data.train_store, users.to(dv), weights.to(dv), 1e-3, hp, I, t=t.to(dv), noise=noise.to(dv),
+        )
+        joint = steps.joint_block(
+            coach.gcn_params, coach.gcn_opt_state, coach.data.adj, coach.modal_adjs, coach.data.raw_feats,
+            *(x.to(dv) for x in batch), 1e-3, hp, cfg.base.cl_method, cfg.train.segsum_compute,
+            cl_noise=[x.to(dv) for x in cl_noise],
+        )
+        out.append((diff, joint, {k: v for counts in _counters() for k, v in counts.items()}))
+    (d_c, j_c, _), (d_g, j_g, launches) = out
+    rec = {"launches": launches}
+    rec["diffusion_loss_max_abs_err"] = _check_close([d_g], [d_c], 1e-4, 1e-5, f"{form} diffusion losses")
+    rec["denoiser_max_abs_err"] = _check_close(
+        [p for dn in gpu.dn_params for p in tree_leaves(dn)],
+        [p for dn in cpu.dn_params for p in tree_leaves(dn)], 1e-4, 1e-5, f"{form} denoisers after a step")
+    tol = (1e-2, 1e-3) if form == "dense" else (1e-4, 1e-5)
+    rec["joint_metrics_max_abs_err"] = _check_close([j_g], [j_c], *tol, f"{form} joint metrics")
+    rec["gcn_max_abs_err"] = _check_close(tree_leaves(gpu.gcn_params), tree_leaves(cpu.gcn_params), *tol,
+                                          f"{form} GCN after a joint step")
+    kernel, per_step = ("spmm_dual", M + 4) if form == "dense" else ("segsum", M + 9)
+    check(launches[kernel] == 2 * per_step, f"{form} joint step launches {launches}, want {kernel} "
+                                            f"{2 * per_step} (forward and backward)")
+    rec["losses"] = {"diffusion": d_g.tolist(), "joint": j_g.tolist()}
     return rec
 
 
@@ -516,10 +780,13 @@ def drive_path(dev, cfg, host, label: str):
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
 
+    gc.collect()  # earlier paths' garbage is not counted as held
+    before = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     coach = Coach(cfg, host, device=dev)
     fence("setup_s", t0)
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     for counts in _counters():
         for k in counts:
             counts[k] = 0
@@ -580,6 +847,11 @@ def drive_path(dev, cfg, host, label: str):
         "metrics": metrics,
         "times": times,
         "peak_mem_bytes": peak,
+        # allocated when the peak was reset: what earlier phases still hold
+        # (Coaches kept for later paths, cached kernel scratch) and this
+        # Coach's own state (parameters, Adam moments, graphs, train store)
+        "held_at_start_bytes": held,
+        "coach_bytes": held - before,
         "launches": launches,
         "rebuild_widths": list(coach.rebuild_widths),
         "gcn_forwards": n_fwd,
@@ -595,25 +867,25 @@ def _tiktok_shape():
     cfg = load_config(os.path.join(REPO, "conf", "test.toml"))
     t0 = time.perf_counter()
     host = make_synthetic_host_data(
-        cfg, user_num=9308, item_num=6710, density=0.000953,
-        feat_dims=[128, 768, 128], seed=cfg.base.seed,
+        cfg, user_num=TIKTOK["user_num"], item_num=TIKTOK["item_num"], density=TIKTOK["density"],
+        feat_dims=TIKTOK["feat_dims"], seed=cfg.base.seed,
     )
     print(f"[path A] synthetic data in {time.perf_counter() - t0:.1f} s")
     return cfg, host
 
 
-def phase_profile(coach, label: str, report_dir: str) -> dict:
-    """torch.profiler over one warm rebuild + eval of a path's Coach: device
-    time by kernel name and the device's busy share of the wall time. The
-    table goes to ``<report_dir>/profile_path_<label>.txt``."""
+def phase_profile(work, label: str, report_dir: str) -> dict:
+    """torch.profiler over ``work()`` on a warm Coach (a path's rebuild +
+    eval, or a training path's joint phase): device time by kernel name and
+    the device's busy share of the wall time. The table goes to
+    ``<report_dir>/profile_path_<label>.txt``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        coach.rebuild_graphs()
-        coach.test_epoch()
+        work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -635,10 +907,18 @@ def phase_profile(coach, label: str, report_dir: str) -> dict:
     return rec
 
 
-def phase_path_a(dev, report_dir: str) -> tuple[dict, dict]:
-    rec, coach = drive_path(dev, *_tiktok_shape(), "A")
+def _rebuild_and_eval(coach):
+    def work():
+        coach.rebuild_graphs()
+        coach.test_epoch()
+    return work
+
+
+def phase_path_a(dev) -> tuple[dict, object, object]:
+    cfg, host = _tiktok_shape()
+    rec, coach = drive_path(dev, cfg, host, "A")
     check(rec["graph_form"] == "dense" and rec["train_store"] == "dense", f"A form {rec}")
-    return rec, phase_profile(coach, "A", report_dir)
+    return rec, coach, host
 
 
 def _tiktok_mini(sparse: bool):
@@ -661,7 +941,7 @@ def phase_path_b(dev) -> dict:
     return rec
 
 
-def phase_path_c(dev, report_dir: str) -> tuple[dict, dict]:
+def phase_path_c(dev) -> tuple[dict, object, object]:
     from diffmm_tpu_torch.config import load_config
     from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
 
@@ -681,7 +961,7 @@ def phase_path_c(dev, report_dir: str) -> tuple[dict, dict]:
     ui = host.user_num * host.item_num
     check(ui not in tensor_numels(vars(coach)), "C holds a (U, I) tensor")
     rec["holds_ui_tensor"] = False
-    return rec, phase_profile(coach, "C", report_dir)
+    return rec, coach, host
 
 
 def phase_path_d(dev) -> dict:
@@ -693,6 +973,185 @@ def phase_path_d(dev) -> dict:
     check(coach.host.user_num * coach.host.item_num not in tensor_numels(vars(coach)),
           "D holds a (U, I) tensor")
     return rec
+
+
+def drive_training(dev, cfg, host, label: str, epochs: int):
+    """``train_epoch(e, fence=True)`` for ``epochs`` epochs, then
+    ``test_epoch``, with every kernel counter set to 0 just before and read
+    just after; each epoch's joint phase counts its own launches (its
+    K1/K4 forward and backward). Returns the record and the warm Coach."""
+    import torch
+
+    from diffmm_tpu_torch.train.coach import Coach
+
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    coach = Coach(cfg, host, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    joint_launches = []
+    joint_phase = coach._joint_phase
+
+    def counted(*args, **kwargs):
+        before = {k: v for counts in _counters() for k, v in counts.items()}
+        result = joint_phase(*args, **kwargs)
+        joint_launches.append({k: v - before[k] for counts in _counters() for k, v in counts.items()})
+        return result
+
+    coach._joint_phase = counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+    epochs_rec = []
+    for epoch in range(epochs):
+        coach.timer.reset()
+        t0 = time.perf_counter()
+        losses = coach.train_epoch(epoch, fence=True)
+        wall = time.perf_counter() - t0
+        check(all(math.isfinite(v) for v in losses.values()), f"{label} epoch {epoch} losses {losses}")
+        epochs_rec.append({"epoch": epoch, "wall_s": wall, "phases_s": dict(coach.timer.totals),
+                           "losses": losses, "joint_launches": joint_launches[-1]})
+        print(f"[path {label}] epoch {epoch}: {json.dumps(epochs_rec[-1])}")
+    t0 = time.perf_counter()
+    metrics = coach.test_epoch()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    coach._joint_phase = joint_phase
+    for k, v in metrics.items():
+        check(math.isfinite(v) and 0.0 <= v <= 1.0, f"{label} {k}={v}")
+    batch = cfg.train.batch
+    n_joint = -(-host.nnz // batch)
+    n_diff = -(-host.user_num // batch)
+    blocks = sum(int(b.shape[0]) for b in coach.rebuild_blocks)
+    want_dn = coach.n_modal * cfg.hyper.steps * blocks * epochs
+    check(launches["denoise_layer1"] == want_dn and launches["denoise_layer2"] == want_dn,
+          f"{label} denoise launches {launches}, want {want_dn} each (the rebuilds)")
+    if coach.dense_graphs:
+        # M + 4 forward spmm_bi calls a joint step (M modal, 2 main, 2 more
+        # in the cross-layer CL), one backward launch each
+        kernel, other, per_step = "spmm_dual", "segsum", coach.n_modal + 4
+    else:
+        # M + 9 forward K4 launches a step (1 stacked user + M item
+        # directions, 2 x 2 main, 2 x 2 cross-layer CL), as many backward
+        kernel, other, per_step = "segsum", "spmm_dual", coach.n_modal + 9
+    want = 2 * per_step * n_joint
+    for e in epochs_rec:
+        got = e["joint_launches"]
+        check(got[kernel] >= want and got[other] == 0,
+              f"{label} joint launches {got}, want {kernel} >= {want} and no {other}")
+    rec = {
+        "shape": [host.user_num, host.item_num, host.nnz],
+        "graph_form": "dense" if coach.dense_graphs else "sparse",
+        "train_store": coach.train_store_form,
+        "cl_method": cfg.base.cl_method,
+        "setup_s": setup_s,
+        "epochs": epochs_rec,
+        "eval_s": eval_s,
+        "metrics": metrics,
+        "peak_mem_bytes": peak,
+        "held_at_start_bytes": held,  # as in drive_path
+        "coach_bytes": held - before,
+        "launches": launches,
+        "joint_blocks": n_joint,
+        "diffusion_blocks": n_diff,
+        "joint_launches_wanted": {kernel: want},
+    }
+    print(f"[path {label}] {json.dumps(rec)}")
+    return rec, coach
+
+
+def phase_path_e(dev, host) -> tuple[dict, object]:
+    """Training at full width on path A's data and conf/test.toml hypers."""
+    from diffmm_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "conf", "test.toml"))
+    rec, coach = drive_training(dev, cfg, host, "E", epochs=2)
+    check(rec["graph_form"] == "dense", f"E form {rec['graph_form']}")
+    return rec, coach
+
+
+def phase_path_f(dev, host) -> tuple[dict, object]:
+    """Training at full width on path C's data, conf/yelp.toml hypers
+    (cl_method 1), the sparse form; no (U, I) tensor anywhere."""
+    from diffmm_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "conf", "yelp.toml"))
+    cfg.train.graph_form = "sparse"
+    rec, coach = drive_training(dev, cfg, host, "F", epochs=1)
+    check(rec["graph_form"] == "sparse" and rec["train_store"] == "csr" and rec["cl_method"] == 1,
+          f"F form {rec}")
+    check(host.user_num * host.item_num not in tensor_numels(vars(coach)), "F holds a (U, I) tensor")
+    rec["holds_ui_tensor"] = False
+    return rec, coach
+
+
+# The JAX package's accuracy bar (tests/test_regression_mini.py:28-51):
+# Recall@20 after two epochs on data/tiktok_mini with this configuration at
+# seed 1818. A two-epoch Recall there counts a handful of hits among 398
+# test users and spreads from seed to seed (the JAX package's own run on
+# the CPU lands in the band at about half its seeds), so the run at seed
+# 1818 is checked and the runs at G_SEEDS are recorded beside it.
+RECALL_BAND = (0.008, 0.019)
+G_SEEDS = tuple(range(1, 10))
+
+
+def _mini_recall(dev, host, seed: int) -> tuple[dict, list]:
+    from diffmm_tpu_torch.config import Config
+    from diffmm_tpu_torch.train.coach import Coach
+
+    cfg = Config()
+    cfg.data.name = "tiktok_mini"
+    cfg.base.seed = seed
+    cfg.base.latdim = 16
+    cfg.base.denoise_dim = "[64]"
+    cfg.train.batch = 256
+    cfg.train.test_batch = 256
+    cfg.train.epoch = 2
+    coach = Coach(cfg, host, device=dev)
+    losses = [coach.train_epoch(epoch) for epoch in range(2)]
+    return coach.test_epoch(), losses
+
+
+def phase_path_g(dev) -> dict:
+    """Two epochs on data/tiktok_mini with the configuration of
+    tests/test_regression_mini.py on the card: Recall@20 at seed 1818 in
+    RECALL_BAND; the other seeds' recorded."""
+    from diffmm_tpu_torch.config import Config
+    from diffmm_tpu_torch.data.loader import load_host_data
+
+    cfg = Config()
+    cfg.data.name = "tiktok_mini"
+    host = load_host_data(cfg, data_root=os.path.join(REPO, "data"))
+    t0 = time.perf_counter()
+    metrics, losses = _mini_recall(dev, host, 1818)  # the eval ends in a host copy
+    rec = {"losses": losses, "metrics": metrics, "band": list(RECALL_BAND),
+           "wall_s": time.perf_counter() - t0,
+           "other_seeds_recall": {s: _mini_recall(dev, host, s)[0]["Recall"] for s in G_SEEDS}}
+    print(f"[path G] {json.dumps(rec)}")
+    check(RECALL_BAND[0] <= metrics["Recall"] <= RECALL_BAND[1],
+          f"G Recall@20 {metrics['Recall']} outside {RECALL_BAND}")
+    return rec
+
+
+def _joint_phase_work(coach, epoch: int):
+    """One more joint phase of a trained Coach at ``epoch``'s learning
+    rate, on fresh negatives (the profiled part of a training path)."""
+    import torch
+
+    from diffmm_tpu_torch.data.sampling import negative_sampling
+    from diffmm_tpu_torch.train.optim import cosine_lr
+
+    cfg = coach.config
+    negs = negative_sampling(coach.data.train_rows, coach.data.train_store, coach.host.item_num,
+                             generator=coach.generator)
+    lr = cosine_lr(epoch, cfg.train.lr, coach.total_epochs)
+    acc = torch.zeros(coach.n_modal, device=coach.device)
+    return lambda: coach._joint_phase(lr, negs, acc, coach.hp())
 
 
 def main(argv=None) -> int:
@@ -720,17 +1179,27 @@ def main(argv=None) -> int:
     report["build"] = phase_build()
     report["kernels"] = phase_kernels(dev)
     report["reference"] = phase_reference(dev)
-    report["path_A"], report["profile_A"] = phase_path_a(dev, args.report_dir)
+    # every path's host-clock times come before any profiler session: a
+    # session raises the host's launch cost for the rest of the process
+    report["path_A"], coach_a, host_a = phase_path_a(dev)
     report["path_B"] = phase_path_b(dev)
-    report["path_C"], report["profile_C"] = phase_path_c(dev, args.report_dir)
+    report["path_C"], coach_c, host_c = phase_path_c(dev)
     report["path_D"] = phase_path_d(dev)
+    report["path_E"], coach_e = phase_path_e(dev, host_a)
+    report["path_F"], coach_f = phase_path_f(dev, host_c)
+    report["path_G"] = phase_path_g(dev)
+    del coach_f
+    report["profile_A"] = phase_profile(_rebuild_and_eval(coach_a), "A", args.report_dir)
+    report["profile_C"] = phase_profile(_rebuild_and_eval(coach_c), "C", args.report_dir)
+    report["profile_E_joint"] = phase_profile(_joint_phase_work(coach_e, 1), "E_joint", args.report_dir)
 
-    # each kernel's launches come from the path that runs it: K1-K3 from A
-    # (dense form), K4 from C (sparse form); the other paths' beside them
+    # each kernel's launches come from this slice's path that runs it: K1-K3
+    # from E (dense-form training), K4 from F (sparse-form training); the
+    # other paths' beside them
     kernels = report["kernels"]
     rows = []
     for name, meta in KERNELS.items():
-        main_path, others = ("C", "D") if name == "segsum" else ("A", "BCD")
+        main_path, others = ("F", "ABCDE") if name == "segsum" else ("E", "ABCDF")
         k = kernels["segsum_user" if name == "segsum" else name]
         launches = report[f"path_{main_path}"]["launches"][name]
         row = {"name": name, "route": "cuda", "source": meta["source"],
@@ -739,7 +1208,7 @@ def main(argv=None) -> int:
                **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}
         if name == "spmm_dual":
-            extra = {"bf16_store": kernels["spmm_dual_bf16"]}
+            extra = {"bf16_store": kernels["spmm_dual_bf16"], "backward": kernels["spmm_dual_backward"]}
         elif name == "segsum":
             extra = {"cases": {key: rec for key, rec in kernels.items()
                                if key.startswith("segsum_") and key != "segsum_user"}}

@@ -5,15 +5,19 @@ module by module. The module layout mirrors ``diffmm_tpu`` so that each
 counterpart sits at the same path. The port imports ``torch`` and never
 ``jax`` or ``diffmm_tpu``.
 
-This slice covers the serving path on the dense graph form:
+It trains and serves on both graph forms (dense (U, I) blocks, sparse
+O(nnz) edges), through ``python -m diffmm_tpu_torch`` (``cli.py``) or the
+``train/coach.py`` ``Coach``:
 
-1. phase-2 graph rebuild by reverse diffusion (``train/steps.py``
-   ``rebuild_epoch``, driven by ``train/coach.py`` ``Coach.rebuild_graphs``);
-2. the dense-form GCN forward (``models/gcn.py`` ``gcn_mm``);
-3. full-catalog ranking eval (``eval/ranking.py``, ``Coach.test_epoch``);
-4. index build, save/load and ``recommend`` (``eval/serving.py``).
+1. an epoch (``Coach.train_epoch``): negative sampling
+   (``data/sampling.py``), diffusion training of one denoiser per modality,
+   the graph rebuild by reverse diffusion, joint GCN training with BPR, L2
+   and two contrastive losses (``train/steps.py``), Adam (``train/optim.py``);
+2. full-catalog ranking eval (``eval/ranking.py``, ``Coach.test_epoch``) and
+   best-epoch capture (``Coach.run``);
+3. index build, save/load and ``recommend`` (``eval/serving.py``).
 
 Its hand-written Hopper kernels are in ``csrc/`` and are wrapped by
-``ops/kernels/spmm_dual.py`` and ``ops/kernels/denoise_mlp.py``. Entry points
+``ops/kernels/``; the propagations' backwards launch them too. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -13,8 +13,8 @@ goes through the ``spmm_dual`` kernel and the sparse form through the
 ``DIFFMM_FEAT_CACHE`` and ``DIFFMM_SYNTH_MODE`` keep their meaning
 (``data/loader.py``).
 
-:func:`check_slice_support` rejects the settings this slice of the port
-cannot honour yet, naming the ROADMAP item that brings each.
+:func:`check_slice_support` rejects the settings the port cannot honour
+yet, naming the ROADMAP item that brings each.
 """
 
 from __future__ import annotations
@@ -222,8 +222,8 @@ def check_slice_support(config: Config) -> None:
     if len(config.base.denoise_dims()) != 1:
         raise NotImplementedError(
             "a denoiser with more than one hidden layer is not ported yet: "
-            "the denoise_mlp kernel takes one hidden layer "
-            "(ROADMAP.md A, slice 3: training)"
+            "the rebuild's denoise_mlp kernels take one hidden layer "
+            "(ROADMAP.md A, slice 4: execution knobs)"
         )
     if config.hyper.use_knn_adj:
         raise NotImplementedError(

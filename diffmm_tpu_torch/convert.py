@@ -1,11 +1,14 @@
-"""Carry a JAX run's parameters and sparse-form graph state into the port.
+"""Carry a JAX run's parameters, optimizer state and sparse-form graph state
+into the port.
 
 :func:`params_from_jax` takes the ``diffmm_tpu`` parameter pytrees as numpy
 arrays (``jax.device_get`` of ``Coach.gcn_params`` and ``Coach.dn_params``)
 and returns the port's parameters, after which both packages compute the
-same functions. :func:`bi_adj_from_jax` and :func:`train_csr_from_jax` do
-the same for a sparse-form adjacency (``BiAdj``) and a CSR train store
-(``TrainCSR``), read field by field as numpy arrays.
+same functions; :func:`adam_state_from_jax` does the same for an Adam state
+(``Coach.gcn_opt_state``, each of ``Coach.dn_opt_states``).
+:func:`bi_adj_from_jax` and :func:`train_csr_from_jax` do the same for a
+sparse-form adjacency (``BiAdj``) and a CSR train store (``TrainCSR``),
+read field by field as numpy arrays.
 
 Layout: both packages store a Linear as ``{"w": (d_in, d_out), "b":
 (d_out,)}`` and compute ``x @ w + b`` (torch's ``nn.Linear`` keeps the
@@ -26,6 +29,7 @@ import torch
 
 from diffmm_tpu_torch.data.membership import TrainCSR, make_train_csr
 from diffmm_tpu_torch.ops.graph import BiAdj, assemble_bi_adj
+from diffmm_tpu_torch.train.optim import AdamState, tree_leaves
 
 
 def tree_to(tree, device):
@@ -61,6 +65,20 @@ def params_from_jax(gcn_params: dict, dn_params_list: list, device: str | torch.
     return (
         gcn_params_from_jax(gcn_params, device),
         [denoise_params_from_jax(p, device) for p in dn_params_list],
+    )
+
+
+def adam_state_from_jax(state, device: str | torch.device = "cpu") -> AdamState:
+    """An optax ``ScaleByAdamState`` (``count``, and ``mu``/``nu`` trees
+    shaped like the parameters, numpy leaves) as the port's
+    :class:`~diffmm_tpu_torch.train.optim.AdamState`: the count as a host
+    integer, the moments in :func:`tree_leaves` order (the order JAX
+    flattens the same tree in). With it both packages step on from the same
+    step k > 0."""
+    return AdamState(
+        count=int(np.asarray(state.count)),
+        mu=tree_leaves(tree_to(state.mu, device)),
+        nu=tree_leaves(tree_to(state.nu, device)),
     )
 
 

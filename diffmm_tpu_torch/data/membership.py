@@ -6,8 +6,8 @@ contiguous read. The CSR store (:class:`TrainCSR`) is three O(nnz)/O(U)
 tensors the loader already holds, so the sparse graph form carries no
 (U, I) tensor anywhere: a block's rows exist only as its (B, I) transient,
 built by one scatter of the users' spans. Both stores give bit-identical
-0/1 rows. The membership test (``contains``) comes with the training
-slice, with negative sampling.
+0/1 rows, and the same answers from the membership test
+(:func:`contains`) of negative sampling.
 """
 
 from __future__ import annotations
@@ -102,6 +102,33 @@ def gather_rows(store, users: torch.Tensor, item_num: int) -> torch.Tensor:
     titems, tvalid = _span_lanes(store.cols, off[sel], deg[sel], store.k_cut, store.k_max)
     _scatter_ones(rows, sel, titems, tvalid & real[:, None])
     return rows
+
+
+def contains(store, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """Per-lane membership test: is ``(users[e], items[e])`` a train edge?
+
+    Dense store: one 2-D gather. CSR store: a fixed-depth lower-bound
+    binary search over each user's ascending span, ``bit_length(k_max)``
+    rounds (every lane converges: spans hold at most k_max items), as in
+    the JAX package. User ids past the last user (the edge pads) are
+    clamped to it, as the JAX dense gather clamps them; their answers are
+    never used."""
+    csr = isinstance(store, TrainCSR)
+    users = users.long().clamp_max((store.degrees if csr else store).shape[0] - 1)
+    items = items.long()
+    if not csr:
+        return store[users, items] != 0
+    lo = store.offsets[users].long()
+    end = hi = lo + store.degrees[users].long()
+    last = store.cols.shape[0] - 1
+    for _ in range(max(int(store.k_max).bit_length(), 1)):
+        mid = (lo + hi) // 2
+        go_right = store.cols[mid.clamp(0, last)] < items
+        active = lo < hi
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    found = store.cols[lo.clamp(0, last)] == items
+    return (lo < end) & found
 
 
 def plan_head_tail(degrees, k_max: int, block: int = 1024):

@@ -93,3 +93,9 @@ def make_schedule(
         posterior_mean_coef1=as_f32(posterior_mean_coef1),
         posterior_mean_coef2=as_f32(posterior_mean_coef2),
     )
+
+
+def snr(schedule: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Signal-to-noise ratio at timestep t (reference `Model.py:380-383`)."""
+    ab = schedule.alphas_cumprod[t]
+    return ab / (1.0 - ab + 1e-8)

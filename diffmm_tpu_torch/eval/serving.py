@@ -84,10 +84,19 @@ def seen_csr_from_edges(
     return indptr, indices, width
 
 
-def build_index(coach) -> RecIndex:
+def build_index(coach, use_best: bool = True) -> RecIndex:
     """Freeze a Coach into a serving index: the GCN forward over its
-    rebuilt modality graphs, like eval."""
-    u_final, i_final = coach.forward()
+    rebuilt modality graphs, like eval.
+
+    ``use_best``: serve the best-Recall epoch's captured model
+    (``Coach.best_state``, the reference's model selection, `Main.py:71-78`)
+    rather than the last epoch's; the live state when no eval ran, as for
+    a Coach that only rebuilt its graphs."""
+    if use_best:
+        params, modal_adjs = coach.best_state()
+        u_final, i_final = coach.forward(params, modal_adjs)
+    else:
+        u_final, i_final = coach.forward()
     indptr, indices, width = seen_csr_from_edges(
         coach.host.train_rows, coach.host.train_cols, coach.host.user_num
     )

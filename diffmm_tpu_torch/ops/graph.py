@@ -13,6 +13,14 @@ bipartite adjacency ``D^-1/2 (A + I) D^-1/2`` over the (user, item) nodes
   reduces them by ascending segment id through the ``segsum`` kernel (K4)
   on the card, in f32 (or with bf16 messages, ``compute="bf16"``). Nothing
   of size O(U·I) exists in this form.
+
+Both forms differentiate through their kernels: K1's backward is
+:class:`~diffmm_tpu_torch.ops.kernels.spmm_dual.SpmmDual`, and the sparse
+form's three ``torch.autograd.Function``\\ s (:class:`Propagate`,
+:class:`StackedUserPropagate`, :class:`MultiItemPropagate`) run each
+backward as K4 reductions in the opposite edge order, never through
+autograd of ``index_select`` (whose backward scatters with atomics and
+would not launch K4).
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import numpy as np
 import torch
 
 from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum
-from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, spmm_dual
+from diffmm_tpu_torch.ops.kernels.spmm_dual import SpmmDual, dense_storage
 
 
 class DenseBiAdj(NamedTuple):
@@ -199,26 +207,109 @@ def _gather(z: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return z.index_select(0, src.clamp_max(z.shape[0] - 1))
 
 
-def _propagate_sorted(z, src, offsets, compute):
-    """One direction: ``y[r] = sum_{ids[e] = r} z[src[e]]`` for ascending
-    ``ids`` with CSR ``offsets``, reduced by K4 (JAX ``_propagate_sorted``
-    forward; its ``_reduce_sorted`` has the one route here, :func:`segsum`)."""
-    return segsum(_gather(_cast(z, compute), src), offsets)
+def _gather_cotangent(g: torch.Tensor, src: torch.Tensor, compute: str) -> torch.Tensor:
+    """A backward's messages ``cast(g)[src]`` per edge, where ``src`` is one
+    past the last row of g for an edge that is a pad in the forward's
+    segments: a zero row there, so such an edge adds nothing (the JAX
+    backward masks ``src_rows < n_out``). Edges that are pads in the
+    backward's own segments lie past its offsets and are never read."""
+    g = _cast(g, compute)
+    return torch.cat([g, g.new_zeros((1, g.shape[1]))]).index_select(0, src)
+
+
+class Propagate(torch.autograd.Function):
+    """One direction of the sparse form, ``y[r] = sum_{e in segment r}
+    z[src[e]]`` over the CSR ``offsets``, reduced by K4 (JAX
+    ``_get_propagator``, ``graph.py:339-392``).
+
+    ``Propagate.apply(z, src, offsets, bwd_src, bwd_offsets, compute)``:
+    the backward is the same sorted reduction in the opposite order, one K4
+    launch: the cotangent gathered by ``bwd_src`` (the forward's segment of
+    each edge, in the other direction's edge order) and reduced over
+    ``bwd_offsets``. No scatter and no atomics in either pass.
+    ``compute="bf16"`` rounds z, and in the backward the cotangent, to bf16
+    before the gather, as the JAX code does."""
+
+    @staticmethod
+    def forward(ctx, z, src, offsets, bwd_src, bwd_offsets, compute):
+        ctx.save_for_backward(bwd_src, bwd_offsets)
+        ctx.compute = compute
+        return segsum(_gather(_cast(z, compute), src), offsets)
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd_src, bwd_offsets = ctx.saved_tensors
+        dz = segsum(_gather_cotangent(g, bwd_src, ctx.compute), bwd_offsets)
+        return dz, None, None, None, None, None
+
+
+class StackedUserPropagate(torch.autograd.Function):
+    """The user direction of M modality graphs that share the train rows
+    (JAX ``_get_stacked_user_prop``, ``graph.py:404-463``).
+
+    ``StackedUserPropagate.apply(z, adjs, compute)`` with z (M, I, d) ->
+    (M, U, d): one K4 launch at width M·d over the shared user-major
+    layout. The backward reduces by each modality's own item-major layout,
+    one K4 launch a modality."""
+
+    @staticmethod
+    def forward(ctx, z, adjs, compute):
+        ctx.adjs, ctx.compute = adjs, compute
+        M, d, U = z.shape[0], z.shape[2], adjs[0].user_num
+        msgs = torch.cat([_gather(_cast(z[m], compute), a.ui_cols) for m, a in enumerate(adjs)], dim=1)
+        wide = segsum(msgs, adjs[0].ui_offsets)  # (U, M * d)
+        return wide.view(U, M, d).permute(1, 0, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        dz = torch.stack([
+            segsum(_gather_cotangent(g[m], a.iu_cols, ctx.compute), a.iu_offsets)
+            for m, a in enumerate(ctx.adjs)
+        ])
+        return dz, None, None
+
+
+class MultiItemPropagate(torch.autograd.Function):
+    """The item direction of M modality graphs (JAX
+    ``_get_multi_item_prop``, ``graph.py:467-520``).
+
+    ``MultiItemPropagate.apply(z, adjs, compute)`` with z (M, U, d) ->
+    (M, I, d): one K4 launch a modality, each over its own item-major
+    layout. The backward reduces by the shared user-major layout: one K4
+    launch at width M·d."""
+
+    @staticmethod
+    def forward(ctx, z, adjs, compute):
+        ctx.adjs, ctx.compute = adjs, compute
+        return torch.stack([
+            segsum(_gather(_cast(z[m], compute), a.iu_cols), a.iu_offsets)
+            for m, a in enumerate(adjs)
+        ])
+
+    @staticmethod
+    def backward(ctx, g):
+        adjs = ctx.adjs
+        M, d, U = g.shape[0], g.shape[2], adjs[0].user_num
+        msgs = torch.cat([_gather_cotangent(g[m], a.ui_cols, ctx.compute)
+                          for m, a in enumerate(adjs)], dim=1)
+        wide = segsum(msgs, adjs[0].ui_offsets)  # (U, M * d)
+        return wide.view(U, M, d).permute(1, 0, 2), None, None
 
 
 def spmm_bi(adj, x_user: torch.Tensor, x_item: torch.Tensor, compute: str = "f32"):
     """``y = D^-1/2 (A + I) D^-1/2 x`` on the split (user, item) embedding
     pair (reference `Model.py:90`), dispatched on the adjacency's form:
     K1 on a :class:`DenseBiAdj`, K4 in both directions on a
-    :class:`BiAdj`. ``compute`` sets the sparse form's message type (the
-    dense form always rounds z to bf16). Returns ``(y_user, y_item)``."""
+    :class:`BiAdj`, forward and backward (:class:`SpmmDual`,
+    :class:`Propagate`). ``compute`` sets the sparse form's message type
+    (the dense form always rounds z to bf16). Returns ``(y_user, y_item)``."""
     z_u = x_user * adj.s_user[:, None]
     z_i = x_item * adj.s_item[:, None]
     if isinstance(adj, DenseBiAdj):
-        m_u, m_i = spmm_dual(adj.mat, z_u, z_i)
+        m_u, m_i = SpmmDual.apply(adj.mat, z_u, z_i)
     else:
-        m_u = _propagate_sorted(z_i, adj.ui_cols, adj.ui_offsets, compute)
-        m_i = _propagate_sorted(z_u, adj.iu_cols, adj.iu_offsets, compute)
+        m_u = Propagate.apply(z_i, adj.ui_cols, adj.ui_offsets, adj.iu_cols, adj.iu_offsets, compute)
+        m_i = Propagate.apply(z_u, adj.iu_cols, adj.iu_offsets, adj.ui_cols, adj.ui_offsets, compute)
     y_u = adj.s_user[:, None] * (m_u + z_u)
     y_i = adj.s_item[:, None] * (m_i + z_i)
     return y_u, y_i
@@ -233,24 +324,20 @@ def spmm_bi_modal_stacked(
 
     The rebuilt modality graphs share the train rows (``ops/topk.py``), so
     the M user-direction reductions run as ONE K4 launch at width M·d over
-    the shared ``ui_rows``; the item direction has a layout per modality
-    and runs one launch each. The shared rows are asserted (the JAX
-    docstring states the precondition without checking it)."""
+    the shared ``ui_rows`` (:class:`StackedUserPropagate`); the item
+    direction has a layout per modality and runs one launch each
+    (:class:`MultiItemPropagate`); their backwards swap the two. The
+    shared rows are asserted (the JAX docstring states the precondition
+    without checking it)."""
     rows = adjs[0].ui_rows
     for a in adjs[1:]:
         if a.ui_rows is not rows and not torch.equal(a.ui_rows, rows):
             raise ValueError("spmm_bi_modal_stacked: the adjacencies must share ui_rows")
-    M, d = len(adjs), x_user.shape[1]
-    U = adjs[0].user_num
-    z_u = [x_user * a.s_user[:, None] for a in adjs]
-    z_i = [x * a.s_item[:, None] for x, a in zip(x_items, adjs)]
-    msgs = torch.cat([_gather(_cast(z, compute), a.ui_cols) for z, a in zip(z_i, adjs)], dim=1)
-    wide = segsum(msgs, adjs[0].ui_offsets)  # (U, M * d)
-    m_u = wide.view(U, M, d).permute(1, 0, 2)
-    m_i = [
-        _propagate_sorted(z, a.iu_cols, a.iu_offsets, compute)
-        for z, a in zip(z_u, adjs)
-    ]
+    adjs = tuple(adjs)
+    z_u = torch.stack([x_user * a.s_user[:, None] for a in adjs])
+    z_i = torch.stack([x * a.s_item[:, None] for x, a in zip(x_items, adjs)])
+    m_u = StackedUserPropagate.apply(z_i, adjs, compute)
+    m_i = MultiItemPropagate.apply(z_u, adjs, compute)
     s_u = torch.stack([a.s_user for a in adjs])[:, :, None]
     s_i = torch.stack([a.s_item for a in adjs])[:, :, None]
-    return s_u * (m_u + torch.stack(z_u)), s_i * (torch.stack(m_i) + torch.stack(z_i))
+    return s_u * (m_u + z_u), s_i * (m_i + z_i)

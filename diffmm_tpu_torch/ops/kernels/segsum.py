@@ -17,8 +17,13 @@ JAX package hoists its rank machinery (``BiAdj.rank_aux``). Its plans
 ``segsum_fits_vmem``) size work to the TPU's VMEM window; this kernel has
 no window, so they have no counterpart.
 
-This slice ports the forward. The JAX VJP is a gather of the cotangent by
-``ids`` (``_ssum_bwd``); it comes with the training slice.
+The backward of the sparse form's propagations is K4 too: the three
+``torch.autograd.Function``\\ s of ``ops/graph.py`` (after the JAX custom
+VJPs ``graph.py:339-520``) gather the cotangent by the opposite order's
+source rows and launch this kernel over the other direction's offsets.
+K4's own VJP in the JAX package (``_ssum_bwd``, a gather of the cotangent
+by ``ids``) is the first half of each of those backwards, so it has no
+function of its own here.
 """
 
 from __future__ import annotations

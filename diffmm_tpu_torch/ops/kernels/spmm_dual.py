@@ -12,9 +12,12 @@ PyTorch has no int8 x bf16 product with f32 output, so the plain version
 below materialises an f32 copy of M on every call; the kernel converts each
 tile on chip and reads M once for both directions.
 
-This slice ports the forward. The JAX custom VJP is the same call with the
-cotangents swapped (``_spmm_dual_bwd``); the training slice wraps this
-wrapper in a ``torch.autograd.Function`` the same way.
+:class:`SpmmDual` is the JAX custom VJP (``_spmm_dual_fwd``/``_bwd``,
+``spmm_dual.py:108-133``) as a ``torch.autograd.Function``: its backward is
+the same wrapper with the cotangents in place of z, ``(dz_u, dz_i) = (M @
+g_i, Mᵀ @ g_u)``, so on the card both passes launch this kernel (the
+cotangents rounded to bf16 on chip, f32 out) and on the CPU both run the
+plain version. M gets no gradient.
 """
 
 from __future__ import annotations
@@ -207,3 +210,22 @@ def spmm_dual(mat: torch.Tensor, z_u: torch.Tensor, z_i: torch.Tensor):
     if mat.device.type != "cuda":
         raise ValueError(f"spmm_dual: unsupported device {mat.device}")
     return _launch(mat, z_u, z_i)
+
+
+class SpmmDual(torch.autograd.Function):
+    """:func:`spmm_dual` with its backward: ``SpmmDual.apply(mat, z_u, z_i)``
+    -> ``(M @ z_i, Mᵀ @ z_u)``; the cotangents ``(g_u, g_i)`` of the two
+    outputs go through the same call, ``spmm_dual(mat, g_u, g_i) = (M @ g_i,
+    Mᵀ @ g_u) = (dz_u, dz_i)``. An unused output's cotangent arrives as
+    zeros, and a non-contiguous one is made contiguous by the wrapper."""
+
+    @staticmethod
+    def forward(ctx, mat, z_u, z_i):
+        ctx.save_for_backward(mat)
+        return spmm_dual(mat, z_u, z_i)
+
+    @staticmethod
+    def backward(ctx, g_u, g_i):
+        (mat,) = ctx.saved_tensors
+        dz_u, dz_i = spmm_dual(mat, g_u, g_i)
+        return None, dz_u, dz_i

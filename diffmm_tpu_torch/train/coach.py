@@ -1,17 +1,31 @@
-"""Coach, cut down to what serving needs.
+"""Coach: runs training and eval on one device.
 
 Counterpart of ``diffmm_tpu/train/coach.py``: the graph-form choice
 (``choose_graph_form`` with ``dense_graph_budget_bytes`` and
 ``estimate_state_bytes``, lines 69-186) and the train store that follows
-it (281-293), the schedule, the CSR gather layout
-and the degree-bucket plan (314-346), the phase-2 rebuild of ``train_epoch``
-(845-863) as :meth:`Coach.rebuild_graphs`, and ``test_epoch`` (1232-1293).
-Training (``train_epoch``, ``run``, checkpoints, best capture) comes with
-the training slice; until then the parameters come from :meth:`init_params`
-or :meth:`load_params` (e.g. a JAX run's, through ``convert.py``).
+it (281-293), the schedule, the CSR gather layout and the degree-bucket
+plan (314-346), the parameters and their Adam states (``_init_state``,
+403-484), the hyperparameters (``_hp``, 520-536), the epoch
+(``train_epoch``, ``_joint_phase``, ``_epoch_result``, 769-919) with its
+phase-2 rebuild as :meth:`Coach.rebuild_graphs`, ``test_epoch``
+(1232-1293), the best-epoch capture (``capture_best``, ``best_state``,
+1296-1341) and the epoch loop (``make_print``, ``run``, 1450-1587).
+
+Left to ROADMAP.md A, slice 4: checkpoints and resume, the fused
+multi-epoch program (``train.epoch_scan > 1`` runs its epochs one at a
+time here: the same trajectory, ``tests/test_fused_epochs.py``), the mesh
+and the KNN ablation.
+
+Random draws come from one ``torch.Generator`` on the Coach's device
+(parameter init, negatives, diffusion timesteps and noise, the rebuild's
+noise, the CL noise); the user and interaction permutations come from
+``np.random.default_rng(seed)`` as in the JAX Coach, so both packages
+visit the blocks in the same order.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -19,6 +33,7 @@ import torch
 from diffmm_tpu_torch.config import Config, check_slice_support
 from diffmm_tpu_torch.convert import tree_to
 from diffmm_tpu_torch.data.loader import EDGE_ALIGN, HostData, to_device
+from diffmm_tpu_torch.data.sampling import negative_sampling
 from diffmm_tpu_torch.diffusion.schedule import make_schedule
 from diffmm_tpu_torch.eval.ranking import dcg_table, eval_epoch
 from diffmm_tpu_torch.models.denoise import init_denoise_params
@@ -26,8 +41,10 @@ from diffmm_tpu_torch.models.gcn import init_gcn_params
 from diffmm_tpu_torch.ops.graph import build_bi_adj_device, build_dense_bi_adj_device
 from diffmm_tpu_torch.ops.topk import make_csr_gather_layout, plan_rebuild_buckets
 from diffmm_tpu_torch.train import steps
+from diffmm_tpu_torch.train.optim import AdamState, adam_init, cosine_lr, tree_map
 from diffmm_tpu_torch.utils.device import resolve_device
 from diffmm_tpu_torch.utils.logging import Log
+from diffmm_tpu_torch.utils.profiling import PhaseTimer
 
 # Blocks budget where the device reports no memory size (the CPU), as in
 # the JAX package; on the card the budget derives from its memory.
@@ -35,6 +52,8 @@ DENSE_GRAPH_BUDGET_BYTES = 4 << 30
 _DENSE_BUDGET_HBM_FRACTION = 0.6
 
 _DENSE_STORES = {"int8": (torch.int8, 1.0), "bf16": (torch.bfloat16, 2.0)}
+
+_LOSS_NAMES = {"image": "image loss", "text": "text loss", "audio": "audio loss"}
 
 
 def dense_graph_budget_bytes(device: torch.device, state_bytes: int = 0) -> int:
@@ -54,7 +73,7 @@ def estimate_state_bytes(
     """Dominant resident state besides the interaction blocks: the
     denoisers' catalog-wide layers x 3 copies (params + Adam moments), the
     GCN params x 3, and the (U, I) int8 train store. A lower bound, as in
-    the JAX package (the training slice brings the Adam copies)."""
+    the JAX package."""
     h0, hl = int(hidden[0]), int(hidden[-1])
     denoise = (item_num + d_emb_size) * h0 + hl * item_num
     gcn = (user_num + item_num + int(sum(feat_dims))) * latdim
@@ -89,8 +108,8 @@ def _pad_blocks(n: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 class Coach:
-    """Rebuild, forward, eval and serving state for one dataset on one
-    device (``cuda`` unless ``device="cpu"``)."""
+    """Training, rebuild, forward, eval and serving state for one dataset
+    on one device (``cuda`` unless ``device="cpu"``)."""
 
     def __init__(
         self,
@@ -118,6 +137,8 @@ class Coach:
             value = getattr(getattr(config, section), key)
             if value not in allowed:
                 raise ValueError(f"{name} must be {'|'.join(allowed)}, got {value!r}")
+        if config.train.epoch_scan < 1:
+            raise ValueError(f"train.epoch_scan must be >= 1, got {config.train.epoch_scan}")
 
         if config.train.dense_store not in _DENSE_STORES:
             raise ValueError(
@@ -196,7 +217,8 @@ class Coach:
             self.data = self.data._replace(
                 adj=self._make_adj(self.data.train_rows, self.data.train_cols)
             )
-        self.init_params(config.base.seed)
+        self.timer = PhaseTimer()
+        self._init_state()
 
         self.log.info(f"USER: {host.user_num}, ITEM: {host.item_num}")
         self.log.info(f"NUM OF INTERACTIONS: {host.nnz}")
@@ -207,13 +229,16 @@ class Coach:
         if host.synthesized:
             self.log.info(f"⚠️ synthesized missing feature blobs for: {host.synthesized}")
 
-    # ------------------------------------------------------------ params
-    def init_params(self, seed: int) -> None:
-        """Fresh random parameters from ``seed`` (the JAX package's
-        distributions, torch's own stream); drops any rebuilt graphs."""
+    # ------------------------------------------------------------ state
+    def _init_state(self) -> None:
+        """(Re)initialise the parameters from ``base.seed`` (the JAX
+        package's distributions, torch's own stream), their Adam states, the
+        random streams and the run's trackers; drops any rebuilt graphs."""
         cfg = self.config
         host = self.host
+        seed = cfg.base.seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.np_rng = np.random.default_rng(seed)
         self.gcn_params = init_gcn_params(
             self.generator, host.user_num, host.item_num, cfg.base.latdim,
             host.feat_dims, self.device,
@@ -225,23 +250,53 @@ class Coach:
             )
             for _ in range(self.n_modal)
         ]
+        self.gcn_opt_state = adam_init(self.gcn_params)
+        self.dn_opt_states = [adam_init(p) for p in self.dn_params]
         self.edge_buffers: list[torch.Tensor] | None = None
         self.modal_adjs = None
+        # the best-Recall epoch's GCN params and edge buffers, host copies
+        # (reference model selection, `Main.py:71-78`)
+        self.best_snapshot: dict | None = None
+        self.epoch_times: list[float] = []
+        # cosine T_max; run(epochs=N) moves it to the effective count
+        self.total_epochs = cfg.train.epoch
+        self.timer.reset()
 
-    def load_params(self, gcn_params: dict, dn_params: list[dict]) -> None:
+    def load_params(self, gcn_params: dict, dn_params: list[dict],
+                    gcn_opt_state: AdamState | None = None,
+                    dn_opt_states: list[AdamState] | None = None) -> None:
         """Take parameters in the port's layout (``convert.params_from_jax``
-        makes them from a JAX run's), copied to this Coach's device; drops
-        any rebuilt graphs."""
+        makes them from a JAX run's) and, optionally, their Adam states
+        (``convert.adam_state_from_jax``), copied to this Coach's device;
+        fresh Adam states otherwise. Drops any rebuilt graphs."""
         self.gcn_params = tree_to(gcn_params, self.device)
         self.dn_params = tree_to(list(dn_params), self.device)
         if len(self.dn_params) != self.n_modal:
             raise ValueError(f"expected {self.n_modal} denoisers, got {len(self.dn_params)}")
+
+        def state_to(state, params):
+            if state is None:
+                return adam_init(params)
+            return AdamState(state.count, tree_to(state.mu, self.device), tree_to(state.nu, self.device))
+
+        self.gcn_opt_state = state_to(gcn_opt_state, self.gcn_params)
+        dn_opt_states = dn_opt_states or [None] * self.n_modal
+        self.dn_opt_states = [state_to(s, p) for s, p in zip(dn_opt_states, self.dn_params)]
         self.edge_buffers = None
         self.modal_adjs = None
 
     def hp(self) -> dict:
+        """The hyperparameter scalars of the phase functions, read from the
+        config at each call (JAX ``_hp``)."""
         h = self.config.hyper
         return {
+            "sim_weight": float(h.sim_weight),
+            "reg": float(self.config.train.reg),
+            "noise_degree": float(h.noise_degree),
+            "cross_cl_temp": float(h.cross_cl_temp),
+            "cross_cl_rate": float(h.cross_cl_rate),
+            "modal_cl_temp": float(h.modal_cl_temp),
+            "modal_cl_rate": float(h.modal_cl_rate),
             "modal_adj_weight": float(h.modal_adj_weight),
             "residual_weight": float(h.residual_weight),
         }
@@ -254,7 +309,88 @@ class Coach:
             )
         return build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num)
 
-    # ------------------------------------------------------------ phases
+    # ------------------------------------------------------------ epoch
+    def train_epoch(self, epoch: int, fence: bool = False) -> dict[str, float]:
+        """One training epoch: negative sampling, diffusion training, graph
+        rebuild, joint training (reference `Main.py:136-388`). ``fence=True``
+        waits for the card at the end of each phase, so each phase's time on
+        ``self.timer`` is its own (at the cost of the overlap between
+        phases). Returns the epoch's loss dict."""
+        cfg = self.config
+        data = self.data
+        host = self.host
+        batch = cfg.train.batch
+        if cfg.train.use_lr_scheduler:
+            lr = cosine_lr(epoch, cfg.train.lr, self.total_epochs)
+        else:
+            lr = cfg.train.lr
+        hp = self.hp()
+        fence_dev = self.device if fence else None
+
+        # phase 0: negative sampling (reference Main.py:137)
+        with self.timer.phase("neg_sampling", fence_dev):
+            negs = negative_sampling(data.train_rows, data.train_store, host.item_num,
+                                     generator=self.generator)
+
+        # phase 1: diffusion training (reference Main.py:144-192)
+        user_perm = self.np_rng.permutation(host.user_num).astype(np.int32)
+        idx, valid = _pad_blocks(host.user_num, batch)
+        nb = len(idx) // batch
+        users_blocks = torch.as_tensor(user_perm[idx % host.user_num].reshape(nb, batch),
+                                       device=self.device)
+        weight_blocks = torch.as_tensor(valid.astype(np.float32).reshape(nb, batch),
+                                        device=self.device)
+        with self.timer.phase("diffusion", fence_dev):
+            modal_acc = steps.diffusion_epoch(
+                self.schedule, self.dn_params, self.dn_opt_states, self.gcn_params,
+                data.raw_feats, data.train_store, users_blocks, weight_blocks, lr, hp,
+                host.item_num, self.generator,
+            )
+
+        # phase 2: modality graph rebuild (reference Main.py:195-253)
+        with self.timer.phase("rebuild", fence_dev):
+            self.rebuild_graphs()
+        return self._joint_phase(lr, negs, modal_acc, hp)
+
+    def _joint_phase(self, lr: float, negs: torch.Tensor, modal_acc: torch.Tensor,
+                     hp: dict) -> dict[str, float]:
+        """Phase 3, joint GCN training (reference Main.py:291-377), over a
+        permutation of the interactions whose last block wraps around to
+        the first ones."""
+        cfg = self.config
+        data = self.data
+        host = self.host
+        batch = cfg.train.batch
+        perm = self.np_rng.permutation(host.nnz).astype(np.int32)
+        idx, _ = _pad_blocks(host.nnz, batch)
+        nb = len(idx) // batch
+        perm_dev = torch.as_tensor(perm[idx % host.nnz], device=self.device)
+        users, pos, neg = (a.index_select(0, perm_dev).reshape(nb, batch)
+                           for a in (data.train_rows, data.train_cols, negs))
+        with self.timer.phase("joint"):
+            acc = steps.joint_epoch(
+                self.gcn_params, self.gcn_opt_state, data.adj, self.modal_adjs,
+                data.raw_feats, users, pos, neg, lr, hp, cfg.base.cl_method,
+                cfg.train.segsum_compute, self.generator,
+            )
+            joint_acc = acc.cpu().numpy()
+        return self._epoch_result(joint_acc, modal_acc.cpu().numpy())
+
+    def _epoch_result(self, joint_acc, modal_acc) -> dict[str, float]:
+        """One epoch's loss dict from the phase accumulators, with the
+        reference's floor-division step counts (`Main.py:379-388`)."""
+        train_steps_n = max(1, self.host.nnz // self.config.train.batch)
+        diff_steps_n = max(1, self.host.user_num // self.config.train.batch)
+        result = {
+            "Loss": float(joint_acc[0]) / train_steps_n,
+            "BPR Loss": float(joint_acc[1]) / train_steps_n,
+            "reg loss": float(joint_acc[2]) / train_steps_n,
+            "CL loss": float(joint_acc[3]) / train_steps_n,
+        }
+        for m, mod in enumerate(self.host.modalities):
+            result[_LOSS_NAMES[mod]] = float(modal_acc[m]) / diff_steps_n
+        return result
+
     @torch.no_grad()
     def rebuild_graphs(self) -> list[torch.Tensor]:
         """Phase 2 of an epoch: reverse-diffuse every user's train row per
@@ -273,14 +409,17 @@ class Coach:
         ]
         return self.edge_buffers
 
+    # ------------------------------------------------------------ eval
     @torch.no_grad()
-    def forward(self):
-        """Final (user, item) embeddings over the rebuilt modality graphs."""
-        if self.modal_adjs is None:
+    def forward(self, params: dict | None = None, modal_adjs: list | None = None):
+        """Final (user, item) embeddings of ``params`` over ``modal_adjs``
+        (default: the live parameters over the rebuilt modality graphs)."""
+        modal_adjs = self.modal_adjs if modal_adjs is None else modal_adjs
+        if modal_adjs is None:
             raise RuntimeError("run rebuild_graphs() first: the forward reads the modality graphs")
         return steps.gcn_forward(
-            self.gcn_params, self.data.adj, self.modal_adjs, self.data.raw_feats, self.hp(),
-            self.config.train.segsum_compute,
+            self.gcn_params if params is None else params, self.data.adj, modal_adjs,
+            self.data.raw_feats, self.hp(), self.config.train.segsum_compute,
         )
 
     @torch.no_grad()
@@ -301,22 +440,111 @@ class Coach:
         if n_test == 0:
             self.log.info(f"⚠️ eval split {split!r} has no users; skipping")
             return {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0}
-        u_final, i_final = embeddings if embeddings is not None else self.forward()
-        batch = self.config.train.test_batch
-        idx, valid = _pad_blocks(n_test, batch)
-        idx_w = torch.as_tensor(idx % n_test, device=self.device).long()
-        nb = len(idx) // batch
-        sums = eval_epoch(
-            u_final, i_final,
-            e_users[idx_w].reshape(nb, batch),
-            torch.as_tensor(valid, device=self.device).reshape(nb, batch),
-            data.train_store,
-            e_items[idx_w].reshape(nb, batch, -1),
-            e_counts[idx_w].reshape(nb, batch),
-            self.cum_dcg, self.config.base.topk,
-        ).cpu().numpy()
+        with self.timer.phase("eval"):
+            u_final, i_final = embeddings if embeddings is not None else self.forward()
+            batch = self.config.train.test_batch
+            idx, valid = _pad_blocks(n_test, batch)
+            idx_w = torch.as_tensor(idx % n_test, device=self.device).long()
+            nb = len(idx) // batch
+            sums = eval_epoch(
+                u_final, i_final,
+                e_users[idx_w].reshape(nb, batch),
+                torch.as_tensor(valid, device=self.device).reshape(nb, batch),
+                data.train_store,
+                e_items[idx_w].reshape(nb, batch, -1),
+                e_counts[idx_w].reshape(nb, batch),
+                self.cum_dcg, self.config.base.topk,
+            ).cpu().numpy()
         return {
             "Recall": float(sums[0]) / n_test,
             "NDCG": float(sums[1]) / n_test,
             "Precision": float(sums[2]) / n_test,
+        }
+
+    # ------------------------------------------------------------ best epoch
+    def capture_best(self, epoch: int) -> None:
+        """Copy to the host the state that reproduces this epoch's eval: the
+        GCN params and the rebuilt edge buffers (the denoisers do not feed
+        eval). Called whenever the best Recall improves."""
+        self.best_snapshot = {
+            "epoch": epoch,
+            "gcn_params": tree_map(lambda p: p.detach().to("cpu", copy=True), self.gcn_params),
+            "edge_buffers": [b.to("cpu", copy=True) for b in self.edge_buffers],
+        }
+
+    def best_state(self):
+        """(gcn_params, modal_adjs) of the best-Recall epoch on this Coach's
+        device; the live state when no snapshot exists (no eval ran)."""
+        snap = self.best_snapshot
+        if snap is None:
+            if self.modal_adjs is None:
+                raise RuntimeError("no trained epoch and no best snapshot to serve from")
+            return self.gcn_params, self.modal_adjs
+        params = tree_to(snap["gcn_params"], self.device)
+        modal_adjs = [self._make_adj(self.data.train_rows, b.to(self.device))
+                      for b in snap["edge_buffers"]]
+        return params, modal_adjs
+
+    # ------------------------------------------------------------ run
+    def make_print(self, name: str, epoch: int, results: dict[str, float],
+                   total: int | None = None) -> str:
+        """Reference `Main.py:26-33`."""
+        s = f"Epoch {epoch}/{total or self.config.train.epoch}, {name}: "
+        s += ", ".join(f"{k}={v:.5f}" for k, v in results.items())
+        return s + "  "
+
+    def run(self, epochs: int | None = None, eval_split: str = "test") -> dict[str, float]:
+        """Epoch loop with best tracking (reference `Main.py:45-82`): train,
+        stop on non-finite losses, eval every ``train.tstEpoch`` epochs and
+        capture the best-Recall epoch. Returns the best epoch and its
+        metrics."""
+        cfg = self.config
+        n_epochs = epochs if epochs is not None else cfg.train.epoch
+        self.total_epochs = n_epochs  # cosine T_max follows the effective count
+        recall_max = ndcg_max = precision_max = 0.0
+        his_max = [0.0, 0.0, 0.0]
+        best_epoch = 0
+        self.log.info("Model Initialized ✅")
+        if cfg.train.epoch_scan > 1:
+            self.log.info(
+                f"train.epoch_scan={cfg.train.epoch_scan}: epochs run one at a time "
+                "(the fused program is ROADMAP.md A, slice 4; same trajectory)"
+            )
+        self.log.info("Start training 🚀")
+        try:
+            for epoch in range(n_epochs):
+                t0 = time.perf_counter()
+                result = self.train_epoch(epoch)
+                self.epoch_times.append(time.perf_counter() - t0)
+                if not all(np.isfinite(v) for v in result.values()):
+                    self.log.info(f"💥 Non-finite losses at epoch {epoch}: {result}")
+                    raise FloatingPointError(f"training diverged at epoch {epoch}: {result}")
+                self.log.info(self.make_print("⏩ Train", epoch, result, n_epochs))
+                self.log.info(f"⏱️ epoch {self.epoch_times[-1]:.2f}s ({self.timer.summary()})")
+                self.timer.reset()
+                if epoch % cfg.train.tstEpoch == 0:
+                    result = self.test_epoch(eval_split)
+                    his_max = [max(a, b) for a, b in zip(
+                        [result["Recall"], result["NDCG"], result["Precision"]], his_max
+                    )]
+                    if result["Recall"] > recall_max:
+                        recall_max = result["Recall"]
+                        ndcg_max = result["NDCG"]
+                        precision_max = result["Precision"]
+                        best_epoch = epoch
+                        self.capture_best(epoch)
+                    self.log.info(self.make_print("🧪 Test", epoch, result, n_epochs))
+                self.log.info(
+                    f"💡 Current best: Epoch: {best_epoch}, "
+                    f"Recall: {recall_max:.5f}({his_max[0]:.5f}), "
+                    f"NDCG: {ndcg_max:.5f}({his_max[1]:.5f}), "
+                    f"Precision: {precision_max:.5f}({his_max[2]:.5f})"
+                )
+        except KeyboardInterrupt:
+            self.log.info("🈲 Training interrupted by user!")
+        return {
+            "best_epoch": best_epoch,
+            "Recall": recall_max,
+            "NDCG": ndcg_max,
+            "Precision": precision_max,
         }

@@ -1,0 +1,93 @@
+"""Adam with the learning rate as a runtime scalar, and the cosine schedule.
+
+Counterpart of ``diffmm_tpu/train/optim.py``: one Adam (betas 0.9/0.999,
+eps 1e-8, no weight decay) per model, the main GCN and each modality's
+denoiser, with the learning rate of CosineAnnealingLR (T_max = the epoch
+count, eta_min = 1e-4) stepped once per epoch (reference `Main.py:59-66,
+92-110`). The JAX package takes the moments from ``optax.scale_by_adam``
+and applies ``p - lr * update`` itself; :func:`adam_update` is that
+update, bias correction included, in place over the parameter tree's
+leaves (the port updates in place: the parameters and both moments are
+catalog-sized, and a functional update would hold two copies of each).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a parameter tree (dicts and lists), dicts in sorted
+    key order: the order ``jax.tree_util.tree_leaves`` gives the same tree,
+    so a JAX optimizer state converts leaf by leaf."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor, the structure kept."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, sub) for sub in tree]
+    return fn(tree)
+
+
+@dataclass
+class AdamState:
+    """``optax.ScaleByAdamState`` over :func:`tree_leaves` of a parameter
+    tree: the step count (a host integer) and the two moments."""
+
+    count: int
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+
+
+def adam_init(params) -> AdamState:
+    leaves = tree_leaves(params)
+    return AdamState(0, [torch.zeros_like(p) for p in leaves], [torch.zeros_like(p) for p in leaves])
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in f32, as optax computes it."""
+    one = np.float32(1)
+    return float(one - np.power(np.float32(decay), np.float32(count), dtype=np.float32))
+
+
+@torch.no_grad()
+def adam_update(params, grads: list[torch.Tensor], state: AdamState, lr: float) -> AdamState:
+    """One Adam step in place: the moments as ``optax.scale_by_adam(0.9,
+    0.999, 1e-8)`` updates them, then ``p -= lr * mu_hat / (sqrt(nu_hat) +
+    eps)`` for each leaf of ``params``; ``grads`` are in leaf order.
+    Returns the state (its tensors updated in place, the count advanced)."""
+    leaves = tree_leaves(params)
+    count = state.count + 1
+    torch._foreach_mul_(state.mu, B1)
+    torch._foreach_add_(state.mu, grads, alpha=1 - B1)
+    torch._foreach_mul_(state.nu, B2)
+    torch._foreach_addcmul_(state.nu, grads, grads, value=1 - B2)
+    denom = torch._foreach_div(state.nu, _bias_correction(B2, count))
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, EPS)
+    update = torch._foreach_div(state.mu, _bias_correction(B1, count))
+    torch._foreach_div_(update, denom)
+    torch._foreach_add_(leaves, update, alpha=-lr)
+    state.count = count
+    return state
+
+
+def cosine_lr(epoch: int, base_lr: float, total_epochs: int, eta_min: float = 1e-4) -> float:
+    """LR used during ``epoch``: torch CosineAnnealingLR stepped once per
+    epoch (reference `Main.py:59-66,93`)."""
+    if total_epochs <= 0:
+        return base_lr
+    return eta_min + (base_lr - eta_min) * (1 + math.cos(math.pi * epoch / total_epochs)) / 2

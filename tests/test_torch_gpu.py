@@ -5,13 +5,16 @@ without one (the decision is made in the fixture, never at import). Run them
 on a machine with a card: ``python -m pytest tests/test_torch_gpu.py -q``.
 
 Tolerances as in chip_smoke.py: K1 rtol 1e-5 / atol 1e-5 (exact products,
-f32 sums in another order); K2/K3 rtol 1e-5 / atol 5e-5 (3xTF32 products
+f32 sums in another order; its backward, the same call on the cotangents,
+too); K2/K3 rtol 1e-5 / atol 5e-5 (3xTF32 products
 summed in another order than cuBLAS's f32 ones), and a max error against
 float64 at most twice the plain f32 product's; K4 |kernel - plain| <= 1e-6
 * sum|msgs| + 1e-6 per output element (the kernel sums each segment
 in edge order, the plain version's index_add_ in the order its atomics land;
 a reordered f32 sum moves by a few eps = 1.2e-7 of the sum of its terms'
-magnitudes, which a hub segment of thousands of edges makes large)."""
+magnitudes, which a hub segment of thousands of edges makes large). The
+sparse form's backward on the card against the CPU's: rtol 1e-5 / atol 1e-5
+(the same messages, summed in another order)."""
 
 import pytest
 import torch
@@ -319,3 +322,123 @@ def test_sparse_propagation_on_the_card_matches_the_cpu(cuda, compute):
         )]
     for got, want in zip(outs[str(cuda)], outs["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# K1's backward: autograd through SpmmDual launches the same kernel with the
+# cotangents in place of z (one launch a backward call)
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("shape", [(9308, 6710, 64), (333, 517, 16), (129, 2049, 32)])
+def test_spmm_dual_backward_matches_plain(cuda, store, shape):
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import (
+        LAUNCHES, SpmmDual, dense_storage, spmm_dual_plain,
+    )
+
+    U, I, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    mat = dense_storage(U, I, store, cuda).copy_(torch.rand((U, I), generator=gen, device=cuda) < 0.05)
+    z_u = torch.randn((U, d), generator=gen, device=cuda, requires_grad=True)
+    z_i = torch.randn((I, d), generator=gen, device=cuda, requires_grad=True)
+    g_u = torch.randn((U, d), generator=gen, device=cuda)
+    g_i = torch.randn((I, d), generator=gen, device=cuda)
+    outs = SpmmDual.apply(mat, z_u, z_i)
+    before = LAUNCHES["spmm_dual"]
+    got = torch.autograd.grad(outs, (z_u, z_i), (g_u, g_i), retain_graph=True)
+    again = torch.autograd.grad(outs, (z_u, z_i), (g_u, g_i), retain_graph=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spmm_dual"] == before + 2
+    want = spmm_dual_plain(mat, g_u, g_i)  # (M @ g_i, Mᵀ @ g_u)
+    for a, b, c in zip(got, want, again):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        assert torch.equal(a, c)
+
+
+def test_spmm_dual_backward_takes_odd_cotangents(cuda):
+    """A cotangent that arrives non-contiguous, or as zeros for an output the
+    loss does not use, goes through the kernel like any other."""
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import SpmmDual, dense_storage, spmm_dual_plain
+
+    U, I, d = 300, 700, 32
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mat = dense_storage(U, I, torch.int8, cuda).copy_(torch.rand((U, I), generator=gen, device=cuda) < 0.1)
+    z_u = torch.randn((U, d), generator=gen, device=cuda, requires_grad=True)
+    z_i = torch.randn((I, d), generator=gen, device=cuda, requires_grad=True)
+    y_u, y_i = SpmmDual.apply(mat, z_u, z_i)
+    w = torch.randn((d, U), generator=gen, device=cuda)
+    (y_u * w.T).sum().backward()  # a transposed cotangent; y_i unused
+    want_u, want_i = spmm_dual_plain(mat, w.T.contiguous(), torch.zeros((I, d), device=cuda))
+    torch.testing.assert_close(z_u.grad, want_u, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(z_i.grad, want_i, rtol=1e-5, atol=1e-5)
+
+
+def _sparse_graphs(device, U=500, I=300, nnz=4000, M=2):
+    from diffmm_tpu_torch.ops.graph import build_bi_adj_device
+
+    gen = torch.Generator().manual_seed(3)
+    flat = torch.sort(torch.randperm(U * I, generator=gen)[:nnz]).values
+    rows = torch.cat([flat // I, torch.full((16,), U)]).to(torch.int32)
+    main = torch.cat([flat % I, torch.full((16,), I)]).to(torch.int32)
+    cols = [torch.cat([torch.randint(0, I // 2, (nnz,), generator=gen), torch.full((16,), I)]).to(torch.int32)
+            for _ in range(M)]
+    cols[0][: nnz // 2] = 7  # a hub of 2,000 edges in the first modality
+    return (build_bi_adj_device(rows.to(device), main.to(device), U, I),
+            [build_bi_adj_device(rows.to(device), c.to(device), U, I) for c in cols])
+
+
+# K4 in the backward of the sparse form's three Functions: the card's
+# gradients against the CPU's (plain versions), the K4 launches a backward
+# call, bits repeated
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_sparse_backward_on_the_card_matches_the_cpu(cuda, compute):
+    from diffmm_tpu_torch.ops.graph import spmm_bi, spmm_bi_modal_stacked
+    from diffmm_tpu_torch.ops.kernels.segsum import LAUNCHES
+
+    U, I, d, M = 500, 300, 64, 2
+    gen = torch.Generator().manual_seed(8)
+    x_u, x_i = torch.randn((U, d), generator=gen), torch.randn((I, d), generator=gen)
+    feats = [torch.randn((I, d), generator=gen) for _ in range(M)]
+    g = [torch.randn(s, generator=gen) for s in ((U, d), (I, d), (M, U, d), (M, I, d))]
+    grads = {}
+    for dev in ("cpu", cuda):
+        main, modal = _sparse_graphs(dev)
+        leaves = [t.to(dev).requires_grad_() for t in (x_u, x_i, *feats)]
+        outs = (*spmm_bi(main, leaves[0], leaves[1], compute),
+                *spmm_bi_modal_stacked(modal, leaves[0], leaves[2:], compute))
+        cots = [t.to(dev) for t in g]
+        before = LAUNCHES["segsum"]
+        got = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+        launched = LAUNCHES["segsum"] - before
+        if dev != "cpu":
+            # 2 for spmm_bi, M for the stacked user direction, 1 wide for the
+            # item directions
+            assert launched == 2 + M + 1
+            again = torch.autograd.grad(outs, leaves, cots)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+        grads[str(dev)] = [t.cpu() for t in got]
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_launches_on_the_current_stream(cuda):
+    """Forward and backward of both forms on a side stream give the bits of
+    the default stream's run: every launch takes the current stream."""
+    from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device, spmm_bi
+
+    main, _ = _sparse_graphs(cuda)
+    dense = build_dense_bi_adj_device(main.ui_rows, main.ui_cols, 500, 300)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x_u = torch.randn((500, 64), generator=gen, device=cuda)
+    x_i = torch.randn((300, 64), generator=gen, device=cuda)
+
+    def run():
+        leaves = [x_u.clone().requires_grad_(), x_i.clone().requires_grad_()]
+        loss = sum((y * y).sum() for adj in (main, dense) for y in spmm_bi(adj, *leaves))
+        loss.backward()
+        return [t.grad for t in leaves]
+
+    want = run()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

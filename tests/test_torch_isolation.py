@@ -1,7 +1,8 @@
 """Guards of the port: it imports neither jax nor diffmm_tpu, its entry points
-and kernel wrappers refuse to run on the CPU unless asked to, and its source
+and kernel wrappers refuse to run on the CPU unless asked to, its source
 holds no torch.compile, no scaled_dot_product_attention and no ``except``
-around a kernel launch."""
+around a kernel launch (nor around a training step, whose backward
+launches the kernels), and importing it turns TF32 off for f32 matmuls."""
 
 import ast
 import os
@@ -34,6 +35,23 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 20
+
+
+def test_module_walk_finds_the_training_slice():
+    for name in ("diffmm_tpu_torch.cli", "diffmm_tpu_torch.__main__", "diffmm_tpu_torch.train.optim",
+                 "diffmm_tpu_torch.train.steps", "diffmm_tpu_torch.data.sampling",
+                 "diffmm_tpu_torch.utils.profiling"):
+        assert name in MODULES
+
+
+def test_training_path_keeps_tf32_off():
+    """The diffusion training's f32 matmuls run in full f32 on the card, as
+    the JAX package's do (``ops/kernels/spmm_dual.py`` sets this on import,
+    and the training path imports it)."""
+    import diffmm_tpu_torch.train.coach  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
 
 
 def _no_cuda(monkeypatch):
@@ -100,17 +118,49 @@ def test_no_library_stand_ins(needle):
     assert not hits, hits
 
 
+def _calls_inside_try(path, allowed=()):
+    """Names of the calls inside each try block of ``path`` whose handlers
+    are not all of the ``allowed`` exception names."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if not isinstance(node, ast.Try):
+            continue
+        if node.handlers and all(isinstance(h.type, ast.Name) and h.type.id in allowed
+                                 for h in node.handlers):
+            continue
+        for sub in ast.walk(ast.Module(body=node.body, type_ignores=[])):
+            if isinstance(sub, ast.Call):
+                fn = sub.func
+                yield fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+
+
 def test_no_except_around_a_kernel_launch():
     """No try block in the port encloses a kernel wrapper or C entry call."""
     launches = {"spmm_dual", "fused_denoise_mlp", "denoise_forward_fused", "_launch",
                 "spmm_dual_forward", "denoise_layer1", "denoise_layer2", "load_library",
                 "segsum", "segsum_forward"}
     for path in _sources():
-        for node in ast.walk(ast.parse(path.read_text())):
-            if not isinstance(node, ast.Try):
-                continue
-            for sub in ast.walk(ast.Module(body=node.body, type_ignores=[])):
-                if isinstance(sub, ast.Call):
-                    fn = sub.func
-                    name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
-                    assert name not in launches, f"{path}: {name} inside try"
+        for name in _calls_inside_try(path):
+            assert name not in launches, f"{path}: {name} inside try"
+
+
+def test_training_path_catches_no_kernel_failure():
+    """The training path's source holds no try around anything that reaches
+    a kernel: the autograd Functions (``apply``: forward and backward
+    launches), the steps and phases, the propagations, the Coach's entry
+    points. The one handler allowed is ``Coach.run``'s for
+    ``KeyboardInterrupt`` (the JAX package's), which no kernel raises."""
+    reaches_a_kernel = {
+        "apply", "backward", "grad", "spmm_bi", "spmm_bi_modal_stacked", "gcn_mm", "gcn_forward",
+        "diffusion_block", "diffusion_epoch", "joint_block", "joint_epoch", "rebuild_epoch",
+        "rebuild_block_tables", "train_epoch", "_joint_phase", "rebuild_graphs", "test_epoch",
+        "forward", "run", "build_index", "negative_sampling", "contains", "adam_update",
+    }
+    paths = [PKG / "cli.py", PKG / "train" / "coach.py", PKG / "train" / "steps.py",
+             PKG / "train" / "optim.py", PKG / "ops" / "graph.py", PKG / "ops" / "losses.py",
+             PKG / "data" / "sampling.py", PKG / "data" / "membership.py",
+             PKG / "diffusion" / "gaussian.py", PKG / "models" / "gcn.py", PKG / "eval" / "serving.py",
+             PKG / "ops" / "kernels" / "spmm_dual.py", PKG / "ops" / "kernels" / "segsum.py",
+             REPO / "chip_smoke.py"]
+    for path in paths:
+        for name in _calls_inside_try(path, allowed=("KeyboardInterrupt",)):
+            assert name not in reaches_a_kernel, f"{path}: {name} inside try"
