@@ -51,9 +51,26 @@ exit, no result line):
    joint step; no (U, I) tensor.
 10. path G: two epochs on data/tiktok_mini with the configuration of
     tests/test_regression_mini.py; Recall@20 in that test's band.
-11. profiles (torch.profiler, after every path's host-clock times): A's
-    and C's rebuild + eval, and one more joint phase of E at epoch 1's
-    learning rate.
+11. C1 (training repeats bit for bit): two joint_blocks from one saved state
+    and one set of draws, dense at E's shape and sparse at F's, equal
+    bitwise; a second fresh Coach at E gives path E's two epochs' losses
+    bitwise.
+12. graph replay: one block of each phase (joint, diffusion, rebuild) of E
+    and F replayed from its captured CUDA graph against the same step run
+    eagerly from one saved state, bitwise.
+13. path H (fused, dense form): path E's data with ``train.epoch_scan=2``
+    and ``tstEpoch=1`` through ``Coach.run`` (one chunk of two epochs with
+    the eval on the card) against a twin Coach's ``run`` of single epochs:
+    losses, evals, best epoch and snapshot, parameters and edge buffers
+    bitwise; the chunk's wall time; one more epoch of the fused Coach run
+    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside
+    a replayed epoch).
+14. resume: save after epoch 0, restore into a new Coach, train epoch 1:
+    bitwise the twin's uninterrupted epoch 1.
+15. profiles (torch.profiler, after every path's host-clock times): A's
+    and C's rebuild + eval, one more joint phase of E at epoch 1's
+    learning rate, replayed from its graph and run eagerly, and one more
+    joint phase of F replayed.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. A full report
@@ -228,6 +245,65 @@ def phase_kernels(dev) -> dict:
     out.update(_denoise_cases(dev, gen))
     out.update(_segsum_cases(dev, gen))
     out.update(_segsum_backward_cases(dev, gen))
+    out.update(_gather_backward_cases(dev, gen))
+    return out
+
+
+def _gather_backward_cases(dev, gen) -> dict:
+    """K4 in the backward of the loss gathers (``ops/gather.py``) at path E's
+    shapes: a joint block's 1,024 users gathered from u_final (9,308 x 64)
+    and its 1,024 items from i_final (6,710 x 64), indices drawn from the
+    train edges as the joint phase draws them. One launch a backward call,
+    against segsum_plain on the same sorted cotangent within TOL["segsum"]
+    (scaled by the sum of each row's |terms|), bitwise across two calls; the
+    launch alone timed beside the plain version and the library's scatter
+    (``index_add_``, atomic adds), and the whole autograd call."""
+    import torch
+
+    from diffmm_tpu_torch.ops.gather import gather, gather_plan
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+
+    U, I, B, d = TIKTOK["user_num"], TIKTOK["item_num"], 1024, 64
+    rows = sorted_segment_ids(gen, U, 59202, 0, 1.0, dev)  # path E's edges per user
+    out = {}
+    rtol, atol = TOL["segsum"]
+    for name, n, src in (("users", U, rows), ("items", I, None)):
+        pick = torch.randint(0, rows.shape[0], (B,), generator=gen, device=dev)
+        idx = (src[pick] if src is not None
+               else torch.randint(0, n, (B,), generator=gen, device=dev)).to(torch.int32)
+        table = torch.randn((n, d), generator=gen, device=dev).requires_grad_()
+        g = torch.randn((B, d), generator=gen, device=dev)
+        plan = gather_plan(idx, n)
+        y = gather(table, idx, plan)
+
+        def backward():
+            return torch.autograd.grad(y, table, g, retain_graph=True)[0]
+
+        before = sg.LAUNCHES["segsum"]
+        got, again = backward(), backward()
+        per_call = (sg.LAUNCHES["segsum"] - before) / 2
+        msgs = g.index_select(0, plan.perm)
+        want = sg.segsum_plain(msgs, plan.offsets)
+        scale = sg.segsum_plain(msgs.abs(), plan.offsets)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        bitwise = torch.equal(got, again)
+        ok = bool(((got - want).abs() <= rtol * scale + atol).all()) and bitwise and per_call == 1
+        check(ok, f"gather backward[{name}] vs plain: max_abs_err {err}, bitwise {bitwise}, "
+                  f"launches {per_call}")
+        # the sorted cotangent and the offsets read once, the (n, d) output
+        # written once; one add per cotangent element
+        b, by = bound_ms(B * d * 4 + plan.offsets.numel() * 8 + n * d * 4, B * d, F32_FLOPS)
+        idx_l = idx.long()
+        rec = {"ok": ok, "shape": [n, B, d], "max_segment": int(plan.offsets.diff().max()),
+               "max_abs_err": err, "bitwise_across_launches": bitwise, "launches_per_backward": per_call,
+               "backward_ms": time_ms(backward, 50),
+               "ms": time_ms(lambda: sg.segsum(msgs, plan.offsets), 50),
+               "plain_ms": time_ms(lambda: sg.segsum_plain(msgs, plan.offsets), 20),
+               "bound_ms": b, "bound_by": by,
+               "library_ms": time_ms(lambda: torch.zeros((n, d), device=dev).index_add_(0, idx_l, g), 50)}
+        out[f"segsum_gather_backward_{name}"] = rec
+        print(f"[kernels] segsum_gather_backward_{name}: {json.dumps(rec)}")
     return out
 
 
@@ -602,8 +678,7 @@ def _reference_pair(dev, cfg):
     # scores differ in the last bits (f32 sums in another order), which may
     # swap items on exact ties only
     check(min(same) >= 0.99, f"edge buffers agree on {same}")
-    gpu.edge_buffers = [b.to(dev) for b in bufs_c]
-    gpu.modal_adjs = [gpu._make_adj(gpu.data.train_rows, b) for b in gpu.edge_buffers]
+    gpu.set_edge_buffers([b.to(dev) for b in bufs_c])
     return cpu, gpu, same
 
 
@@ -663,7 +738,8 @@ def _train_step_reference(dev, cfg, form: str) -> dict:
     without TF32), rtol 1e-4 / atol 1e-5; joint: the sparse form f32, rtol
     1e-4 / atol 1e-5, the dense form at its bf16 tolerance, rtol 1e-2 /
     atol 1e-3. The card's joint step must launch K1 (dense) or K4 (sparse)
-    as often backward as forward."""
+    as often backward as forward, and K4 once for each loss gather's
+    backward (:func:`joint_step_launches`)."""
     import torch
 
     from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
@@ -678,8 +754,7 @@ def _train_step_reference(dev, cfg, form: str) -> dict:
     cpu.train_epoch(0)
     gpu = Coach(cfg, host, device=dev)
     gpu.load_params(cpu.gcn_params, cpu.dn_params, cpu.gcn_opt_state, cpu.dn_opt_states)
-    gpu.edge_buffers = [b.to(dev) for b in cpu.edge_buffers]
-    gpu.modal_adjs = [gpu._make_adj(gpu.data.train_rows, b) for b in gpu.edge_buffers]
+    gpu.set_edge_buffers([b.to(dev) for b in cpu.edge_buffers])
     M, B, I, d = cpu.n_modal, cfg.train.batch, host.item_num, cfg.base.latdim
     gen = torch.Generator().manual_seed(3)
     users = torch.randperm(host.user_num, generator=gen)[:B].to(torch.int32)
@@ -719,11 +794,26 @@ def _train_step_reference(dev, cfg, form: str) -> dict:
     rec["joint_metrics_max_abs_err"] = _check_close([j_g], [j_c], *tol, f"{form} joint metrics")
     rec["gcn_max_abs_err"] = _check_close(tree_leaves(gpu.gcn_params), tree_leaves(cpu.gcn_params), *tol,
                                           f"{form} GCN after a joint step")
-    kernel, per_step = ("spmm_dual", M + 4) if form == "dense" else ("segsum", M + 9)
-    check(launches[kernel] == 2 * per_step, f"{form} joint step launches {launches}, want {kernel} "
-                                            f"{2 * per_step} (forward and backward)")
+    want = joint_step_launches(form == "dense", M, cfg.base.cl_method)
+    check(all(launches[k] == v for k, v in want.items()),
+          f"{form} joint step launches {launches}, want {want} (forward and backward, loss gathers)")
     rec["losses"] = {"diffusion": d_g.tolist(), "joint": j_g.tolist()}
     return rec
+
+
+def joint_step_launches(dense: bool, n_modal: int, cl_method: int) -> dict:
+    """Kernel launches of one joint step (forward and backward). Dense: K1
+    once a propagation each way, M + 4 propagations (M modal, 2 main, 2 in
+    the cross-layer CL). Sparse: K4 M + 9 times each way (1 stacked user +
+    M item directions, 2 x 2 main, 2 x 2 cross-layer CL). Both forms: K4
+    once for the backward of each loss gather: BPR 3, the cross-layer CL
+    2 x 2, the modal CL 2 x 2 per modality (cl_method 0) or per pair of
+    modalities (cl_method 1)."""
+    pairs = n_modal * (n_modal - 1) // 2 if cl_method == 1 else n_modal
+    gathers = 3 + 4 + 4 * pairs
+    if dense:
+        return {"spmm_dual": 2 * (n_modal + 4), "segsum": gathers}
+    return {"spmm_dual": 0, "segsum": 2 * (n_modal + 9) + gathers}
 
 
 def _twin(dev, cfg, like):
@@ -732,8 +822,7 @@ def _twin(dev, cfg, like):
 
     coach = Coach(cfg, like.host, device=dev)
     coach.load_params(like.gcn_params, like.dn_params)
-    coach.edge_buffers = like.edge_buffers
-    coach.modal_adjs = [coach._make_adj(coach.data.train_rows, b) for b in like.edge_buffers]
+    coach.set_edge_buffers(like.edge_buffers)
     return coach
 
 
@@ -874,6 +963,10 @@ def _tiktok_shape():
     return cfg, host
 
 
+# the named ranges of Coach.timer's phases (utils/profiling.py annotate)
+PHASE_RANGES = {"neg_sampling", "diffusion", "rebuild", "joint", "eval", "fused"}
+
+
 def phase_profile(work, label: str, report_dir: str) -> dict:
     """torch.profiler over ``work()`` on a warm Coach (a path's rebuild +
     eval, or a training path's joint phase): device time by kernel name and
@@ -889,8 +982,10 @@ def phase_profile(work, label: str, report_dir: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    # kernel rows only (the operator rows carry their kernels' time too)
-    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernel rows only (the operator rows carry their kernels' time too, and
+    # the Coach's phase ranges show as device rows spanning their kernels)
+    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in PHASE_RANGES]
     dev_us = {e.key: e.self_device_time_total for e in kernels}
     busy = sum(dev_us.values()) / 1e6
     top = sorted(((v, k) for k, v in dev_us.items() if v > 0), reverse=True)[:14]
@@ -1031,19 +1126,18 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
     want_dn = coach.n_modal * cfg.hyper.steps * blocks * epochs
     check(launches["denoise_layer1"] == want_dn and launches["denoise_layer2"] == want_dn,
           f"{label} denoise launches {launches}, want {want_dn} each (the rebuilds)")
-    if coach.dense_graphs:
-        # M + 4 forward spmm_bi calls a joint step (M modal, 2 main, 2 more
-        # in the cross-layer CL), one backward launch each
-        kernel, other, per_step = "spmm_dual", "segsum", coach.n_modal + 4
-    else:
-        # M + 9 forward K4 launches a step (1 stacked user + M item
-        # directions, 2 x 2 main, 2 x 2 cross-layer CL), as many backward
-        kernel, other, per_step = "segsum", "spmm_dual", coach.n_modal + 9
-    want = 2 * per_step * n_joint
+    # every joint step's launches, replayed steps included (a graph's count
+    # a replay times its replays)
+    want = {k: v * n_joint for k, v in
+            joint_step_launches(coach.dense_graphs, coach.n_modal, cfg.base.cl_method).items()}
     for e in epochs_rec:
         got = e["joint_launches"]
-        check(got[kernel] >= want and got[other] == 0,
-              f"{label} joint launches {got}, want {kernel} >= {want} and no {other}")
+        check(all(got[k] == v for k, v in want.items()),
+              f"{label} joint launches {got}, want {want}")
+    graphs = {key[0] + ("" if key[0] != "rebuild" else f"_{key[1]}"):
+              {"replays": g.replays, "launches_a_replay": g.launches}
+              for key, g in coach.graphs.graphs.items()}
+    check(set(graphs) >= {"diffusion", "rebuild_0", "joint"}, f"{label} graphs {graphs}")
     rec = {
         "shape": [host.user_num, host.item_num, host.nnz],
         "graph_form": "dense" if coach.dense_graphs else "sparse",
@@ -1059,7 +1153,8 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
         "launches": launches,
         "joint_blocks": n_joint,
         "diffusion_blocks": n_diff,
-        "joint_launches_wanted": {kernel: want},
+        "joint_launches_wanted": want,
+        "graphs": graphs,
     }
     print(f"[path {label}] {json.dumps(rec)}")
     return rec, coach
@@ -1138,20 +1233,258 @@ def phase_path_g(dev) -> dict:
     return rec
 
 
-def _joint_phase_work(coach, epoch: int):
+def _joint_phase_work(coach, epoch: int, graphed: bool = True):
     """One more joint phase of a trained Coach at ``epoch``'s learning
-    rate, on fresh negatives (the profiled part of a training path)."""
-    import torch
-
+    rate, on fresh negatives and a fresh permutation (the profiled part of
+    a training path): replayed from the Coach's captured graph, or run
+    eagerly (``graphed=False``)."""
     from diffmm_tpu_torch.data.sampling import negative_sampling
+    from diffmm_tpu_torch.train import steps
     from diffmm_tpu_torch.train.optim import cosine_lr
 
-    cfg = coach.config
-    negs = negative_sampling(coach.data.train_rows, coach.data.train_store, coach.host.item_num,
+    cfg, data = coach.config, coach.data
+    negs = negative_sampling(data.train_rows, data.train_store, coach.host.item_num,
                              generator=coach.generator)
+    perm = coach._epoch_tables(epoch, 1)[0]["perm"]
     lr = cosine_lr(epoch, cfg.train.lr, coach.total_epochs)
-    acc = torch.zeros(coach.n_modal, device=coach.device)
-    return lambda: coach._joint_phase(lr, negs, acc, coach.hp())
+    if graphed:
+        return lambda: coach._joint_phase(perm, negs, lr, coach.hp())
+    nb = perm.shape[0] // cfg.train.batch
+    users, pos, neg = (a.index_select(0, perm).reshape(nb, cfg.train.batch)
+                       for a in (data.train_rows, data.train_cols, negs))
+    return lambda: steps.joint_epoch(
+        coach.gcn_params, coach.gcn_opt_state, data.adj, coach.modal_adjs, data.raw_feats,
+        users, pos, neg, lr, coach.hp(), cfg.base.cl_method, cfg.train.segsum_compute,
+        coach.generator, graphs=None,
+    )
+
+
+# ------------------------------------------------------- C1, graphs, H, resume
+def _snapshot(coach):
+    """A host copy of a Coach's training state (what a checkpoint holds)."""
+    from diffmm_tpu_torch.utils.checkpoint import rng_state_to_json, to_host
+
+    return to_host(coach._ckpt_arrays()), {
+        "gcn_count": coach.gcn_opt_state.count, "dn_counts": [s.count for s in coach.dn_opt_states],
+        "np_rng": rng_state_to_json(coach.np_rng), "best_snapshot_epoch": -1,
+    }
+
+
+def _state(coach) -> list:
+    """Copies of a Coach's parameters, Adam moments, edge buffers and
+    generator state."""
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    out = tree_leaves(coach.gcn_params) + tree_leaves(coach.dn_params) + list(coach.edge_buffers)
+    for s in (coach.gcn_opt_state, *coach.dn_opt_states):
+        out += s.mu + s.nu
+    return [t.clone() for t in out] + [coach.generator.get_state()]
+
+
+def _bitwise(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_c1(dev, coach_e, coach_f, host_e, losses_e) -> dict:
+    """C1: the joint step repeats bit for bit on the card. Two joint_blocks
+    from one saved state (parameters, moments, generator) and one block of
+    interactions, dense at E's shape and sparse at F's: metrics, updated
+    parameters and moments, bitwise. And a second fresh Coach at E trains
+    path E's two epochs to the same losses, bitwise."""
+    import torch
+
+    from diffmm_tpu_torch.config import load_config
+    from diffmm_tpu_torch.train import steps
+    from diffmm_tpu_torch.train.coach import Coach
+
+    rec = {}
+    for label, coach in (("E", coach_e), ("F", coach_f)):
+        arrays, aux = _snapshot(coach)
+        B = coach.config.train.batch
+        gen = torch.Generator(device=dev).manual_seed(6)
+        pick = torch.randint(0, coach.host.nnz, (B,), generator=gen, device=dev)
+        block = (coach.data.train_rows[pick], coach.data.train_cols[pick],
+                 torch.randint(0, coach.host.item_num, (B,), generator=gen, device=dev).to(torch.int32))
+        runs = []
+        for _ in range(2):
+            coach._load_state(arrays, aux)
+            metrics = steps.joint_block(
+                coach.gcn_params, coach.gcn_opt_state, coach.data.adj, coach.modal_adjs,
+                coach.data.raw_feats, *block, 1e-3, coach.hp(), coach.config.base.cl_method,
+                coach.config.train.segsum_compute, generator=coach.generator,
+            )
+            torch.cuda.synchronize()
+            runs.append([metrics.clone(), *_state(coach)])
+        same = _bitwise(*runs)
+        check(same, f"C1: two {label} joint_blocks from one state differ")
+        coach._load_state(arrays, aux)
+        rec[f"joint_block_bitwise_{label}"] = same
+        rec[f"joint_block_metrics_{label}"] = runs[0][0].tolist()
+    cfg = load_config(os.path.join(REPO, "conf", "test.toml"))
+    again = Coach(cfg, host_e, device=dev)
+    losses = [again.train_epoch(e, fence=True) for e in range(2)]
+    check(losses == losses_e, f"C1: a fresh E Coach's losses {losses} vs path E's {losses_e}")
+    rec["fresh_coach_epoch_losses_equal"] = True
+    rec["epoch1_losses"] = [e["Loss"] for e in losses_e]
+    print(f"[C1] {json.dumps(rec)}")
+    return rec
+
+
+def _replay_vs_eager(coach, phase: str) -> bool:
+    """One block of ``phase`` replayed from its graph and run eagerly, each
+    from the Coach's saved state with the phase's accumulators or tables
+    zeroed: parameters, moments, generator and outputs bitwise."""
+    import torch
+
+    graph = coach.graphs.find(phase)[0]
+    inputs = [x.clone() for x in graph.inputs]
+    outputs = [b for key, b in coach.graphs._buffers.items()
+               if key[0] in ("diffusion_acc", "joint_acc", "rebuild_table")]
+    arrays, aux = _snapshot(coach)
+    results = []
+    for run in (graph, graph.step):
+        coach._load_state(arrays, aux)
+        for buf in outputs:
+            buf.zero_()
+        run(*inputs)
+        torch.cuda.synchronize()
+        results.append(_state(coach) + [b.clone() for b in outputs])
+    coach._load_state(arrays, aux)
+    return _bitwise(*results)
+
+
+def phase_graphs(coach_e, coach_f) -> dict:
+    """Each phase's graph replay against its eager step on E and F."""
+    rec = {}
+    for label, coach in (("E", coach_e), ("F", coach_f)):
+        for phase in ("joint", "diffusion", "rebuild"):
+            same = _replay_vs_eager(coach, phase)
+            check(same, f"graph replay vs eager: {label} {phase} differ")
+            rec[f"{label}_{phase}"] = same
+    print(f"[graphs] replay == eager: {json.dumps(rec)}")
+    return rec
+
+
+def no_sync_epoch(coach, epoch: int) -> float:
+    """One epoch of a Coach whose graphs are captured, its device part run
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync in it
+    raises. Returns the epoch's wall time (its tables uploaded before, its
+    results read after)."""
+    import torch
+
+    (tables,) = coach._epoch_tables(epoch, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # a sync raises, and the run fails
+    modal_acc, joint_acc = coach._epoch_on_device(tables)
+    torch.cuda.set_sync_debug_mode("default")
+    result = coach._epoch_result(joint_acc.cpu().numpy(), modal_acc.cpu().numpy())
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in result.values()), f"no-sync epoch losses {result}")
+    return wall
+
+
+def phase_path_h(dev, host) -> tuple[dict, object]:
+    """Path H: E's data with train.epoch_scan=2 and tstEpoch=1 through
+    ``Coach.run(epochs=2)`` (one fused chunk, evals on the card), with every
+    kernel counter set to 0 just before and read just after, held bitwise
+    against a twin Coach's ``run`` of single epochs. Returns the record and
+    the twin (two epochs in, for the resume check)."""
+    import torch
+
+    from diffmm_tpu_torch.config import load_config
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    def coach_for(scan):
+        cfg = load_config(os.path.join(REPO, "conf", "test.toml"))
+        cfg.train.epoch_scan, cfg.train.tstEpoch = scan, 1
+        return Coach(cfg, host, device=dev)
+
+    fused, twin = coach_for(2), coach_for(1)
+    chunks, singles, evals = [], [], []
+    train_fused, train_epoch, test_epoch = fused.train_epochs_fused, twin.train_epoch, twin.test_epoch
+
+    def timed_chunk(e, n, split=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_fused(e, n, split)  # ends in a host read of the chunk's results
+        chunks.append({"epochs": [e, e + n], "wall_s": time.perf_counter() - t0, "losses": out[0],
+                       "evals": out[1]})
+        return out
+
+    def single(e, fence=False):
+        singles.append(train_epoch(e, fence))
+        return singles[-1]
+
+    def evaluated(split="test", embeddings=None):
+        evals.append(test_epoch(split, embeddings))
+        return evals[-1]
+
+    fused.train_epochs_fused, twin.train_epoch, twin.test_epoch = timed_chunk, single, evaluated
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+    best_f = fused.run(epochs=2)
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
+    t0 = time.perf_counter()
+    best_t = twin.run(epochs=2)
+    twin_s = time.perf_counter() - t0
+    fused.train_epochs_fused, twin.train_epoch, twin.test_epoch = train_fused, train_epoch, test_epoch
+    check(len(chunks) == 1, f"H ran {len(chunks)} fused chunks, want 1")
+    snap_f, snap_t = fused.best_snapshot, twin.best_snapshot
+    same = {
+        "losses": chunks[0]["losses"] == singles,
+        "evals": chunks[0]["evals"] == evals,
+        "best": best_f == best_t,
+        "best_snapshot": snap_f["epoch"] == snap_t["epoch"] and _bitwise(
+            tree_leaves(snap_f["gcn_params"]) + snap_f["edge_buffers"],
+            tree_leaves(snap_t["gcn_params"]) + snap_t["edge_buffers"]),
+        "state": _bitwise(_state(fused), _state(twin)),
+    }
+    check(all(same.values()), f"H fused vs single epochs: {same}")
+    n_joint = -(-host.nnz // fused.config.train.batch)
+    want = {k: 2 * v * n_joint for k, v in joint_step_launches(True, fused.n_modal, 0).items()}
+    check(all(launches[k] >= v for k, v in want.items()), f"H launches {launches}, want at least {want}")
+    rec = {"bitwise": same, "best": best_f, "chunks": chunks, "single_losses": singles,
+           "single_epochs_run_s": twin_s, "launches": launches,
+           "graphs": {key[0]: {"replays": g.replays, "launches_a_replay": g.launches}
+                      for key, g in fused.graphs.graphs.items()},
+           "no_sync_epoch_s": no_sync_epoch(fused, 2)}
+    print(f"[path H] {json.dumps(rec)}")
+    return rec, twin
+
+
+def phase_resume(dev, host, twin, want_loss: dict, report_dir: str) -> dict:
+    """Save after epoch 0, restore into a new Coach, train epoch 1: equal
+    bitwise to the twin's uninterrupted epoch 1 (losses, parameters,
+    moments, edge buffers, generator)."""
+    import shutil
+
+    from diffmm_tpu_torch.config import load_config
+    from diffmm_tpu_torch.train.coach import Coach
+
+    ck = os.path.join(report_dir, "resume_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    first = Coach(load_config(os.path.join(REPO, "conf", "test.toml")), host, device=dev,
+                  checkpoint_dir=ck)
+    first.total_epochs = 2
+    first.train_epoch(0)
+    first.save_checkpoint(0, {})
+    del first
+    second = Coach(load_config(os.path.join(REPO, "conf", "test.toml")), host, device=dev,
+                   checkpoint_dir=ck)
+    second.total_epochs = 2
+    check(second.restore_checkpoint()["epoch"] == 0, "resume: no checkpoint at epoch 0")
+    loss = second.train_epoch(1)
+    same = loss == want_loss and _bitwise(_state(second), _state(twin))
+    check(same, f"resume: epoch 1 after a restore ({loss}) differs from the uninterrupted run")
+    shutil.rmtree(ck, ignore_errors=True)
+    rec = {"bitwise": same, "epoch1_loss": loss["Loss"]}
+    print(f"[resume] {json.dumps(rec)}")
+    return rec
 
 
 def main(argv=None) -> int:
@@ -1188,10 +1521,20 @@ def main(argv=None) -> int:
     report["path_E"], coach_e = phase_path_e(dev, host_a)
     report["path_F"], coach_f = phase_path_f(dev, host_c)
     report["path_G"] = phase_path_g(dev)
-    del coach_f
+    report["C1"] = phase_c1(dev, coach_e, coach_f, host_a,
+                            [e["losses"] for e in report["path_E"]["epochs"]])
+    report["graphs"] = phase_graphs(coach_e, coach_f)
+    report["path_H"], twin = phase_path_h(dev, host_a)
+    report["resume"] = phase_resume(dev, host_a, twin, report["path_H"]["single_losses"][1],
+                                    args.report_dir)
+    del twin
     report["profile_A"] = phase_profile(_rebuild_and_eval(coach_a), "A", args.report_dir)
     report["profile_C"] = phase_profile(_rebuild_and_eval(coach_c), "C", args.report_dir)
     report["profile_E_joint"] = phase_profile(_joint_phase_work(coach_e, 1), "E_joint", args.report_dir)
+    report["profile_E_joint_eager"] = phase_profile(_joint_phase_work(coach_e, 1, graphed=False),
+                                                    "E_joint_eager", args.report_dir)
+    report["profile_F_joint"] = phase_profile(_joint_phase_work(coach_f, 0), "F_joint", args.report_dir)
+    del coach_f
 
     # each kernel's launches come from this slice's path that runs it: K1-K3
     # from E (dense-form training), K4 from F (sparse-form training); the
@@ -1199,7 +1542,7 @@ def main(argv=None) -> int:
     kernels = report["kernels"]
     rows = []
     for name, meta in KERNELS.items():
-        main_path, others = ("F", "ABCDE") if name == "segsum" else ("E", "ABCDF")
+        main_path, others = ("F", "ABCDEH") if name == "segsum" else ("E", "ABCDFH")
         k = kernels["segsum_user" if name == "segsum" else name]
         launches = report[f"path_{main_path}"]["launches"][name]
         row = {"name": name, "route": "cuda", "source": meta["source"],

@@ -5,9 +5,12 @@ the config (``--set`` overrides), echo it, load the data, train with
 ``Coach.run`` and optionally export the best epoch's serving index. It runs
 on the CUDA card; ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the CPU instead, and without a card and without that flag it
-stops with an error. ``--checkpoint-dir``, ``--mesh``, ``--distributed``
-and ``--trace-dir`` belong to ROADMAP.md A, slice 4, and raise
-``NotImplementedError``.
+stops with an error. ``--checkpoint-dir`` saves the full training state
+every ``--checkpoint-every`` epochs (10 by default, as the JAX CLI) and
+after the last, and a run over a directory with checkpoints resumes from
+the latest; ``--trace-dir`` writes a ``torch.profiler`` trace of the run
+(``trace.json``). ``--mesh`` and ``--distributed`` belong to ROADMAP.md A7
+(multi-device) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,16 +38,21 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
                         help="config override, e.g. --set hyper.noise_degree=1.0 (bare keys "
                         "default to [hyper]; repeatable, later wins)")
-    for flag in ("--checkpoint-dir", "--mesh", "--trace-dir"):
-        parser.add_argument(flag, default=None, help="not ported yet (ROADMAP.md A, slice 4)")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="save and resume the full training state here (torch.save)")
+    parser.add_argument("--checkpoint-every", type=int, default=10,
+                        help="epochs between checkpoint saves (the last epoch always saves)")
+    parser.add_argument("--trace-dir", default=None,
+                        help="write a torch.profiler trace of the run here (trace.json)")
+    parser.add_argument("--mesh", default=None, help="not ported yet (ROADMAP.md A7, slice 4)")
     parser.add_argument("--distributed", action="store_true",
-                        help="not ported yet (ROADMAP.md A, slice 4)")
+                        help="not ported yet (ROADMAP.md A7, slice 4)")
     args = parser.parse_args(argv)
 
-    for name in ("checkpoint_dir", "mesh", "trace_dir", "distributed"):
+    for name in ("mesh", "distributed"):
         if getattr(args, name):
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md A, slice 4)"
+                f"--{name} is not ported yet (ROADMAP.md A7: multi-device, slice 4)"
             )
     device = resolve_device(args.device)
 
@@ -73,9 +81,12 @@ def main(argv: list[str] | None = None) -> int:
     host = load_host_data(config, data_root=args.data_root)
 
     from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.utils.profiling import trace
 
-    coach = Coach(config, host, device=device, log=log)
-    best = coach.run(epochs=args.epochs, eval_split=args.eval_split)
+    coach = Coach(config, host, device=device, log=log, checkpoint_dir=args.checkpoint_dir,
+                  checkpoint_every=args.checkpoint_every)
+    with trace(args.trace_dir):
+        best = coach.run(epochs=args.epochs, eval_split=args.eval_split)
     log.info(
         f"Best epoch: {best['best_epoch']}, Recall: {best['Recall']:.5f}, "
         f"NDCG: {best['NDCG']:.5f}, Precision: {best['Precision']:.5f}"

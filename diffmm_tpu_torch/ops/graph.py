@@ -106,28 +106,41 @@ def build_dense_bi_adj_device(
     user_num: int,
     item_num: int,
     store_dtype: torch.dtype = torch.int8,
+    out: DenseBiAdj | None = None,
 ) -> DenseBiAdj:
-    """Dense-form adjacency from (possibly sentinel-padded) device edges.
+    """Dense-form adjacency from (possibly sentinel-padded) device edges,
+    into ``out`` in place when given (a captured graph that reads ``out``
+    then reads the new graph).
 
     The JAX package drops the sentinel pad edges ``(user_num, item_num)``
-    with ``mode="drop"`` in its scatter and degree sums; ``index_put_`` has
-    no drop mode, so they are filtered out first. Edges are unique (one per
-    train interaction or per rebuilt top-k slot), so the degrees count
-    them."""
-    keep = (ui_rows < user_num) & (ui_cols < item_num)
-    rows = ui_rows[keep].long()
-    cols = ui_cols[keep].long()
-    deg_u = torch.bincount(rows, minlength=user_num).to(torch.float32)
-    deg_i = torch.bincount(cols, minlength=item_num).to(torch.float32)
+    with ``mode="drop"`` in its scatter and degree sums. Here nothing is
+    filtered (a filter's output size depends on the data, and the card
+    would have to report it to the host): each pad edge writes its 1 into
+    the spare row of :func:`dense_storage`, which nothing reads, and adds
+    its count to an extra degree slot that is cut off. Edges are unique (one
+    per train interaction or per rebuilt top-k slot), so the degrees count
+    them; integer counts in f32 are exact in any order of adds."""
+    rows, cols = ui_rows.long(), ui_cols.long()
+    pad = (rows >= user_num) | (cols >= item_num)
+    rows = torch.where(pad, user_num, rows)
+    cols = torch.where(pad, item_num, cols)
+    dev = ui_rows.device
     # rows on 16-byte boundaries, so the spmm_dual kernel reads them in
     # 16-byte vectors (a (U, I) view of padded storage)
-    mat = dense_storage(user_num, item_num, store_dtype, ui_rows.device)
-    mat[rows, cols] = 1
-    return DenseBiAdj(
-        mat=mat,
-        s_user=torch.rsqrt(deg_u + 1.0),
-        s_item=torch.rsqrt(deg_i + 1.0),
-    )
+    mat = dense_storage(user_num, item_num, store_dtype, dev) if out is None else out.mat.zero_()
+    ld = mat.stride(0)
+    flat = mat.as_strided((user_num + 1, ld), (ld, 1)).view(-1)
+    flat.index_fill_(0, rows * ld + torch.where(pad, 0, cols), 1)
+    ones = torch.ones(rows.shape[0], dtype=torch.float32, device=dev)
+    deg_u = torch.zeros(user_num + 1, dtype=torch.float32, device=dev).index_add_(0, rows, ones)
+    deg_i = torch.zeros(item_num + 1, dtype=torch.float32, device=dev).index_add_(0, cols, ones)
+    s_user = torch.rsqrt(deg_u[:user_num] + 1.0)
+    s_item = torch.rsqrt(deg_i[:item_num] + 1.0)
+    if out is None:
+        return DenseBiAdj(mat=mat, s_user=s_user, s_item=s_item)
+    out.s_user.copy_(s_user)
+    out.s_item.copy_(s_item)
+    return out
 
 
 def assemble_bi_adj(ui_rows, ui_cols, iu_perm, user_num, item_num, scales=None) -> BiAdj:
@@ -183,15 +196,26 @@ def build_bi_adj_host(
 
 def build_bi_adj_device(
     ui_rows: torch.Tensor, ui_cols: torch.Tensor, user_num: int, item_num: int,
+    out: BiAdj | None = None,
 ) -> BiAdj:
     """Sparse-form adjacency from device edges sorted by user (JAX
     ``build_bi_adj_device``, the epoch's graph rebuild): a stable argsort
     for the item-major order and the degrees as CSR span lengths. Sentinel
     pads sort past the last segment in both orders, so they fall out of the
-    degrees and out of every reduction."""
+    degrees and out of every reduction. With ``out`` (of the same shapes),
+    the fields are copied into its tensors in place, which a captured graph
+    then reads; a field that is the same tensor (the shared train rows) is
+    left as it is. Every size here is the edge count's, so nothing waits
+    for the card."""
     ui_cols = ui_cols.to(torch.int32)
     iu_perm = torch.argsort(ui_cols, stable=True).to(torch.int32)
-    return assemble_bi_adj(ui_rows.to(torch.int32), ui_cols, iu_perm, user_num, item_num)
+    adj = assemble_bi_adj(ui_rows.to(torch.int32), ui_cols, iu_perm, user_num, item_num)
+    if out is None:
+        return adj
+    for dst, src in zip(out, adj):
+        if dst is not src:
+            dst.copy_(src)
+    return out
 
 
 def _cast(z: torch.Tensor, compute: str) -> torch.Tensor:

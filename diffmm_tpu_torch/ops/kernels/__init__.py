@@ -17,6 +17,10 @@ with a plain C interface, loaded through ``ctypes``, at first use, into
 ``diffmm_tpu_torch/_build/`` (listed in ``.gitignore``). Each library name
 carries a hash of its source, so an edited source never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+
+Each wrapper counts its launches in its module's ``LAUNCHES``;
+:func:`launch_counts` reads them all and :func:`add_launches` adds to them
+(a captured CUDA graph's launches, ``train/graphs.py``).
 """
 
 from __future__ import annotations
@@ -117,3 +121,21 @@ def check_launch(err: int, what: str) -> None:
     """Raise when a kernel's C entry returned a nonzero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _counters() -> tuple[dict[str, int], ...]:
+    from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual
+
+    return spmm_dual.LAUNCHES, denoise_mlp.LAUNCHES, segsum.LAUNCHES
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count so far, by kernel name."""
+    return {name: n for counts in _counters() for name, n in counts.items()}
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta[name]`` to kernel ``name``'s count (negative: take back)."""
+    for counts in _counters():
+        for name in counts:
+            counts[name] += delta.get(name, 0)

@@ -249,8 +249,8 @@ def prepare_denoiser(params) -> PreparedDenoiser:
     """A denoiser's params (the JAX layout) in the form K2/K3 take."""
     if len(params["in_layers"]) != 1 or len(params["out_layers"]) != 1:
         raise NotImplementedError(
-            "the denoise_mlp kernels take a single hidden layer "
-            "(ROADMAP.md A, slice 3: training)"
+            "the denoise_mlp kernels take a single hidden layer; a deeper "
+            "denoiser is ROADMAP.md A4 (execution knobs, part 2)"
         )
     w1 = params["in_layers"][0]["w"]  # (I + d_emb, H)
     item_num = w1.shape[0] - params["emb"]["w"].shape[0]

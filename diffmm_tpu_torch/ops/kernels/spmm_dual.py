@@ -115,11 +115,14 @@ def _barrier(device: torch.device) -> torch.Tensor:
 
 def dense_storage(user_num: int, item_num: int, dtype: torch.dtype, device) -> torch.Tensor:
     """A zeroed (U, I) matrix whose rows start on 16-byte boundaries: a
-    view of (U, ld) storage, ld * itemsize a multiple of 16. The kernel's
-    tensor map reads M in rows of that stride; the dense adjacency is built
-    this way."""
+    view of (U + 1, ld) storage, ld * itemsize a multiple of 16. The
+    kernel's tensor map reads M in rows of that stride; the dense adjacency
+    is built this way, and its build writes its pad edges into the spare
+    row past the U rows (``ops/graph.py::build_dense_bi_adj_device``),
+    which nothing reads."""
     per = 16 // torch.empty((), dtype=dtype).element_size()
-    return torch.zeros((user_num, round_up(item_num, per)), dtype=dtype, device=device)[:, :item_num]
+    store = torch.zeros((user_num + 1, round_up(item_num, per)), dtype=dtype, device=device)
+    return store[:user_num, :item_num]
 
 
 def _vector_rows(mat: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,8 @@
 
 Counterpart of ``diffmm_tpu/ops/losses.py`` (reference `Utils/Utils.py:45-98`):
 ``bpr_loss``, ``info_nce`` and ``l2_reg_loss``, plus :func:`l2_normalize`.
+``info_nce`` gathers its rows through :func:`~diffmm_tpu_torch.ops.gather.gather`,
+whose backward is K4 (no atomics), as the JAX ``take`` is deterministic.
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
+
+from diffmm_tpu_torch.ops.gather import GatherPlan, gather, gather_plan
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -29,13 +33,18 @@ def bpr_loss(user_emb: torch.Tensor, pos_emb: torch.Tensor, neg_emb: torch.Tenso
 
 def info_nce(
     view1: torch.Tensor, view2: torch.Tensor, idx: torch.Tensor, temperature: float,
+    plan: GatherPlan | None = None,
 ) -> torch.Tensor:
     """In-batch InfoNCE (reference `Utils/Utils.py:57-75`): gather ``idx``
     rows of both full views, L2-normalise, and return ``-mean(diag(
     log_softmax(v1 v2ᵀ / temperature)))``. Duplicate indices are kept: they
-    act as extra in-batch negatives, as in the reference."""
-    v1 = l2_normalize(view1.index_select(0, idx), dim=1)
-    v2 = l2_normalize(view2.index_select(0, idx), dim=1)
+    act as extra in-batch negatives, as in the reference. ``plan`` is
+    ``gather_plan(idx, n)`` over the views' n rows (made here if not
+    given); both gathers share it."""
+    if plan is None:
+        plan = gather_plan(idx, view1.shape[0])
+    v1 = l2_normalize(gather(view1, idx, plan), dim=1)
+    v2 = l2_normalize(gather(view2, idx, plan), dim=1)
     log_probs = torch.log_softmax((v1 @ v2.T) / temperature, dim=1)
     return -torch.mean(torch.diagonal(log_probs))
 

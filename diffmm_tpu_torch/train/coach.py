@@ -9,18 +9,34 @@ plan (314-346), the parameters and their Adam states (``_init_state``,
 (``train_epoch``, ``_joint_phase``, ``_epoch_result``, 769-919) with its
 phase-2 rebuild as :meth:`Coach.rebuild_graphs`, ``test_epoch``
 (1232-1293), the best-epoch capture (``capture_best``, ``best_state``,
-1296-1341) and the epoch loop (``make_print``, ``run``, 1450-1587).
+1296-1341), ``reset`` (486-492), the fused multi-epoch chunks
+(``train_epochs_fused``, ``_fused_eval_blocks``, ``_capture_best_from``,
+``_chunk_size``, 976-1229), the checkpoints (``_ckpt_arrays``,
+``save_checkpoint``, ``restore_checkpoint``, 1343-1447) and the epoch loop
+with resume and periodic saves (``make_print``, ``run``, 1450-1587).
 
-Left to ROADMAP.md A, slice 4: checkpoints and resume, the fused
-multi-epoch program (``train.epoch_scan > 1`` runs its epochs one at a
-time here: the same trajectory, ``tests/test_fused_epochs.py``), the mesh
-and the KNN ablation.
+On the card each phase's per-block step is a captured CUDA graph, replayed
+for every block (``train/graphs.py``, ``self.graphs``), the counterpart of
+the JAX package's compiled phase programs. What the graphs read stays put:
+the parameters and Adam moments are updated in place, the modality
+adjacencies are rebuilt in place each epoch (:meth:`Coach.set_edge_buffers`),
+and whatever replaces such a tensor (``load_params``, ``reset``,
+``restore_checkpoint``) drops the graphs. An epoch uploads its host draws
+once as it starts and reads its results once as it ends; a fused chunk of
+``train.epoch_scan`` epochs does the same for the whole chunk, with the
+eval of each ``tstEpoch`` boundary and the best epoch's state kept on the
+card between.
+
+Left to ROADMAP.md A: the mesh, the KNN ablation and the execution knobs
+that ``config.check_slice_support`` refuses.
 
 Random draws come from one ``torch.Generator`` on the Coach's device
 (parameter init, negatives, diffusion timesteps and noise, the rebuild's
 noise, the CL noise); the user and interaction permutations come from
 ``np.random.default_rng(seed)`` as in the JAX Coach, so both packages
-visit the blocks in the same order.
+visit the blocks in the same order. A fused chunk draws both streams
+exactly as its epochs one at a time would (``tests/test_torch_fused.py``),
+so checkpoints of either path resume into the other.
 """
 
 from __future__ import annotations
@@ -41,7 +57,20 @@ from diffmm_tpu_torch.models.gcn import init_gcn_params
 from diffmm_tpu_torch.ops.graph import build_bi_adj_device, build_dense_bi_adj_device
 from diffmm_tpu_torch.ops.topk import make_csr_gather_layout, plan_rebuild_buckets
 from diffmm_tpu_torch.train import steps
-from diffmm_tpu_torch.train.optim import AdamState, adam_init, cosine_lr, tree_map
+from diffmm_tpu_torch.train.graphs import GraphCache
+from diffmm_tpu_torch.train.optim import (
+    AdamState,
+    adam_init,
+    adam_scalars,
+    cosine_lr,
+    tree_leaves,
+    tree_map,
+)
+from diffmm_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    rng_state_from_json,
+    rng_state_to_json,
+)
 from diffmm_tpu_torch.utils.device import resolve_device
 from diffmm_tpu_torch.utils.logging import Log
 from diffmm_tpu_torch.utils.profiling import PhaseTimer
@@ -109,7 +138,10 @@ def _pad_blocks(n: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
 
 class Coach:
     """Training, rebuild, forward, eval and serving state for one dataset
-    on one device (``cuda`` unless ``device="cpu"``)."""
+    on one device (``cuda`` unless ``device="cpu"``). ``checkpoint_dir``
+    turns on checkpoints (:class:`~diffmm_tpu_torch.utils.checkpoint.CheckpointManager`):
+    ``run`` resumes from the latest one and saves every ``checkpoint_every``
+    epochs and after the last."""
 
     def __init__(
         self,
@@ -117,6 +149,8 @@ class Coach:
         host: HostData,
         device: str | torch.device | None = None,
         log: Log | None = None,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 10,
     ):
         self.device = resolve_device(device)
         check_slice_support(config)
@@ -212,12 +246,26 @@ class Coach:
         self.csr_gather_layout = tuple(
             torch.as_tensor(a, device=self.device) for a in (u_of_pos, lane_of_pos, pad_mask)
         )
+        # the diffusion blocks' pad mask and the joint blocks' padding are the
+        # same every epoch
+        self._diff_idx, valid = _pad_blocks(host.user_num, batch)
+        self._diff_weights = torch.as_tensor(
+            valid.astype(np.float32).reshape(-1, batch), device=self.device
+        )
+        self._joint_idx, _ = _pad_blocks(host.nnz, batch)
         self.cum_dcg = dcg_table(config.base.topk, self.device)
+        self._fused_eval_cache: dict = {}
         if self.dense_graphs:
             self.data = self.data._replace(
                 adj=self._make_adj(self.data.train_rows, self.data.train_cols)
             )
         self.timer = PhaseTimer()
+        self.ckpt = None
+        # the full state (parameters and Adam moments of every model) is
+        # saved on an interval, and always after the last epoch
+        self.checkpoint_every = max(1, checkpoint_every)
+        if checkpoint_dir is not None:
+            self.ckpt = CheckpointManager(checkpoint_dir)
         self._init_state()
 
         self.log.info(f"USER: {host.user_num}, ITEM: {host.item_num}")
@@ -233,12 +281,15 @@ class Coach:
     def _init_state(self) -> None:
         """(Re)initialise the parameters from ``base.seed`` (the JAX
         package's distributions, torch's own stream), their Adam states, the
-        random streams and the run's trackers; drops any rebuilt graphs."""
+        random streams and the run's trackers; drops any rebuilt graphs and
+        every captured step (a new :class:`GraphCache` over the new
+        generator)."""
         cfg = self.config
         host = self.host
         seed = cfg.base.seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.np_rng = np.random.default_rng(seed)
+        self.graphs = GraphCache(self.device, self.generator)
         self.gcn_params = init_gcn_params(
             self.generator, host.user_num, host.item_num, cfg.base.latdim,
             host.feat_dims, self.device,
@@ -262,13 +313,26 @@ class Coach:
         self.total_epochs = cfg.train.epoch
         self.timer.reset()
 
+    def reset(self, seed: int | None = None) -> None:
+        """Re-initialise the parameters, Adam states, random streams and
+        trackers for a fresh run (JAX ``Coach.reset``), with ``base.seed``
+        set to ``seed`` when given: the result equals a new Coach's. The
+        captured CUDA graphs are dropped, not re-seeded: they read the old
+        parameter tensors and generator, and the next epoch captures each
+        step again (one step's time a phase, where the JAX package's reset
+        exists to skip recompiles)."""
+        if seed is not None:
+            self.config.base.seed = seed
+        self._init_state()
+
     def load_params(self, gcn_params: dict, dn_params: list[dict],
                     gcn_opt_state: AdamState | None = None,
                     dn_opt_states: list[AdamState] | None = None) -> None:
         """Take parameters in the port's layout (``convert.params_from_jax``
         makes them from a JAX run's) and, optionally, their Adam states
         (``convert.adam_state_from_jax``), copied to this Coach's device;
-        fresh Adam states otherwise. Drops any rebuilt graphs."""
+        fresh Adam states otherwise. Drops any rebuilt graphs and captured
+        steps."""
         self.gcn_params = tree_to(gcn_params, self.device)
         self.dn_params = tree_to(list(dn_params), self.device)
         if len(self.dn_params) != self.n_modal:
@@ -284,6 +348,7 @@ class Coach:
         self.dn_opt_states = [state_to(s, p) for s, p in zip(dn_opt_states, self.dn_params)]
         self.edge_buffers = None
         self.modal_adjs = None
+        self.graphs.clear()
 
     def hp(self) -> dict:
         """The hyperparameter scalars of the phase functions, read from the
@@ -301,80 +366,111 @@ class Coach:
             "residual_weight": float(h.residual_weight),
         }
 
-    def _make_adj(self, rows: torch.Tensor, cols: torch.Tensor):
-        """A normalised adjacency in the run's graph form."""
+    def _make_adj(self, rows: torch.Tensor, cols: torch.Tensor, out=None):
+        """A normalised adjacency in the run's graph form (into ``out`` in
+        place when given)."""
         if self.dense_graphs:
             return build_dense_bi_adj_device(
-                rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype
+                rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype, out=out
             )
-        return build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num)
+        return build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num, out=out)
+
+    def set_edge_buffers(self, buffers: list[torch.Tensor]) -> None:
+        """Take ``buffers`` (one CSR edge buffer a modality, on this device)
+        as the epoch's rebuilt graphs and build the modality adjacencies from
+        them: in place into the live ones (which the captured joint step
+        reads), or new ones the first time."""
+        self.edge_buffers = list(buffers)
+        rows = self.data.train_rows
+        if self.modal_adjs is None:
+            self.modal_adjs = [self._make_adj(rows, b) for b in self.edge_buffers]
+        else:
+            for adj, b in zip(self.modal_adjs, self.edge_buffers):
+                self._make_adj(rows, b, out=adj)
 
     # ------------------------------------------------------------ epoch
-    def train_epoch(self, epoch: int, fence: bool = False) -> dict[str, float]:
-        """One training epoch: negative sampling, diffusion training, graph
-        rebuild, joint training (reference `Main.py:136-388`). ``fence=True``
-        waits for the card at the end of each phase, so each phase's time on
-        ``self.timer`` is its own (at the cost of the overlap between
-        phases). Returns the epoch's loss dict."""
+    def _lr(self, epoch: int) -> float:
+        cfg = self.config.train
+        return cosine_lr(epoch, cfg.lr, self.total_epochs) if cfg.use_lr_scheduler else cfg.lr
+
+    def _epoch_tables(self, epoch0: int, n: int) -> list[dict]:
+        """The host draws and Adam scalars of epochs ``[epoch0, epoch0 + n)``,
+        uploaded at once: per epoch the diffusion blocks' users (the user
+        permutation) and the joint blocks' interaction permutation, drawn
+        from ``np_rng`` in the single-epoch order, and each phase's Adam
+        scalars (``adam_scalars`` from the counts the phases will reach)."""
+        host, batch = self.host, self.config.train.batch
+        nb_d = len(self._diff_idx) // batch
+        nb_j = len(self._joint_idx) // batch
+        users, perms, dn_sc, g_sc = [], [], [], []
+        for e in range(n):
+            lr = self._lr(epoch0 + e)
+            user_perm = self.np_rng.permutation(host.user_num).astype(np.int32)
+            users.append(user_perm[self._diff_idx % host.user_num].reshape(nb_d, batch))
+            perm = self.np_rng.permutation(host.nnz).astype(np.int32)
+            perms.append(perm[self._joint_idx % host.nnz])
+            dn_sc.append(np.stack([adam_scalars(lr, s.count + e * nb_d, nb_d)
+                                   for s in self.dn_opt_states], axis=1))
+            g_sc.append(adam_scalars(lr, self.gcn_opt_state.count + e * nb_j, nb_j))
+        put = lambda a: torch.as_tensor(np.stack(a), device=self.device)  # noqa: E731
+        users, perms, dn_sc, g_sc = put(users), put(perms), put(dn_sc), put(g_sc)
+        return [{"users": users[e], "perm": perms[e], "dn_scalars": dn_sc[e], "gcn_scalars": g_sc[e]}
+                for e in range(n)]
+
+    def _epoch_on_device(self, tables: dict, fence: bool = False):
+        """One epoch's four phases from its uploaded ``tables``, with nothing
+        read back: returns the (M,) diffusion and (4,) joint accumulators on
+        the device."""
         cfg = self.config
         data = self.data
-        host = self.host
-        batch = cfg.train.batch
-        if cfg.train.use_lr_scheduler:
-            lr = cosine_lr(epoch, cfg.train.lr, self.total_epochs)
-        else:
-            lr = cfg.train.lr
         hp = self.hp()
         fence_dev = self.device if fence else None
 
         # phase 0: negative sampling (reference Main.py:137)
         with self.timer.phase("neg_sampling", fence_dev):
-            negs = negative_sampling(data.train_rows, data.train_store, host.item_num,
+            negs = negative_sampling(data.train_rows, data.train_store, self.host.item_num,
                                      generator=self.generator)
-
         # phase 1: diffusion training (reference Main.py:144-192)
-        user_perm = self.np_rng.permutation(host.user_num).astype(np.int32)
-        idx, valid = _pad_blocks(host.user_num, batch)
-        nb = len(idx) // batch
-        users_blocks = torch.as_tensor(user_perm[idx % host.user_num].reshape(nb, batch),
-                                       device=self.device)
-        weight_blocks = torch.as_tensor(valid.astype(np.float32).reshape(nb, batch),
-                                        device=self.device)
         with self.timer.phase("diffusion", fence_dev):
             modal_acc = steps.diffusion_epoch(
                 self.schedule, self.dn_params, self.dn_opt_states, self.gcn_params,
-                data.raw_feats, data.train_store, users_blocks, weight_blocks, lr, hp,
-                host.item_num, self.generator,
+                data.raw_feats, data.train_store, tables["users"], self._diff_weights,
+                tables["dn_scalars"], hp, self.host.item_num, self.generator, self.graphs,
             )
-
         # phase 2: modality graph rebuild (reference Main.py:195-253)
         with self.timer.phase("rebuild", fence_dev):
             self.rebuild_graphs()
-        return self._joint_phase(lr, negs, modal_acc, hp)
+        # phase 3: joint GCN training (reference Main.py:291-377)
+        with self.timer.phase("joint", fence_dev):
+            joint_acc = self._joint_phase(tables["perm"], negs, tables["gcn_scalars"], hp)
+        return modal_acc, joint_acc
 
-    def _joint_phase(self, lr: float, negs: torch.Tensor, modal_acc: torch.Tensor,
-                     hp: dict) -> dict[str, float]:
-        """Phase 3, joint GCN training (reference Main.py:291-377), over a
-        permutation of the interactions whose last block wraps around to
-        the first ones."""
+    def train_epoch(self, epoch: int, fence: bool = False) -> dict[str, float]:
+        """One training epoch: negative sampling, diffusion training, graph
+        rebuild, joint training (reference `Main.py:136-388`). ``fence=True``
+        waits for the card at the end of each phase, so each phase's time on
+        ``self.timer`` is its own (at the cost of the overlap between
+        phases). Returns the epoch's loss dict (read from the card once, at
+        the end)."""
+        (tables,) = self._epoch_tables(epoch, 1)
+        modal_acc, joint_acc = self._epoch_on_device(tables, fence)
+        return self._epoch_result(joint_acc.cpu().numpy(), modal_acc.cpu().numpy())
+
+    def _joint_phase(self, perm: torch.Tensor, negs: torch.Tensor, lr, hp: dict) -> torch.Tensor:
+        """Phase 3, joint GCN training (reference Main.py:291-377), over the
+        interaction permutation ``perm`` (its last block wraps around to the
+        first interactions); ``lr`` a float or the phase's Adam scalars.
+        Returns the (4,) accumulator on the device."""
         cfg = self.config
         data = self.data
-        host = self.host
-        batch = cfg.train.batch
-        perm = self.np_rng.permutation(host.nnz).astype(np.int32)
-        idx, _ = _pad_blocks(host.nnz, batch)
-        nb = len(idx) // batch
-        perm_dev = torch.as_tensor(perm[idx % host.nnz], device=self.device)
-        users, pos, neg = (a.index_select(0, perm_dev).reshape(nb, batch)
+        nb = perm.shape[0] // cfg.train.batch
+        users, pos, neg = (a.index_select(0, perm).reshape(nb, cfg.train.batch)
                            for a in (data.train_rows, data.train_cols, negs))
-        with self.timer.phase("joint"):
-            acc = steps.joint_epoch(
-                self.gcn_params, self.gcn_opt_state, data.adj, self.modal_adjs,
-                data.raw_feats, users, pos, neg, lr, hp, cfg.base.cl_method,
-                cfg.train.segsum_compute, self.generator,
-            )
-            joint_acc = acc.cpu().numpy()
-        return self._epoch_result(joint_acc, modal_acc.cpu().numpy())
+        return steps.joint_epoch(
+            self.gcn_params, self.gcn_opt_state, data.adj, self.modal_adjs, data.raw_feats,
+            users, pos, neg, lr, hp, cfg.base.cl_method, cfg.train.segsum_compute,
+            self.generator, self.graphs,
+        )
 
     def _epoch_result(self, joint_acc, modal_acc) -> dict[str, float]:
         """One epoch's loss dict from the phase accumulators, with the
@@ -396,18 +492,155 @@ class Coach:
         """Phase 2 of an epoch: reverse-diffuse every user's train row per
         modality, keep each user's top-degree items as that modality's graph
         (reference `Main.py:195-253`). Sets ``edge_buffers`` and
-        ``modal_adjs`` and returns the buffers."""
+        ``modal_adjs`` (:meth:`set_edge_buffers`) and returns the buffers."""
         cfg = self.config
-        self.edge_buffers = steps.rebuild_epoch(
+        self.set_edge_buffers(steps.rebuild_epoch(
             self.schedule, self.dn_params, self.data.train_store,
             self.rebuild_blocks, self.rebuild_widths, self.rebuild_starts,
             *self.csr_gather_layout, self.host.item_num,
-            cfg.hyper.sampling_step, self.generator,
-        )
-        self.modal_adjs = [
-            self._make_adj(self.data.train_rows, buf) for buf in self.edge_buffers
-        ]
+            cfg.hyper.sampling_step, self.generator, self.graphs,
+        ))
         return self.edge_buffers
+
+    # ------------------------------------------------------------ fused
+    def train_epochs_fused(self, epoch0: int, n: int, eval_split: str | None = None):
+        """Train epochs ``[epoch0, epoch0 + n)`` as one chunk (JAX
+        ``train_epochs_fused``): the host draws of all n epochs in the
+        single-epoch order and their Adam scalars go to the card at once,
+        the n epochs' phases replay their graphs, and nothing is read back
+        until the chunk ends. The torch generator and the numpy stream end
+        where n :meth:`train_epoch` calls leave them, with the same results,
+        so checkpoints of the two paths are interchangeable
+        (``tests/test_torch_fused.py``). Returns one loss dict per epoch.
+
+        With ``eval_split``, each ``tstEpoch`` boundary also runs the
+        full-catalog eval on the card and the best-Recall epoch's GCN
+        parameters and edge buffers are kept in device copies
+        (strictly-greater keeps the first best, as the JAX carry does).
+        Returns ``(results, eval_results, best_bundle)`` then: eval dicts
+        (None on epochs without eval) and ``(best_recall_sum,
+        best_gcn_params, best_edge_buffers)`` on the card, None when no
+        epoch evaluated."""
+        cfg = self.config
+        tables = self._epoch_tables(epoch0, n)
+        flags = eval_blocks = None
+        if eval_split is not None:
+            flags = [(epoch0 + e) % cfg.train.tstEpoch == 0 for e in range(n)]
+            if any(flags):
+                eval_blocks = self._fused_eval_blocks(eval_split)
+        with_eval = eval_blocks is not None
+        if with_eval:
+            best_recall = torch.full((), -torch.inf, device=self.device)
+            best_g = tree_map(lambda p: p.detach().clone(), self.gcn_params)
+            best_bufs = ([b.clone() for b in self.edge_buffers] if self.edge_buffers is not None
+                         else [torch.zeros(self.edge_buf_len, dtype=torch.int32, device=self.device)
+                               for _ in range(self.n_modal)])
+        modal_accs, joint_accs, eval_sums = [], [], []
+        with self.timer.phase("fused"):
+            for e in range(n):
+                modal_acc, joint_acc = self._epoch_on_device(tables[e])
+                modal_accs.append(modal_acc)
+                joint_accs.append(joint_acc)
+                if with_eval and flags[e]:
+                    sums = self._eval_sums(eval_blocks[1])
+                    # best-Recall tracking on the card (reference model
+                    # selection, Main.py:71-78): strictly greater keeps the
+                    # first best epoch
+                    is_best = sums[0] > best_recall
+                    best_recall = torch.where(is_best, sums[0], best_recall)
+                    for kept, live in zip(tree_leaves(best_g), tree_leaves(self.gcn_params)):
+                        kept.copy_(torch.where(is_best, live, kept))
+                    for kept, live in zip(best_bufs, self.edge_buffers):
+                        kept.copy_(torch.where(is_best, live, kept))
+                    eval_sums.append(sums)
+            modal_accs = torch.stack(modal_accs).cpu().numpy()
+            joint_accs = torch.stack(joint_accs).cpu().numpy()
+        results = [self._epoch_result(joint_accs[e], modal_accs[e]) for e in range(n)]
+        if eval_split is None:
+            return results
+        if not with_eval:
+            # an empty split: test_epoch's zero metrics on the flagged epochs
+            zero = {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0}
+            return results, [zero if f else None for f in flags], None
+        n_eval = eval_blocks[0]
+        sums = iter(torch.stack(eval_sums).cpu().numpy())
+        eval_results = []
+        for flag in flags:
+            row = next(sums) if flag else None
+            eval_results.append(None if row is None else {
+                "Recall": float(row[0]) / n_eval,
+                "NDCG": float(row[1]) / n_eval,
+                "Precision": float(row[2]) / n_eval,
+            })
+        return results, eval_results, (best_recall, best_g, best_bufs)
+
+    def _fused_eval_blocks(self, split: str):
+        """test_epoch's block layout of ``split``, made once and cached:
+        ``(n_test, (users, valid, items, counts))`` in (n_blocks, batch)
+        blocks on the device; None for an empty split."""
+        if split in self._fused_eval_cache:
+            return self._fused_eval_cache[split]
+        data = self.data
+        if split == "test":
+            e_users, e_items, e_counts = data.test_users, data.test_items, data.test_counts
+        elif split == "val":
+            if data.val_users is None:
+                raise ValueError(f"{self.host.name}: no valMat was loaded")
+            e_users, e_items, e_counts = data.val_users, data.val_items, data.val_counts
+        else:
+            raise ValueError(f"unknown eval split {split!r}")
+        n_test = int(e_users.shape[0])
+        if n_test == 0:
+            self._fused_eval_cache[split] = None
+            return None
+        batch = self.config.train.test_batch
+        idx, valid = _pad_blocks(n_test, batch)
+        idx_w = torch.as_tensor(idx % n_test, device=self.device).long()
+        nb = len(idx) // batch
+        blocks = (
+            e_users[idx_w].reshape(nb, batch),
+            torch.as_tensor(valid, device=self.device).reshape(nb, batch),
+            e_items[idx_w].reshape(nb, batch, -1),
+            e_counts[idx_w].reshape(nb, batch),
+        )
+        self._fused_eval_cache[split] = (n_test, blocks)
+        return self._fused_eval_cache[split]
+
+    @torch.no_grad()
+    def _eval_sums(self, blocks, embeddings=None) -> torch.Tensor:
+        """The (3,) Recall/NDCG/Precision sums over the eval ``blocks`` of
+        :meth:`_fused_eval_blocks`, on the device (JAX
+        ``_make_fused_eval_fn``): the GCN forward and the ranking eval."""
+        u_final, i_final = embeddings if embeddings is not None else self.forward()
+        users, valid, items, counts = blocks
+        return eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
+                          self.cum_dcg, self.config.base.topk)
+
+    def _capture_best_from(self, best_g, best_bufs, epoch: int) -> None:
+        """capture_best from a fused chunk's device copies of its best epoch."""
+        self.best_snapshot = {
+            "epoch": epoch,
+            "gcn_params": tree_map(lambda p: p.to("cpu", copy=True), best_g),
+            "edge_buffers": [b.to("cpu", copy=True) for b in best_bufs],
+        }
+
+    def _chunk_size(self, epoch: int, n_epochs: int) -> int:
+        """``train.epoch_scan`` when a whole chunk of that many epochs fits
+        from ``epoch`` with no checkpoint boundary inside it, else 1 (JAX
+        ``_chunk_size``). Eval boundaries do not break chunks (the chunk
+        evaluates on the card). Only whole chunks fuse, as in the JAX
+        package, where each length is a new compile: here a shorter tail
+        runs the single-epoch path, which replays the same graphs."""
+        cfg = self.config
+        if cfg.train.epoch_scan <= 1:
+            return 1
+        n = cfg.train.epoch_scan
+        if n > n_epochs - epoch:
+            return 1
+        for j in range(n - 1):  # interior epochs epoch .. epoch+n-2
+            if self.ckpt is not None and (epoch + j + 1) % self.checkpoint_every == 0:
+                return 1
+        return n
 
     # ------------------------------------------------------------ eval
     @torch.no_grad()
@@ -427,34 +660,13 @@ class Coach:
         """Full-catalog ranking eval (reference `Main.py:390-420`).
         ``embeddings``: (u_final, i_final) to rank instead of this Coach's
         forward."""
-        data = self.data
-        if split == "test":
-            e_users, e_items, e_counts = data.test_users, data.test_items, data.test_counts
-        elif split == "val":
-            if data.val_users is None:
-                raise ValueError(f"{self.host.name}: no valMat was loaded")
-            e_users, e_items, e_counts = data.val_users, data.val_items, data.val_counts
-        else:
-            raise ValueError(f"unknown eval split {split!r}")
-        n_test = int(e_users.shape[0])
-        if n_test == 0:
+        blocks = self._fused_eval_blocks(split)
+        if blocks is None:
             self.log.info(f"⚠️ eval split {split!r} has no users; skipping")
             return {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0}
+        n_test, blocks = blocks
         with self.timer.phase("eval"):
-            u_final, i_final = embeddings if embeddings is not None else self.forward()
-            batch = self.config.train.test_batch
-            idx, valid = _pad_blocks(n_test, batch)
-            idx_w = torch.as_tensor(idx % n_test, device=self.device).long()
-            nb = len(idx) // batch
-            sums = eval_epoch(
-                u_final, i_final,
-                e_users[idx_w].reshape(nb, batch),
-                torch.as_tensor(valid, device=self.device).reshape(nb, batch),
-                data.train_store,
-                e_items[idx_w].reshape(nb, batch, -1),
-                e_counts[idx_w].reshape(nb, batch),
-                self.cum_dcg, self.config.base.topk,
-            ).cpu().numpy()
+            sums = self._eval_sums(blocks, embeddings).cpu().numpy()
         return {
             "Recall": float(sums[0]) / n_test,
             "NDCG": float(sums[1]) / n_test,
@@ -466,11 +678,7 @@ class Coach:
         """Copy to the host the state that reproduces this epoch's eval: the
         GCN params and the rebuilt edge buffers (the denoisers do not feed
         eval). Called whenever the best Recall improves."""
-        self.best_snapshot = {
-            "epoch": epoch,
-            "gcn_params": tree_map(lambda p: p.detach().to("cpu", copy=True), self.gcn_params),
-            "edge_buffers": [b.to("cpu", copy=True) for b in self.edge_buffers],
-        }
+        self._capture_best_from(self.gcn_params, self.edge_buffers, epoch)
 
     def best_state(self):
         """(gcn_params, modal_adjs) of the best-Recall epoch on this Coach's
@@ -485,6 +693,87 @@ class Coach:
                       for b in snap["edge_buffers"]]
         return params, modal_adjs
 
+    # ------------------------------------------------------------ checkpoints
+    def _ckpt_arrays(self) -> dict:
+        """The tensors of a checkpoint: parameters, Adam moments, the edge
+        buffers, the best snapshot (the live state stands in before any eval;
+        ``best_snapshot_epoch`` -1 marks it absent) and the generator's
+        state. The Adam counts and the numpy stream go in the JSON part."""
+        snap = self.best_snapshot
+        buffers = self.edge_buffers or []
+        if snap is None:
+            best_params, best_buffers = self.gcn_params, buffers
+        else:
+            best_params, best_buffers = snap["gcn_params"], snap["edge_buffers"]
+        moments = lambda s: {"mu": s.mu, "nu": s.nu}  # noqa: E731
+        return {
+            "gcn_params": self.gcn_params,
+            "gcn_opt_state": moments(self.gcn_opt_state),
+            "dn_params": self.dn_params,
+            "dn_opt_states": [moments(s) for s in self.dn_opt_states],
+            "edge_buffers": buffers,
+            "best_gcn_params": best_params,
+            "best_edge_buffers": best_buffers,
+            "generator": self.generator.get_state(),
+        }
+
+    def save_checkpoint(self, epoch: int, best: dict) -> None:
+        """Save the full training state after ``epoch`` with the run's
+        best-metric tracking ``best``."""
+        if self.ckpt is None:
+            raise RuntimeError("save_checkpoint needs a Coach made with checkpoint_dir")
+        self.ckpt.save(epoch, self._ckpt_arrays(), aux={
+            "epoch": epoch,
+            "best": best,
+            "np_rng": rng_state_to_json(self.np_rng),
+            "gcn_count": self.gcn_opt_state.count,
+            "dn_counts": [s.count for s in self.dn_opt_states],
+            "best_snapshot_epoch": -1 if self.best_snapshot is None else self.best_snapshot["epoch"],
+        })
+
+    def _load_state(self, arrays: dict, aux: dict) -> None:
+        """Copy a checkpoint's state into this Coach's tensors in place (the
+        tensors the captured steps read keep their addresses) and set its
+        generator, numpy stream, Adam counts, edge buffers and best
+        snapshot."""
+        with torch.no_grad():
+            for live, saved in zip(tree_leaves(self.gcn_params), tree_leaves(arrays["gcn_params"])):
+                live.copy_(saved)
+            for live, saved in zip(tree_leaves(self.dn_params), tree_leaves(arrays["dn_params"])):
+                live.copy_(saved)
+            states = [self.gcn_opt_state, *self.dn_opt_states]
+            saved_states = [arrays["gcn_opt_state"], *arrays["dn_opt_states"]]
+            for state, saved, count in zip(states, saved_states, [aux["gcn_count"], *aux["dn_counts"]]):
+                for live, value in zip(state.mu + state.nu, saved["mu"] + saved["nu"]):
+                    live.copy_(value)
+                state.count = int(count)
+        self.generator.set_state(arrays["generator"])
+        self.np_rng = rng_state_from_json(aux["np_rng"])
+        if arrays["edge_buffers"]:
+            self.set_edge_buffers([b.to(self.device) for b in arrays["edge_buffers"]])
+        snap_epoch = aux["best_snapshot_epoch"]
+        self.best_snapshot = None if snap_epoch < 0 else {
+            "epoch": snap_epoch,
+            "gcn_params": arrays["best_gcn_params"],
+            "edge_buffers": list(arrays["best_edge_buffers"]),
+        }
+
+    def restore_checkpoint(self) -> dict | None:
+        """Restore the latest checkpoint if there is one; returns the saved
+        best-metric dict with ``epoch`` set to the saved epoch. The state is
+        copied in place; the captured steps are dropped all the same (the
+        next epoch captures them again), so none replays over a generator
+        state it did not capture."""
+        if self.ckpt is None or self.ckpt.latest_epoch() is None:
+            return None
+        _, arrays, aux = self.ckpt.restore()
+        self._load_state(arrays, aux)
+        self.graphs.clear()
+        best = dict(aux["best"])
+        best["epoch"] = aux["epoch"]
+        self.log.info(f"Resumed from checkpoint at epoch {aux['epoch']} ♻️")
+        return best
+
     # ------------------------------------------------------------ run
     def make_print(self, name: str, epoch: int, results: dict[str, float],
                    total: int | None = None) -> str:
@@ -494,35 +783,71 @@ class Coach:
         return s + "  "
 
     def run(self, epochs: int | None = None, eval_split: str = "test") -> dict[str, float]:
-        """Epoch loop with best tracking (reference `Main.py:45-82`): train,
-        stop on non-finite losses, eval every ``train.tstEpoch`` epochs and
-        capture the best-Recall epoch. Returns the best epoch and its
-        metrics."""
+        """Epoch loop with best tracking (reference `Main.py:45-82`): resume
+        from the latest checkpoint, train in chunks of ``train.epoch_scan``
+        epochs where :meth:`_chunk_size` allows (one epoch otherwise), stop
+        on non-finite losses, eval every ``train.tstEpoch`` epochs and
+        capture the best-Recall epoch, and save checkpoints every
+        ``checkpoint_every`` epochs and after the last. Returns the best
+        epoch and its metrics."""
         cfg = self.config
         n_epochs = epochs if epochs is not None else cfg.train.epoch
         self.total_epochs = n_epochs  # cosine T_max follows the effective count
         recall_max = ndcg_max = precision_max = 0.0
         his_max = [0.0, 0.0, 0.0]
         best_epoch = 0
+        start_epoch = 0
+        resumed = self.restore_checkpoint()
+        if resumed is not None:
+            start_epoch = resumed["epoch"] + 1
+            recall_max = resumed.get("Recall", 0.0)
+            ndcg_max = resumed.get("NDCG", 0.0)
+            precision_max = resumed.get("Precision", 0.0)
+            his_max = resumed.get("his_max", his_max)
+            best_epoch = resumed.get("best_epoch", 0)
         self.log.info("Model Initialized ✅")
-        if cfg.train.epoch_scan > 1:
-            self.log.info(
-                f"train.epoch_scan={cfg.train.epoch_scan}: epochs run one at a time "
-                "(the fused program is ROADMAP.md A, slice 4; same trajectory)"
-            )
         self.log.info("Start training 🚀")
         try:
-            for epoch in range(n_epochs):
+            epoch = start_epoch
+            while epoch < n_epochs:
+                chunk = self._chunk_size(epoch, n_epochs)
                 t0 = time.perf_counter()
-                result = self.train_epoch(epoch)
-                self.epoch_times.append(time.perf_counter() - t0)
-                if not all(np.isfinite(v) for v in result.values()):
-                    self.log.info(f"💥 Non-finite losses at epoch {epoch}: {result}")
-                    raise FloatingPointError(f"training diverged at epoch {epoch}: {result}")
-                self.log.info(self.make_print("⏩ Train", epoch, result, n_epochs))
+                eval_results = best_bundle = None
+                if chunk > 1:
+                    results, eval_results, best_bundle = self.train_epochs_fused(epoch, chunk, eval_split)
+                else:
+                    results = [self.train_epoch(epoch)]
+                self.epoch_times.extend([(time.perf_counter() - t0) / chunk] * chunk)
+                # divergence stops the run at the epoch (chunk) boundary; with
+                # checkpoints on, the last good epoch is on disk to resume from
+                for j, result in enumerate(results):
+                    if not all(np.isfinite(v) for v in result.values()):
+                        self.log.info(f"💥 Non-finite losses at epoch {epoch + j}: {result}")
+                        raise FloatingPointError(f"training diverged at epoch {epoch + j}: {result}")
+                    self.log.info(self.make_print("⏩ Train", epoch + j, result, n_epochs))
                 self.log.info(f"⏱️ epoch {self.epoch_times[-1]:.2f}s ({self.timer.summary()})")
                 self.timer.reset()
-                if epoch % cfg.train.tstEpoch == 0:
+                if chunk > 1:
+                    # the chunk evaluated on the card; fold its evals into the
+                    # best tracking as the single-epoch branch below does
+                    improved = False
+                    for j, result in enumerate(eval_results or []):
+                        if result is None:
+                            continue
+                        his_max = [max(a, b) for a, b in zip(
+                            [result["Recall"], result["NDCG"], result["Precision"]], his_max
+                        )]
+                        if result["Recall"] > recall_max:
+                            recall_max = result["Recall"]
+                            ndcg_max = result["NDCG"]
+                            precision_max = result["Precision"]
+                            best_epoch = epoch + j
+                            improved = True
+                        self.log.info(self.make_print("🧪 Test", epoch + j, result, n_epochs))
+                    if improved and best_bundle is not None:
+                        self._capture_best_from(best_bundle[1], best_bundle[2], best_epoch)
+                epoch = epoch + chunk - 1  # the chunk's last epoch: checkpoint here
+                if chunk == 1 and epoch % cfg.train.tstEpoch == 0:
                     result = self.test_epoch(eval_split)
                     his_max = [max(a, b) for a, b in zip(
                         [result["Recall"], result["NDCG"], result["Precision"]], his_max
@@ -540,6 +865,17 @@ class Coach:
                     f"NDCG: {ndcg_max:.5f}({his_max[1]:.5f}), "
                     f"Precision: {precision_max:.5f}({his_max[2]:.5f})"
                 )
+                if self.ckpt is not None and (
+                    (epoch + 1) % self.checkpoint_every == 0 or epoch == n_epochs - 1
+                ):
+                    self.save_checkpoint(epoch, {
+                        "Recall": recall_max,
+                        "NDCG": ndcg_max,
+                        "Precision": precision_max,
+                        "his_max": his_max,
+                        "best_epoch": best_epoch,
+                    })
+                epoch += 1
         except KeyboardInterrupt:
             self.log.info("🈲 Training interrupted by user!")
         return {

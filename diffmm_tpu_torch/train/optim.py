@@ -9,6 +9,15 @@ and applies ``p - lr * update`` itself; :func:`adam_update` is that
 update, bias correction included, in place over the parameter tree's
 leaves (the port updates in place: the parameters and both moments are
 catalog-sized, and a functional update would hold two copies of each).
+
+On the card a training step is replayed from a captured CUDA graph
+(``train/graphs.py``), so nothing the step reads may be a host number baked
+in at capture: the learning rate and the two bias corrections reach
+:func:`adam_update` as a (3,) device tensor, one row per step of
+:func:`adam_scalars`. The step count stays a host integer: it advances by
+one a step, so the host knows it without reading the card, and
+:func:`adam_scalars` computes each step's bias corrections from it in f32
+as optax does (the same numbers on the CPU and the card).
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ def tree_map(fn, tree):
 @dataclass
 class AdamState:
     """``optax.ScaleByAdamState`` over :func:`tree_leaves` of a parameter
-    tree: the step count (a host integer) and the two moments."""
+    tree: the step count (a host integer, the steps taken) and the two
+    moments."""
 
     count: int
     mu: list[torch.Tensor]
@@ -57,31 +67,54 @@ def adam_init(params) -> AdamState:
     return AdamState(0, [torch.zeros_like(p) for p in leaves], [torch.zeros_like(p) for p in leaves])
 
 
-def _bias_correction(decay: float, count: int) -> float:
+def _bias_correction(decay: float, count: int) -> np.float32:
     """``1 - decay**count`` in f32, as optax computes it."""
     one = np.float32(1)
-    return float(one - np.power(np.float32(decay), np.float32(count), dtype=np.float32))
+    return one - np.power(np.float32(decay), np.float32(count), dtype=np.float32)
+
+
+def adam_scalars(lr: float, count: int, n: int) -> np.ndarray:
+    """(n, 3) f32: row j holds ``[lr, 1 - 0.9**c, 1 - 0.999**c]`` for step
+    count ``c = count + j + 1``, the scalars of the n steps that follow a
+    state at ``count``; ``lr`` rounded to f32 as the update applies it."""
+    rows = np.empty((n, 3), dtype=np.float32)
+    rows[:, 0] = np.float32(lr)
+    for j in range(n):
+        rows[j, 1] = _bias_correction(B1, count + j + 1)
+        rows[j, 2] = _bias_correction(B2, count + j + 1)
+    return rows
 
 
 @torch.no_grad()
-def adam_update(params, grads: list[torch.Tensor], state: AdamState, lr: float) -> AdamState:
+def adam_update(params, grads: list[torch.Tensor], state: AdamState, lr) -> AdamState:
     """One Adam step in place: the moments as ``optax.scale_by_adam(0.9,
     0.999, 1e-8)`` updates them, then ``p -= lr * mu_hat / (sqrt(nu_hat) +
     eps)`` for each leaf of ``params``; ``grads`` are in leaf order.
-    Returns the state (its tensors updated in place, the count advanced)."""
+
+    ``lr`` is a float, or a (3,) tensor on the parameters' device: a row of
+    :func:`adam_scalars` (the learning rate and this step's two bias
+    corrections). With a float the step's scalars are made here and the
+    count advances by one; with a row the caller made them from the count
+    and advances it (a captured step runs no host code). Returns the state
+    (its tensors updated in place)."""
     leaves = tree_leaves(params)
-    count = state.count + 1
+    if not isinstance(lr, torch.Tensor):
+        scalars = torch.as_tensor(adam_scalars(lr, state.count, 1)[0], device=leaves[0].device)
+        state.count += 1
+    else:
+        scalars = lr
+    lr_t, bc1, bc2 = scalars[0], scalars[1], scalars[2]
     torch._foreach_mul_(state.mu, B1)
     torch._foreach_add_(state.mu, grads, alpha=1 - B1)
     torch._foreach_mul_(state.nu, B2)
     torch._foreach_addcmul_(state.nu, grads, grads, value=1 - B2)
-    denom = torch._foreach_div(state.nu, _bias_correction(B2, count))
+    denom = torch._foreach_div(state.nu, bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, EPS)
-    update = torch._foreach_div(state.mu, _bias_correction(B1, count))
+    update = torch._foreach_div(state.mu, bc1)
     torch._foreach_div_(update, denom)
-    torch._foreach_add_(leaves, update, alpha=-lr)
-    state.count = count
+    torch._foreach_mul_(update, lr_t)
+    torch._foreach_sub_(leaves, update)
     return state
 
 

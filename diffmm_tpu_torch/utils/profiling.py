@@ -1,18 +1,27 @@
-"""Per-phase wall-clock accounting of the training epoch.
+"""Per-phase wall-clock accounting of the training epoch, and traces.
 
-Counterpart of ``diffmm_tpu/utils/profiling.py`` :class:`PhaseTimer`, with
-its phase names (``neg_sampling``, ``diffusion``, ``rebuild``, ``joint``,
-``eval``). PyTorch returns before the card finishes, so a phase timed on
-the host clock alone measures what was enqueued; ``fence`` waits for the
-card (``torch.cuda.synchronize``) before the phase's clock stops, making
-each phase's time its own at the cost of the overlap between phases. The
-JAX package's trace context (``jax.profiler``) has no counterpart here;
-``chip_smoke.py`` traces with ``torch.profiler``.
+Counterpart of ``diffmm_tpu/utils/profiling.py``:
+
+* :class:`PhaseTimer`, with its phase names (``neg_sampling``,
+  ``diffusion``, ``rebuild``, ``joint``, ``eval``, and ``fused`` for a
+  chunk of epochs). PyTorch returns before the card finishes, so a phase
+  timed on the host clock alone measures what was enqueued; ``fence`` waits
+  for the card (``torch.cuda.synchronize``) before the phase's clock stops,
+  making each phase's time its own at the cost of the overlap between
+  phases. Each phase is also a named range in a trace (:func:`annotate`).
+* :func:`trace` (``--trace-dir``): a ``torch.profiler`` session over the
+  run, CPU and, where there is a card, CUDA activity, written as a Chrome
+  trace (``trace.json``, viewed in Perfetto or ``chrome://tracing``) where
+  the JAX package writes a ``jax.profiler`` trace for TensorBoard.
+* :func:`annotate`: a named range in the trace
+  (``torch.profiler.record_function``); outside a session it records
+  nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -32,7 +41,8 @@ class PhaseTimer:
         wait for it before the clock stops."""
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             if fence is not None and fence.type == "cuda":
                 torch.cuda.synchronize(fence)
@@ -47,3 +57,28 @@ class PhaseTimer:
     def reset(self) -> None:
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def trace(trace_dir: str | None):
+    """A ``torch.profiler`` session written to ``<trace_dir>/trace.json``
+    when the block ends; nothing when ``trace_dir`` is empty."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named range in the profiler's timeline."""
+    with torch.profiler.record_function(name):
+        yield

@@ -442,3 +442,152 @@ def test_backward_launches_on_the_current_stream(cuda):
         got = run()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------- training
+# C1 (ROADMAP.md): the joint step's loss gathers reduce their gradients with
+# K4, so a step repeats bit for bit; the phases' captured CUDA graphs replay
+# the eager steps bit for bit; a fused chunk equals its single epochs.
+
+
+def test_gather_backward_is_k4_and_repeats(cuda):
+    """The gather's backward: one K4 launch, equal to segsum_plain on the
+    same sorted cotangent (K4's tolerance), bitwise across two calls."""
+    from diffmm_tpu_torch.ops.gather import gather, gather_plan
+    from diffmm_tpu_torch.ops.kernels.segsum import LAUNCHES, segsum_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    table = torch.randn((9308, 64), generator=gen, device=cuda).requires_grad_()
+    idx = torch.randint(0, 9308, (1024,), generator=gen, device=cuda).to(torch.int32)
+    idx[:300] = 17  # a segment longer than one 256-edge piece
+    g = torch.randn((1024, 64), generator=gen, device=cuda)
+    plan = gather_plan(idx, 9308)
+    out = gather(table, idx, plan)
+    before = LAUNCHES["segsum"]
+    got = torch.autograd.grad(out, table, g, retain_graph=True)[0]
+    again = torch.autograd.grad(out, table, g)[0]
+    assert LAUNCHES["segsum"] - before == 2
+    want = segsum_plain(g[plan.perm], plan.offsets)
+    scale = segsum_plain(g[plan.perm].abs(), plan.offsets)
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 1e-6 * scale + 1e-6).all())
+    assert torch.equal(out, table.detach()[idx.long()])
+
+
+def _tiny_coach(cuda, form, **train):
+    from diffmm_tpu_torch.config import Config
+    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.train.coach import Coach
+
+    cfg = Config()
+    cfg.base.seed, cfg.base.latdim, cfg.base.denoise_dim = 7, 16, "[64]"
+    cfg.train.batch, cfg.train.test_batch, cfg.train.graph_form = 64, 64, form
+    for key, value in train.items():
+        setattr(cfg.train, key, value)
+    host = make_synthetic_host_data(cfg, user_num=300, item_num=200, density=0.05, seed=5)
+    return Coach(cfg, host, device=cuda)
+
+
+def _snapshot(coach):
+    from diffmm_tpu_torch.utils.checkpoint import rng_state_to_json, to_host
+
+    return to_host(coach._ckpt_arrays()), {
+        "gcn_count": coach.gcn_opt_state.count, "dn_counts": [s.count for s in coach.dn_opt_states],
+        "np_rng": rng_state_to_json(coach.np_rng), "best_snapshot_epoch": -1,
+    }
+
+
+def _state(coach):
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    out = tree_leaves(coach.gcn_params) + tree_leaves(coach.dn_params)
+    for s in (coach.gcn_opt_state, *coach.dn_opt_states):
+        out += s.mu + s.nu
+    return [t.clone() for t in out] + [coach.generator.get_state()]
+
+
+@pytest.mark.parametrize("form", ["dense", "sparse"])
+def test_joint_block_repeats_bitwise(cuda, form):
+    from diffmm_tpu_torch.ops.kernels import launch_counts
+    from diffmm_tpu_torch.train import steps
+
+    coach = _tiny_coach(cuda, form)
+    coach.rebuild_graphs()
+    arrays, aux = _snapshot(coach)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    block = [torch.randint(0, n, (64,), generator=gen, device=cuda).to(torch.int32)
+             for n in (300, 200, 200)]
+    runs = []
+    for _ in range(2):
+        coach._load_state(arrays, aux)
+        before = launch_counts()
+        metrics = steps.joint_block(coach.gcn_params, coach.gcn_opt_state, coach.data.adj,
+                                    coach.modal_adjs, coach.data.raw_feats, *block, 1e-3, coach.hp(),
+                                    coach.config.base.cl_method, generator=coach.generator)
+        torch.cuda.synchronize()
+        runs.append([metrics, *_state(coach)])
+        launched = launch_counts()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    # 19 K4 launches of the loss gathers (M = 3), and the propagations'
+    want = {"segsum": 19 + (0 if form == "dense" else 2 * 12), "spmm_dual": 2 * 7 if form == "dense" else 0}
+    assert {k: launched[k] - before[k] for k in want} == want
+
+
+@pytest.mark.parametrize("form", ["dense", "sparse"])
+def test_graph_replay_equals_eager(cuda, form):
+    """After two epochs (every phase captured), one block of each phase
+    replayed from its graph against the same step run eagerly, from one
+    saved state: parameters, Adam moments, generator and the phase's
+    accumulators or tables, bitwise."""
+    coach = _tiny_coach(cuda, form)
+    coach.total_epochs = 3
+    for epoch in range(2):
+        coach.train_epoch(epoch)
+    arrays, aux = _snapshot(coach)
+    for phase in ("joint", "diffusion", "rebuild"):
+        graph = coach.graphs.find(phase)[0]
+        assert graph.replays > 0
+        inputs = [x.clone() for x in graph.inputs]
+        results = []
+        outputs = [b for key, b in coach.graphs._buffers.items()
+                   if key[0] in ("diffusion_acc", "joint_acc", "rebuild_table")]
+        for run in (graph, graph.step):
+            coach._load_state(arrays, aux)
+            for buf in outputs:
+                buf.zero_()
+            run(*inputs)
+            torch.cuda.synchronize()
+            results.append(_state(coach) + [b.clone() for b in outputs])
+        assert all(torch.equal(a, b) for a, b in zip(*results)), phase
+
+
+@pytest.mark.parametrize("form", ["dense", "sparse"])
+def test_fused_chunk_equals_single_epochs_on_the_card(cuda, form):
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    single = _tiny_coach(cuda, form, tstEpoch=1)
+    fused = _tiny_coach(cuda, form, tstEpoch=1)
+    single.total_epochs = fused.total_epochs = 2
+    want, want_eval = [], []
+    for epoch in range(2):
+        want.append(single.train_epoch(epoch))
+        want_eval.append(single.test_epoch())
+    got, got_eval, _ = fused.train_epochs_fused(0, 2, "test")
+    assert got == want and got_eval == want_eval
+    assert torch.equal(single.generator.get_state(), fused.generator.get_state())
+    for a, b in zip(tree_leaves(single.gcn_params) + single.edge_buffers,
+                    tree_leaves(fused.gcn_params) + fused.edge_buffers):
+        assert torch.equal(a, b)
+
+
+def test_capture_failure_raises(cuda):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, nothing falls back to eager."""
+    from diffmm_tpu_torch.train.graphs import BlockGraph
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    acc = []
+    graph = BlockGraph(lambda x: acc.append(float(x.sum())), gen, torch.cuda.Stream(cuda))
+    with pytest.raises(RuntimeError):
+        graph(torch.ones(4, device=cuda))
+    assert graph.graph is None

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_module_walk_finds_the_training_slice():
     for name in ("diffmm_tpu_torch.cli", "diffmm_tpu_torch.__main__", "diffmm_tpu_torch.train.optim",
                  "diffmm_tpu_torch.train.steps", "diffmm_tpu_torch.data.sampling",
-                 "diffmm_tpu_torch.utils.profiling"):
+                 "diffmm_tpu_torch.utils.profiling", "diffmm_tpu_torch.ops.gather",
+                 "diffmm_tpu_torch.train.graphs", "diffmm_tpu_torch.utils.checkpoint"):
         assert name in MODULES
 
 
@@ -147,20 +148,24 @@ def test_training_path_catches_no_kernel_failure():
     """The training path's source holds no try around anything that reaches
     a kernel: the autograd Functions (``apply``: forward and backward
     launches), the steps and phases, the propagations, the Coach's entry
-    points. The one handler allowed is ``Coach.run``'s for
-    ``KeyboardInterrupt`` (the JAX package's), which no kernel raises."""
+    points, the gather and the captured-graph runner (a failed capture
+    raises, it never falls back to eager). The one handler allowed is
+    ``Coach.run``'s for ``KeyboardInterrupt`` (the JAX package's), which no
+    kernel raises."""
     reaches_a_kernel = {
         "apply", "backward", "grad", "spmm_bi", "spmm_bi_modal_stacked", "gcn_mm", "gcn_forward",
         "diffusion_block", "diffusion_epoch", "joint_block", "joint_epoch", "rebuild_epoch",
         "rebuild_block_tables", "train_epoch", "_joint_phase", "rebuild_graphs", "test_epoch",
         "forward", "run", "build_index", "negative_sampling", "contains", "adam_update",
+        "gather", "run_step", "train_epochs_fused", "_epoch_on_device", "set_edge_buffers",
+        "restore_checkpoint", "_eval_sums", "replay", "step",
     }
     paths = [PKG / "cli.py", PKG / "train" / "coach.py", PKG / "train" / "steps.py",
              PKG / "train" / "optim.py", PKG / "ops" / "graph.py", PKG / "ops" / "losses.py",
              PKG / "data" / "sampling.py", PKG / "data" / "membership.py",
              PKG / "diffusion" / "gaussian.py", PKG / "models" / "gcn.py", PKG / "eval" / "serving.py",
              PKG / "ops" / "kernels" / "spmm_dual.py", PKG / "ops" / "kernels" / "segsum.py",
-             REPO / "chip_smoke.py"]
+             PKG / "ops" / "gather.py", PKG / "train" / "graphs.py", REPO / "chip_smoke.py"]
     for path in paths:
         for name in _calls_inside_try(path, allowed=("KeyboardInterrupt",)):
             assert name not in reaches_a_kernel, f"{path}: {name} inside try"

@@ -44,7 +44,7 @@ from diffmm_tpu_torch.diffusion.schedule import make_schedule as t_sched
 from diffmm_tpu_torch.models.gcn import project_features
 from diffmm_tpu_torch.train import steps as ts
 from diffmm_tpu_torch.train.coach import Coach as TCoach
-from diffmm_tpu_torch.train.optim import tree_leaves, tree_map
+from diffmm_tpu_torch.train.optim import AdamState, tree_leaves, tree_map
 
 SCHED = (0.1, 1e-4, 0.02, 5)
 
@@ -165,7 +165,8 @@ def test_diffusion_epoch_accumulator_quirk(monkeypatch):
     seq = [torch.tensor([1.0, 3.0]), torch.tensor([2.0, 2.0]), torch.tensor([0.0, 0.0])]
     it = iter(seq)
     monkeypatch.setattr(ts, "diffusion_block", lambda *a, **k: next(it))
-    acc = ts.diffusion_epoch(None, [{}, {}], None, {"modal_proj": [], "i_embs": None}, [], None,
+    acc = ts.diffusion_epoch(None, [{}, {}], [AdamState(0, [], []), AdamState(0, [], [])],
+                             {"modal_proj": [], "i_embs": None}, [], None,
                              torch.zeros((3, 4), dtype=torch.int32), torch.ones((3, 4)), 1e-3, {}, 5)
     want = torch.zeros(2)
     for losses in seq:

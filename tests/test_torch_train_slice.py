@@ -6,8 +6,9 @@ the tiktok_mini accuracy band of tests/test_regression_mini.py.
 Asserted: finite losses with the JAX package's keys, the best epoch's
 snapshot (host copies, the epoch of the best Recall), the served index
 equal to the forward of that snapshot, the trajectory fixed by the seed,
-the divergence stop, and the CLI's refusals (no card without ``--device
-cpu``, the slice-4 flags). The accuracy band is the JAX package's own,
+the divergence stop, ``train.epoch_scan`` running its epochs as fused
+chunks, and the CLI's refusals (no card without ``--device cpu``, the
+multi-device flags). The accuracy band is the JAX package's own,
 0.008-0.019 Recall@20 after two epochs (``slow``: two real epochs on the
 CPU).
 """
@@ -124,11 +125,20 @@ def test_run_stops_on_non_finite_losses():
 
 
 def test_epoch_scan_runs_epochs_one_at_a_time():
+    """``train.epoch_scan=2`` runs ``Coach.run`` in fused chunks of two
+    epochs (``train_epochs_fused``), and the last odd epoch alone; 0 is
+    refused."""
     cfg = _config("dense", epoch_scan=2)
     host = make_synthetic_host_data(cfg, user_num=50, item_num=40, seed=3)
     log = _Lines()
-    Coach(cfg, host, device="cpu", log=log).run(epochs=1)
-    assert any("epoch_scan=2" in line for line in log.lines)
+    coach = Coach(cfg, host, device="cpu", log=log)
+    chunks = []
+    fused = coach.train_epochs_fused
+    coach.train_epochs_fused = lambda e, n, s=None: chunks.append((e, n)) or fused(e, n, s)
+    coach.run(epochs=3)
+    assert chunks == [(0, 2)]
+    assert len([line for line in log.lines if "⏩ Train" in line]) == 3
+    assert len([line for line in log.lines if "🧪 Test" in line]) == 3
     cfg.train.epoch_scan = 0
     with pytest.raises(ValueError, match="epoch_scan"):
         Coach(cfg, host, device="cpu", log=log)
@@ -162,7 +172,7 @@ def test_cli_refuses_without_a_card_and_slice_four_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["-c", conf, "--epochs", "1"])
-    for flag in (["--checkpoint-dir", "ck"], ["--mesh", "4x2"], ["--trace-dir", "tr"], ["--distributed"]):
+    for flag in (["--mesh", "4x2"], ["--distributed"]):
         with pytest.raises(NotImplementedError, match="slice 4"):
             cli.main(["-c", conf, "--device", "cpu", *flag])
     assert cli.main(["-c", str(tmp_path / "missing.toml"), "--device", "cpu"]) == 1
