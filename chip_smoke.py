@@ -10,7 +10,8 @@ exit, no result line):
 1. build: every kernel source (``diffmm_tpu_torch/csrc/*.cu``) with one
    ``nvcc`` each, all at once; prints ptxas's register/shared-memory lines.
 2. kernels: each kernel's wrapper on card tensors at the main paths' shapes
-   (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8 and bf16 storage,
+   (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8, bf16 and packed
+   int4 storage (int4 also bitwise against the int8 launch),
    also bitwise across two launches, with its launch plan and scratch, and
    its backward through autograd (``SpmmDual``); K2/K3 ``denoise_mlp`` at
    B 1,024, H 1,024 and I 6,710 and 20,000, on weights prepared once (also
@@ -67,7 +68,26 @@ exit, no result line):
     a replayed epoch).
 14. resume: save after epoch 0, restore into a new Coach, train epoch 1:
     bitwise the twin's uninterrupted epoch 1.
-15. profiles (torch.profiler, after every path's host-clock times): A's
+15. path I (after A): path A with ``train.dense_store="int4"`` (packed
+    blocks, K1's int4 read): edge buffers, embeddings and metrics bitwise
+    A's.
+16. path J (after E): path E with ``train.dense_store="int4"``: its epoch-1
+    loss bitwise E's (K1's int4 plan is its int8 plan), its memory beside
+    E's and the blocks' expected saving, a third epoch, the in-place block
+    rebuild timed beside E's.
+17. path K (after G): path E's data with the KNN ablation (``hyper.
+    use_knn_adj``, knn_topk 10), one epoch: no rebuild, ``rebuild_graphs``
+    refuses, K1 and K4 launches a joint step as counted, the KNN graphs
+    against their plain version (K4 prototypes, top-k outside ties).
+18. path L: path E's data, one epoch each with bf16 denoisers (K2/K3 as in
+    E) and with the bf16 rebuild of a [1024, 1024] denoiser (no K2/K3), on
+    captured graphs, one more epoch of each with no host sync; path G's run
+    at seed 1818 under each of G_KNOBS, Recall@20 recorded.
+19. path M (after resume): path E's index exported, loaded onto the card
+    and served over HTTP (``eval/serve_http.py``) on 127.0.0.1: health,
+    error paths, 200 requests each equal to a direct ``recommend``; their
+    latencies beside the direct calls'.
+20. profiles (torch.profiler, after every path's host-clock times): A's
     and C's rebuild + eval, one more joint phase of E at epoch 1's
     learning rate, replayed from its graph and run eagerly, and one more
     joint phase of F replayed.
@@ -197,17 +217,20 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1818)
     out = {}
 
-    # K1 at tiktok shape: realistic density (the kernel's work is dense)
+    # K1 at tiktok shape: realistic density (the kernel's work is dense);
+    # int8 (the paths' storage), bf16 and packed int4 (two cells a byte)
     U, I, d = TIKTOK["user_num"], TIKTOK["item_num"], 64
     mask = torch.rand((U, I), generator=gen, device=dev) < TIKTOK["density"]
     z_u = torch.randn((U, d), generator=gen, device=dev)
     z_i = torch.randn((I, d), generator=gen, device=dev)
     zu16, zi16 = z_u.to(torch.bfloat16), z_i.to(torch.bfloat16)
     rtol, atol = TOL["spmm_dual"]
-    for store in (torch.int8, torch.bfloat16):
+    int8_y = int8_plan = None
+    for store in (torch.int8, torch.bfloat16, torch.uint8):
+        kind = sd.store_kind(store)
         # the dense adjacency's layout: rows on 16-byte boundaries
         mat = sd.dense_storage(U, I, store, dev)
-        mat.copy_(mask)
+        mat.copy_(sd.pack_int4(mask) if kind == "int4" else mask)
         yu, yi = sd.spmm_dual(mat, z_u, z_i)
         yu2, yi2 = sd.spmm_dual(mat, z_u, z_i)
         pu, pi = sd.spmm_dual_plain(mat, z_u, z_i)
@@ -216,19 +239,23 @@ def phase_kernels(dev) -> dict:
         bitwise = torch.equal(yu, yu2) and torch.equal(yi, yi2)
         ok = (torch.allclose(yu, pu, rtol=rtol, atol=atol) and torch.allclose(yi, pi, rtol=rtol, atol=atol)
               and bitwise)
-        check(ok, f"spmm_dual[{store}] vs plain: max_abs_err {err}, bitwise across launches: {bitwise}")
+        check(ok, f"spmm_dual[{kind}] vs plain: max_abs_err {err}, bitwise across launches: {bitwise}")
         m16 = mask.to(torch.bfloat16)
-        # M and the f32 z the kernel takes read once, the f32 y written once
+        # M (its stored bytes) and the f32 z the kernel takes read once, the
+        # f32 y written once
         n_bytes = mat.numel() * mat.element_size() + (U + I) * d * 4 + (U + I) * d * 4
         b, by = bound_ms(n_bytes, 2 * 2 * U * I * d, BF16_FLOPS)
-        p = sd.plan(U, I, d, store == torch.int8, dev)
+        p = sd.plan(U, I, d, kind, dev)
+        plan_rec = {"cluster": p.cluster, "col_blocks": p.col_blocks, "row_blocks": p.row_blocks,
+                    "rows": p.rows, "groups": p.groups}
         rec = {
             "ok": ok,
+            "store": kind,
             "max_abs_err": err,
             "bitwise_across_launches": bitwise,
-            "plan": {"cluster": p.cluster, "col_blocks": p.col_blocks, "row_blocks": p.row_blocks,
-                     "rows": p.rows, "groups": p.groups},
+            "plan": plan_rec,
             "scratch_bytes": p.partial_bytes(U, I, d),
+            "m_bytes": mat.numel() * mat.element_size(),
             "ms": time_ms(lambda: sd.spmm_dual(mat, z_u, z_i), 50),
             "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, z_u, z_i), 10),
             "bound_ms": b,
@@ -236,11 +263,30 @@ def phase_kernels(dev) -> dict:
             "library_ms": time_ms(lambda: (m16 @ zi16, m16.T @ zu16), 50),
         }
         del m16
-        key = "spmm_dual" if store == torch.int8 else "spmm_dual_bf16"
+        if kind == "int8":
+            int8_y, int8_plan = (yu, yi), plan_rec
+        if kind == "int4":
+            # the same cells and, where the plans agree, the same tiles and
+            # sums as the int8 launch: bitwise; else within TOL
+            same_plan = plan_rec == int8_plan
+            if same_plan:
+                rec["bitwise_vs_int8"] = torch.equal(yu, int8_y[0]) and torch.equal(yi, int8_y[1])
+                ok = ok and rec["bitwise_vs_int8"]
+            else:
+                print(f"[kernels] int4 plan {plan_rec} differs from int8's {int8_plan}: held within TOL")
+                ok = ok and all(torch.allclose(a, b_, rtol=rtol, atol=atol) for a, b_ in zip((yu, yi), int8_y))
+            rec["ok"] = ok
+            rec["same_plan_as_int8"] = same_plan
+            check(ok, f"spmm_dual[int4] vs the int8 launch: {rec}")
+        key = {"int8": "spmm_dual", "bf16": "spmm_dual_bf16", "int4": "spmm_dual_int4"}[kind]
         out[key] = rec
         print(f"[kernels] {key}: {json.dumps(rec)}")
-        if store == torch.int8:  # the paths' storage: the backward too
-            out["spmm_dual_backward"] = _spmm_dual_backward(dev, gen, mat)
+        if kind != "bf16":  # the paths' storage and int4: the backward too
+            # int4's from a stream of its own: the later cases draw from gen
+            # what they drew before the int4 case existed (the parent's data)
+            bw_gen = gen if kind == "int8" else torch.Generator(device=dev).manual_seed(4)
+            out[key + "_backward"] = _spmm_dual_backward(dev, bw_gen, mat, I)
+    del int8_y
 
     out.update(_denoise_cases(dev, gen))
     out.update(_segsum_cases(dev, gen))
@@ -307,7 +353,7 @@ def _gather_backward_cases(dev, gen) -> dict:
     return out
 
 
-def _spmm_dual_backward(dev, gen, mat) -> dict:
+def _spmm_dual_backward(dev, gen, mat, I: int) -> dict:
     """K1's backward through autograd (``SpmmDual``) at the path's shape:
     the cotangents' gradients against the plain version's (the same call
     with the cotangents in place of z), within TOL, bitwise across two
@@ -317,7 +363,7 @@ def _spmm_dual_backward(dev, gen, mat) -> dict:
 
     from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
 
-    (U, I), d = mat.shape, 64
+    U, d = mat.shape[0], 64
     z_u = torch.randn((U, d), generator=gen, device=dev).requires_grad_()
     z_i = torch.randn((I, d), generator=gen, device=dev).requires_grad_()
     g_u = torch.randn((U, d), generator=gen, device=dev)
@@ -337,19 +383,22 @@ def _spmm_dual_backward(dev, gen, mat) -> dict:
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     ok = (all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in zip(got, want)) and bitwise
           and launches == 1)
-    check(ok, f"spmm_dual backward vs plain: max_abs_err {err}, bitwise {bitwise}, launches {launches}")
+    kind = sd.store_kind(mat.dtype)
+    check(ok, f"spmm_dual backward[{kind}] vs plain: max_abs_err {err}, bitwise {bitwise}, "
+              f"launches {launches}")
     g16 = g_u.to(torch.bfloat16), g_i.to(torch.bfloat16)
-    m16 = mat.to(torch.bfloat16)
+    m16 = (sd.unpack_int4(mat, I) if kind == "int4" else mat).to(torch.bfloat16)
     n_bytes = mat.numel() * mat.element_size() + 2 * (U + I) * d * 4
     b, by = bound_ms(n_bytes, 2 * 2 * U * I * d, BF16_FLOPS)
     # ms: the backward's launch alone (the kernel on the cotangents);
     # backward_ms: the whole autograd call, host included
-    rec = {"ok": ok, "shape": [U, I, d], "max_abs_err": err, "bitwise_across_launches": bitwise,
+    rec = {"ok": ok, "store": kind, "shape": [U, I, d], "max_abs_err": err,
+           "bitwise_across_launches": bitwise,
            "launches_per_backward": launches, "backward_ms": time_ms(backward, 50),
            "ms": time_ms(lambda: sd.spmm_dual(mat, g_u, g_i), 50),
            "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, g_u, g_i), 10), "bound_ms": b,
            "bound_by": by, "library_ms": time_ms(lambda: (m16 @ g16[1], m16.T @ g16[0]), 50)}
-    print(f"[kernels] spmm_dual_backward: {json.dumps(rec)}")
+    print(f"[kernels] spmm_dual_backward[{kind}]: {json.dumps(rec)}")
     return rec
 
 
@@ -801,19 +850,34 @@ def _train_step_reference(dev, cfg, form: str) -> dict:
     return rec
 
 
-def joint_step_launches(dense: bool, n_modal: int, cl_method: int) -> dict:
+def joint_step_launches(dense: bool, n_modal: int, cl_method: int, knn: bool = False) -> dict:
     """Kernel launches of one joint step (forward and backward). Dense: K1
     once a propagation each way, M + 4 propagations (M modal, 2 main, 2 in
     the cross-layer CL). Sparse: K4 M + 9 times each way (1 stacked user +
     M item directions, 2 x 2 main, 2 x 2 cross-layer CL). Both forms: K4
     once for the backward of each loss gather: BPR 3, the cross-layer CL
     2 x 2, the modal CL 2 x 2 per modality (cl_method 0) or per pair of
-    modalities (cl_method 1)."""
+    modalities (cl_method 1). The KNN ablation's modality graphs are sparse
+    on both forms and propagate one by one (no stacking): K4 twice each way
+    a modality, K1 (dense) or K4 (sparse) for the 4 main-graph propagations."""
     pairs = n_modal * (n_modal - 1) // 2 if cl_method == 1 else n_modal
     gathers = 3 + 4 + 4 * pairs
+    if knn:
+        modal = 2 * 2 * n_modal
+        if dense:
+            return {"spmm_dual": 2 * 4, "segsum": modal + gathers}
+        return {"spmm_dual": 0, "segsum": modal + 2 * 2 * 4 + gathers}
     if dense:
         return {"spmm_dual": 2 * (n_modal + 4), "segsum": gathers}
     return {"spmm_dual": 0, "segsum": 2 * (n_modal + 9) + gathers}
+
+
+def rebuild_runs_k2k3(cfg) -> bool:
+    """Whether the rebuild runs the denoiser kernels K2/K3: a rebuild (no
+    KNN ablation) in f32 with one hidden layer (``train/steps.py::
+    rebuild_forward``)."""
+    return (not cfg.hyper.use_knn_adj and cfg.train.rebuild_compute == "f32"
+            and len(cfg.base.denoise_dims()) == 1)
 
 
 def _twin(dev, cfg, like):
@@ -1123,13 +1187,13 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
     n_joint = -(-host.nnz // batch)
     n_diff = -(-host.user_num // batch)
     blocks = sum(int(b.shape[0]) for b in coach.rebuild_blocks)
-    want_dn = coach.n_modal * cfg.hyper.steps * blocks * epochs
+    want_dn = coach.n_modal * cfg.hyper.steps * blocks * epochs if rebuild_runs_k2k3(cfg) else 0
     check(launches["denoise_layer1"] == want_dn and launches["denoise_layer2"] == want_dn,
           f"{label} denoise launches {launches}, want {want_dn} each (the rebuilds)")
     # every joint step's launches, replayed steps included (a graph's count
     # a replay times its replays)
-    want = {k: v * n_joint for k, v in
-            joint_step_launches(coach.dense_graphs, coach.n_modal, cfg.base.cl_method).items()}
+    want = {k: v * n_joint for k, v in joint_step_launches(
+        coach.dense_graphs, coach.n_modal, cfg.base.cl_method, coach.knn).items()}
     for e in epochs_rec:
         got = e["joint_launches"]
         check(all(got[k] == v for k, v in want.items()),
@@ -1137,7 +1201,9 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
     graphs = {key[0] + ("" if key[0] != "rebuild" else f"_{key[1]}"):
               {"replays": g.replays, "launches_a_replay": g.launches}
               for key, g in coach.graphs.graphs.items()}
-    check(set(graphs) >= {"diffusion", "rebuild_0", "joint"}, f"{label} graphs {graphs}")
+    want_graphs = {"diffusion", "joint"} | (set() if coach.knn else {"rebuild_0"})
+    check(set(graphs) >= want_graphs and (not coach.knn or "rebuild" not in str(set(graphs))),
+          f"{label} graphs {graphs}")
     rec = {
         "shape": [host.user_num, host.item_num, host.nnz],
         "graph_form": "dense" if coach.dense_graphs else "sparse",
@@ -1195,7 +1261,7 @@ RECALL_BAND = (0.008, 0.019)
 G_SEEDS = tuple(range(1, 10))
 
 
-def _mini_recall(dev, host, seed: int) -> tuple[dict, list]:
+def _mini_recall(dev, host, seed: int, **settings) -> tuple[dict, list]:
     from diffmm_tpu_torch.config import Config
     from diffmm_tpu_torch.train.coach import Coach
 
@@ -1207,6 +1273,9 @@ def _mini_recall(dev, host, seed: int) -> tuple[dict, list]:
     cfg.train.batch = 256
     cfg.train.test_batch = 256
     cfg.train.epoch = 2
+    for name, value in settings.items():
+        section, key = name.split(".")
+        setattr(getattr(cfg, section), key, value)
     coach = Coach(cfg, host, device=dev)
     losses = [coach.train_epoch(epoch) for epoch in range(2)]
     return coach.test_epoch(), losses
@@ -1257,6 +1326,269 @@ def _joint_phase_work(coach, epoch: int, graphed: bool = True):
         users, pos, neg, lr, coach.hp(), cfg.base.cl_method, cfg.train.segsum_compute,
         coach.generator, graphs=None,
     )
+
+
+# ------------------------------------------------------- I-M: the knobs, KNN, HTTP
+def _test_config(**settings):
+    """conf/test.toml (paths A and E) with ``settings`` ({"section.key": value})."""
+    from diffmm_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "conf", "test.toml"))
+    for name, value in settings.items():
+        section, key = name.split(".")
+        setattr(getattr(cfg, section), key, value)
+    return cfg
+
+
+def raises_value_error(fn) -> bool:
+    """Whether ``fn()`` raises ValueError (a refusal, made before any kernel)."""
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
+def _storage_bytes(t) -> int:
+    return t.untyped_storage().nbytes()
+
+
+def phase_path_i(dev, host, coach_a, rec_a) -> dict:
+    """Path I: path A's serving path with ``train.dense_store="int4"``
+    (packed blocks, K1's int4 read), held against path A at int8: edge
+    buffers, embeddings and metrics equal bitwise (the same cells, and K1's
+    int4 plan is its int8 plan)."""
+    import torch
+
+    rec, coach = drive_path(dev, _test_config(**{"train.dense_store": "int4"}), host, "I")
+    check(coach.data.adj.mat.dtype == torch.uint8 and all(a.mat.dtype == torch.uint8 for a in coach.modal_adjs),
+          "I: the blocks are not packed int4")
+    same = {
+        "edge_buffers": _bitwise(coach.edge_buffers, coach_a.edge_buffers),
+        "embeddings": _bitwise(list(coach.forward()), list(coach_a.forward())),
+        "metrics": rec["metrics"] == rec_a["metrics"],
+    }
+    check(all(same.values()), f"I (int4) vs A (int8): {same}")
+    rec["equal_to_A"] = same
+    blocks = [coach.data.adj, *coach.modal_adjs]
+    rec["block_bytes"] = {"int4": sum(_storage_bytes(a.mat) for a in blocks),
+                          "int8": sum(_storage_bytes(a.mat) for a in (coach_a.data.adj, *coach_a.modal_adjs))}
+    print(f"[path I] vs A: {json.dumps(rec['equal_to_A'])}, block bytes {json.dumps(rec['block_bytes'])}")
+    return rec
+
+
+def phase_path_j(dev, host, rec_e, coach_e) -> dict:
+    """Path J: path E's training with ``train.dense_store="int4"``, epochs
+    0 and 1 fenced and test_epoch; its epoch-1 loss held bitwise against
+    E's where K1's int4 and int8 plans agree; its memory beside E's and the
+    blocks' expected saving; one more fenced epoch (the steady rebuild) and
+    the in-place rebuild of the modality blocks (``set_edge_buffers``) timed
+    beside E's."""
+    from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+
+    rec, coach = drive_training(dev, _test_config(**{"train.dense_store": "int4"}), host, "J", epochs=2)
+    U, I, d = host.user_num, host.item_num, coach.config.base.latdim
+    layout = lambda p: (p.cluster, p.col_blocks, p.row_blocks, p.rows, p.groups)  # noqa: E731
+    plans_agree = layout(sd.plan(U, I, d, "int4", dev)) == layout(sd.plan(U, I, d, "int8", dev))
+    losses_j, losses_e = rec["epochs"][1]["losses"], rec_e["epochs"][1]["losses"]
+    if plans_agree:
+        check(losses_j == losses_e, f"J epoch 1 {losses_j} vs E's {losses_e}")
+    else:
+        print("[path J] K1's int4 and int8 plans differ: the losses are not held bitwise")
+    n_blocks = coach.n_modal + 1
+    expected = {"int8": n_blocks * (U + 1) * (-(-I // 16) * 16),
+                "int4": n_blocks * (U + 1) * (-(-I // 32) * 32) // 2}
+    need = lambda r: r["peak_mem_bytes"] - r["held_at_start_bytes"] + r["coach_bytes"]  # noqa: E731
+    rec["vs_E"] = {
+        "plans_agree": plans_agree,
+        "epoch1_losses_equal": losses_j == losses_e,
+        "expected_block_bytes": expected,
+        "expected_saving_bytes": expected["int8"] - expected["int4"],
+        "coach_bytes": {"E": rec_e["coach_bytes"], "J": rec["coach_bytes"]},
+        "coach_and_run_bytes": {"E": need(rec_e), "J": need(rec)},
+        "measured_saving_bytes": {"coach": rec_e["coach_bytes"] - rec["coach_bytes"],
+                                  "coach_and_run": need(rec_e) - need(rec)},
+        "steady_epoch_s": {"E": rec_e["epochs"][1]["wall_s"], "J": rec["epochs"][1]["wall_s"]},
+        # three modality blocks rebuilt in place, ending in a synchronize
+        "set_edge_buffers_ms": {c: time_ms(lambda co=co: co.set_edge_buffers(co.edge_buffers), 10)
+                                for c, co in (("E", coach_e), ("J", coach))},
+    }
+    coach.timer.reset()
+    t0 = time.perf_counter()
+    coach.train_epoch(2, fence=True)
+    rec["epoch2"] = {"wall_s": time.perf_counter() - t0, "phases_s": dict(coach.timer.totals)}
+    print(f"[path J] vs E: {json.dumps(rec['vs_E'])}")
+    del coach
+    return rec
+
+
+def phase_path_k(dev, host) -> dict:
+    """Path K: path E's data with the KNN ablation (``hyper.use_knn_adj``,
+    knn_topk 10), one epoch and test_epoch: no rebuild phase and no rebuild
+    graph, ``rebuild_graphs`` refuses, each joint step launches K1 for the
+    main graph and K4 for the KNN graphs (``joint_step_launches``); then the
+    KNN graphs against the plain version on the card: K4's prototypes within
+    its rule, each user's top-k set equal outside similarity ties (1e-6)."""
+    import torch
+
+    from diffmm_tpu_torch.ops import knn
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+    from diffmm_tpu_torch.ops.losses import l2_normalize
+
+    topk = 10
+    rec, coach = drive_training(dev, _test_config(**{"hyper.use_knn_adj": True, "hyper.knn_topk": topk}),
+                                host, "K", epochs=1)
+    check("rebuild" not in rec["epochs"][0]["phases_s"], f"K ran a rebuild phase: {rec['epochs'][0]}")
+    check(raises_value_error(coach.rebuild_graphs), "K: rebuild_graphs did not refuse")
+    rows, cols, U = coach.data.train_rows, coach.data.train_cols, host.user_num
+    offsets = sg.segment_offsets(rows, U)
+    rtol, atol = TOL["segsum"]
+    checks = []
+    for m, (feats, adj) in enumerate(zip(coach.data.raw_feats, coach.modal_adjs)):
+        feats = feats.to(torch.float32)
+        gathered = feats.index_select(0, cols.long().clamp_max(feats.shape[0] - 1))
+        got = sg.segsum(gathered, offsets)
+        want = sg.segsum_plain(gathered, offsets)
+        scale = sg.segsum_plain(gathered.abs(), offsets)
+        proto_ok = bool(((got - want).abs() <= rtol * scale + atol).all())
+        proto = want / torch.clamp_min(offsets.diff().to(torch.float32), 1.0)[:, None]
+        sim = l2_normalize(proto, dim=1) @ l2_normalize(feats, dim=1).T
+        plain_cols = torch.topk(sim, topk, dim=1).indices
+        _, got_cols = knn.knn_edges(rows, cols, feats, U, topk)
+        got_cols = got_cols.view(U, topk).long()
+        check(torch.equal(adj.ui_cols.view(U, topk).long(), got_cols), f"K modality {m}: graph != knn_edges")
+        kth = sim.gather(1, plain_cols[:, -1:])
+        got_in = torch.zeros_like(sim, dtype=torch.bool).scatter_(1, got_cols, True)
+        want_in = torch.zeros_like(sim, dtype=torch.bool).scatter_(1, plain_cols, True)
+        differ = got_in ^ want_in
+        ties_only = bool(((sim - kth).abs()[differ] <= 1e-6).all())
+        checks.append({"modality": m, "width": int(feats.shape[1]), "prototypes_ok": proto_ok,
+                       "prototype_max_abs_err": max_err(got, want), "edges_differing": int(differ.sum()),
+                       "edges_equal_outside_ties": ties_only})
+        check(proto_ok and ties_only, f"K KNN graph {m} vs plain: {checks[-1]}")
+    rec["knn_checks"] = checks
+    rec["rebuild_graphs_refuses"] = True
+    print(f"[path K] KNN graphs vs plain: {json.dumps(checks)}")
+    del coach
+    return rec
+
+
+# the knobs path G repeats under (its own configuration, seed 1818)
+G_KNOBS = {
+    "bf16_params": {"base.denoise_param_dtype": "bf16"},
+    "bf16_rebuild": {"train.rebuild_compute": "bf16"},
+    "deep_denoiser": {"base.denoise_dim": "[64, 64]"},
+}
+
+
+def phase_path_l(dev, host) -> dict:
+    """Path L: path E's data, one epoch and test_epoch, (1) with bf16
+    denoisers (K2/K3 launch as in E, on the weights widened to f32) and (2)
+    with the bf16 rebuild and a [1024, 1024] denoiser (no K2/K3 launch in
+    the rebuild); each finite, on captured graphs, and one more epoch under
+    ``set_sync_debug_mode("error")``. Then path G's run at seed 1818 under
+    each of G_KNOBS, its Recall@20 recorded against RECALL_BAND."""
+    import torch
+
+    from diffmm_tpu_torch.config import Config
+    from diffmm_tpu_torch.data.loader import load_host_data
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    out = {}
+    for label, settings in (("L1", {"base.denoise_param_dtype": "bf16"}),
+                            ("L2", {"train.rebuild_compute": "bf16", "base.denoise_dim": "[1024, 1024]"})):
+        rec, coach = drive_training(dev, _test_config(**settings), host, label, epochs=1)
+        if label == "L1":
+            check(all(p.dtype == torch.bfloat16 for dn in coach.dn_params for p in tree_leaves(dn)),
+                  "L1: the denoisers are not bf16")
+        rec["settings"] = settings
+        rec["no_sync_epoch_s"] = no_sync_epoch(coach, 1)
+        out[label] = rec
+        print(f"[path {label}] settings {json.dumps(settings)}, no-sync epoch {rec['no_sync_epoch_s']} s")
+        del coach
+    cfg = Config()
+    cfg.data.name = "tiktok_mini"
+    mini = load_host_data(cfg, data_root=os.path.join(REPO, "data"))
+    g = {}
+    for name, settings in G_KNOBS.items():
+        metrics, losses = _mini_recall(dev, mini, 1818, **settings)
+        g[name] = {"settings": settings, "metrics": metrics, "losses": losses,
+                   "in_band": RECALL_BAND[0] <= metrics["Recall"] <= RECALL_BAND[1]}
+    out["G_under_knobs"] = g
+    print(f"[path L] G at seed 1818 under each knob: {json.dumps(g)}")
+    return out
+
+
+def _http_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_path_m(dev, coach_e, report_dir: str) -> dict:
+    """Path M: path E's index exported, loaded onto the card and served over
+    HTTP on 127.0.0.1 (``eval/serve_http.py``, warmup k=20) in a thread:
+    /health, the error paths, and 200 single-user ``/recommend?k=20``
+    requests, each equal to a direct ``recommend`` (ids, scores bitwise);
+    host-clock latencies of the requests (the first one, on a fresh server
+    thread, apart) and of the direct calls (each ending in its host read)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from diffmm_tpu_torch.eval import serve_http, serving
+
+    path = os.path.join(report_dir, "index_E.npz")
+    serving.save_index(serving.build_index(coach_e), path)
+    index = serving.load_index(path)  # onto the card
+    os.remove(path)
+    check(index.u_final.device.type == "cuda", "M: the index is not on the card")
+    U, I = index.u_final.shape[0], index.i_final.shape[0]
+    srv = serve_http.make_server(index, "127.0.0.1", 0, warmup_ks=[20])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    health = _http_get(base + "/health")
+    errors = [_http_get(base + q)[0] for q in
+              ("/recommend", f"/recommend?user={U}&k=20", "/recommend?user=1&k=0", "/nope")]
+    gen = torch.Generator().manual_seed(20)
+    users = torch.randint(0, U, (200,), generator=gen).tolist()
+    http_s, direct_s, same = [], [], []
+    for u in users:
+        t0 = time.perf_counter()
+        code, body = _http_get(base + f"/recommend?user={u}&k=20")
+        http_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ids, scores = serving.recommend(index, torch.tensor([u], dtype=torch.int32, device=dev), 20)
+        ids, scores = ids[0].tolist(), scores[0].tolist()
+        direct_s.append(time.perf_counter() - t0)
+        same.append(code == 200 and body["items"] == ids and body["scores"] == scores)
+    srv.shutdown()
+    srv.server_close()
+    thread.join()
+    pct = lambda xs, q: float(np.percentile(np.asarray(xs) * 1e3, q))  # noqa: E731
+    rec = {
+        "index": [U, I],
+        "health": health[1],
+        "error_codes": errors,
+        "requests": len(users),
+        "all_equal_direct": all(same),
+        "first_request_ms": http_s[0] * 1e3,
+        "http_ms": {"p50": pct(http_s[1:], 50), "p99": pct(http_s[1:], 99)},
+        "direct_ms": {"p50": pct(direct_s, 50), "p99": pct(direct_s, 99)},
+    }
+    print(f"[path M] latency: {json.dumps({k: rec[k] for k in ('first_request_ms', 'http_ms', 'direct_ms')})}")
+    check(health[0] == 200 and health[1] == {"status": "ok", "users": U, "items": I}, f"M health {health}")
+    check(errors == [400, 400, 400, 404], f"M error codes {errors}")
+    check(all(same), f"M: {same.count(False)} responses differ from the direct call")
+    print(f"[path M] {json.dumps(rec)}")
+    return rec
 
 
 # ------------------------------------------------------- C1, graphs, H, resume
@@ -1515,12 +1847,16 @@ def main(argv=None) -> int:
     # every path's host-clock times come before any profiler session: a
     # session raises the host's launch cost for the rest of the process
     report["path_A"], coach_a, host_a = phase_path_a(dev)
+    report["path_I"] = phase_path_i(dev, host_a, coach_a, report["path_A"])
     report["path_B"] = phase_path_b(dev)
     report["path_C"], coach_c, host_c = phase_path_c(dev)
     report["path_D"] = phase_path_d(dev)
     report["path_E"], coach_e = phase_path_e(dev, host_a)
+    report["path_J"] = phase_path_j(dev, host_a, report["path_E"], coach_e)
     report["path_F"], coach_f = phase_path_f(dev, host_c)
     report["path_G"] = phase_path_g(dev)
+    report["path_K"] = phase_path_k(dev, host_a)
+    report["path_L"] = phase_path_l(dev, host_a)
     report["C1"] = phase_c1(dev, coach_e, coach_f, host_a,
                             [e["losses"] for e in report["path_E"]["epochs"]])
     report["graphs"] = phase_graphs(coach_e, coach_f)
@@ -1528,6 +1864,7 @@ def main(argv=None) -> int:
     report["resume"] = phase_resume(dev, host_a, twin, report["path_H"]["single_losses"][1],
                                     args.report_dir)
     del twin
+    report["path_M"] = phase_path_m(dev, coach_e, args.report_dir)
     report["profile_A"] = phase_profile(_rebuild_and_eval(coach_a), "A", args.report_dir)
     report["profile_C"] = phase_profile(_rebuild_and_eval(coach_c), "C", args.report_dir)
     report["profile_E_joint"] = phase_profile(_joint_phase_work(coach_e, 1), "E_joint", args.report_dir)
@@ -1551,7 +1888,9 @@ def main(argv=None) -> int:
                **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}
         if name == "spmm_dual":
-            extra = {"bf16_store": kernels["spmm_dual_bf16"], "backward": kernels["spmm_dual_backward"]}
+            extra = {"bf16_store": kernels["spmm_dual_bf16"], "backward": kernels["spmm_dual_backward"],
+                     "int4_store": kernels["spmm_dual_int4"],
+                     "int4_backward": kernels["spmm_dual_int4_backward"]}
         elif name == "segsum":
             extra = {"cases": {key: rec for key, rec in kernels.items()
                                if key.startswith("segsum_") and key != "segsum_user"}}

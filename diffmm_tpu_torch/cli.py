@@ -44,15 +44,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="epochs between checkpoint saves (the last epoch always saves)")
     parser.add_argument("--trace-dir", default=None,
                         help="write a torch.profiler trace of the run here (trace.json)")
-    parser.add_argument("--mesh", default=None, help="not ported yet (ROADMAP.md A7, slice 4)")
+    parser.add_argument("--mesh", default=None, help="not ported yet (ROADMAP.md A7)")
     parser.add_argument("--distributed", action="store_true",
-                        help="not ported yet (ROADMAP.md A7, slice 4)")
+                        help="not ported yet (ROADMAP.md A7)")
     args = parser.parse_args(argv)
 
     for name in ("mesh", "distributed"):
         if getattr(args, name):
             raise NotImplementedError(
-                f"--{name} is not ported yet (ROADMAP.md A7: multi-device, slice 4)"
+                f"--{name} is not ported yet (ROADMAP.md A7: multi-device)"
             )
     device = resolve_device(args.device)
 

@@ -13,8 +13,8 @@ goes through the ``spmm_dual`` kernel and the sparse form through the
 ``DIFFMM_FEAT_CACHE`` and ``DIFFMM_SYNTH_MODE`` keep their meaning
 (``data/loader.py``).
 
-:func:`check_slice_support` rejects the settings the port cannot honour
-yet, naming the ROADMAP item that brings each.
+:func:`check_slice_support` checks the execution knobs' spellings; every
+setting of the JAX package's schema runs on one device.
 """
 
 from __future__ import annotations
@@ -199,34 +199,21 @@ def apply_overrides(config: Config, overrides: list[str]) -> Config:
 
 
 def check_slice_support(config: Config) -> None:
-    """Raise ``NotImplementedError`` for settings this slice cannot honour.
+    """Raise ``ValueError`` for a spelling of an execution knob that the
+    port does not know; every value the JAX package accepts is ported.
 
-    Each message names the ROADMAP.md item that brings the setting.
-    Validation of the values themselves (unknown spellings) stays with the
-    code that reads them, as in the JAX package."""
-    if config.base.denoise_param_dtype == "bf16":
-        raise NotImplementedError(
-            "base.denoise_param_dtype='bf16' is not ported yet "
-            "(ROADMAP.md A, slice 4: execution knobs)"
-        )
-    if config.train.rebuild_compute == "bf16":
-        raise NotImplementedError(
-            "train.rebuild_compute='bf16' is not ported yet "
-            "(ROADMAP.md A, slice 4: execution knobs)"
-        )
-    if config.train.dense_store == "int4":
-        raise NotImplementedError(
-            "train.dense_store='int4' is not ported yet "
-            "(ROADMAP.md A, slice 4: execution knobs)"
-        )
-    if len(config.base.denoise_dims()) != 1:
-        raise NotImplementedError(
-            "a denoiser with more than one hidden layer is not ported yet: "
-            "the rebuild's denoise_mlp kernels take one hidden layer "
-            "(ROADMAP.md A, slice 4: execution knobs)"
-        )
-    if config.hyper.use_knn_adj:
-        raise NotImplementedError(
-            "hyper.use_knn_adj is not ported yet "
-            "(ROADMAP.md A, slice 4: KNN ablation)"
-        )
+    The knobs: ``base.denoise_param_dtype`` and ``train.rebuild_compute``
+    (f32|bf16) and ``train.dense_store`` (int8|bf16|int4); a denoiser of any
+    depth, ``hyper.use_knn_adj`` and ``train.donate_buffers`` take any
+    value. The other settings' values are checked by the code that reads
+    them, as in the JAX package. Only the CLI's ``--mesh`` and
+    ``--distributed`` still refuse (ROADMAP.md A7)."""
+    for name, allowed in (
+        ("base.denoise_param_dtype", ("f32", "bf16")),
+        ("train.rebuild_compute", ("f32", "bf16")),
+        ("train.dense_store", ("int8", "bf16", "int4")),
+    ):
+        section, key = name.split(".")
+        value = getattr(getattr(config, section), key)
+        if value not in allowed:
+            raise ValueError(f"{name} must be {'|'.join(allowed)}, got {value!r}")

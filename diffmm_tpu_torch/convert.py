@@ -33,15 +33,23 @@ from diffmm_tpu_torch.train.optim import AdamState, tree_leaves
 
 
 def tree_to(tree, device):
-    """A parameter tree (dicts and lists of arrays or tensors) as f32
-    tensors on ``device``, copied."""
+    """A parameter tree (dicts and lists of arrays or tensors) as tensors on
+    ``device``, copied: bf16 leaves stay bf16, bit for bit (a JAX bf16 array
+    reaches numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    rejects, so it goes through a uint16 view), every other leaf becomes
+    f32."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_to(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):
-        return tree.to(device=device, dtype=torch.float32, copy=True)
-    return torch.as_tensor(np.array(tree, dtype=np.float32), device=device)
+        dtype = torch.bfloat16 if tree.dtype == torch.bfloat16 else torch.float32
+        return tree.to(device=device, dtype=dtype, copy=True)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(arr, dtype=np.float32), device=device)
 
 
 def gcn_params_from_jax(gcn_params: dict, device: str | torch.device = "cpu") -> dict:

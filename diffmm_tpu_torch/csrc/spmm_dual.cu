@@ -1,13 +1,25 @@
 // K1: dual-direction dense bipartite propagation in one pass over the 0/1
-// adjacency M (U, I), stored int8 or bf16 with a row stride `ld` (elements)
-// whose bytes are a multiple of 16:
+// adjacency M (U, I), stored int8, bf16 or packed int4 with a row stride `ld`
+// (storage elements) whose bytes are a multiple of 16:
 //
 //     y_u = M  @ bf16(z_i)      (U, D) f32
 //     y_i = Mᵀ @ bf16(z_u)      (I, D) f32
 //
 // z_u (U, D) and z_i (I, D) arrive in f32 and are rounded to bf16 (to
 // nearest even) on chip; products are exact in f32 (M is 0/1, any int8
-// value is exact in bf16) and sums are f32. D is 16, 32 or 64.
+// or int4 value is exact in bf16) and sums are f32. D is 16, 32 or 64.
+//
+// Packed int4 (train.dense_store = "int4"): two cells a byte, cell 2j of a
+// row in the low nibble of byte j and cell 2j + 1 in its high nibble, each a
+// signed 4-bit integer; rows of ld bytes. The tensor map reads it as bytes
+// (boxes of 128 rows x 32 bytes: the 64 cells of a sub-tile), so the ring's
+// slots are half the int8 ones and it holds twelve; each landed slot is
+// converted once into the same swizzled bf16 tile as int8's (nibble n -> the
+// f32 2^23 + (n ^ 8), minus 2^23 + 8, exact), and everything after the
+// conversion is the int8 path's: on the same M with the same plan (the same
+// shared memory, so the same cluster size and row blocks), y is bitwise
+// int8's. Its bound at tiktok shape: 31.3 MB of M + 8.2 MB of z and y, 11.8
+// us at 3.35 TB/s, under the 16.2 us of its bf16 products.
 //
 // Replaces diffmm_tpu/ops/pallas/spmm_dual.py::_dual_kernel (called from
 // _dual_call). On the TPU the grid walks U row-blocks in order and y_i
@@ -79,9 +91,24 @@ constexpr int kRing = 48 * 1024; // bytes of the M ring
 constexpr int kMaxCluster = 8;
 constexpr int kXRows = 136;      // rows of an exchange buffer: cs * ceil(128 / cs) <= 133
 
+// M's storage types: int8_t, bf16 and Int4x2 (packed int4, two cells a
+// byte); kBits a cell, kCells cells a storage element (what the tensor map
+// counts in)
+struct Int4x2 {};
+template <typename MT>
+struct Store {
+  static constexpr int kBits = 8 * (int)sizeof(MT);
+  static constexpr int kCells = 1;
+};
+template <>
+struct Store<Int4x2> {
+  static constexpr int kBits = 4;
+  static constexpr int kCells = 2;
+};
+
 template <int D, typename MT>
 struct Cfg {
-  static constexpr int kSlot = kBU * kBI * (int)sizeof(MT);
+  static constexpr int kSlot = kBU * kBI * Store<MT>::kBits / 8;
   static constexpr int kStages = kRing / kSlot;
   static constexpr int kTile = kBU * kBI * 2;  // a bf16 sub-tile
   static constexpr int kZBlk = D * 128;        // 64 rows of a transposed z: D rows of 128 bytes
@@ -263,6 +290,21 @@ __device__ __forceinline__ void cvt_chunk(uint4 v, uint4& lo, uint4& hi) {
   hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
+// 8 int4 -> 8 bf16, exact: nibble k of w is cell k; with its sign bit
+// flipped a nibble n becomes the f32 2^23 + (n ^ 8) (bits 0x4B00000x), minus
+// 2^23 + 8
+__device__ __forceinline__ uint4 cvt_nibbles(uint32_t w) {
+  w ^= 0x88888888u;
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float lo = __uint_as_float(0x4B000000u | ((w >> (8 * k)) & 0xFu)) - 8388616.0f;
+    const float hi = __uint_as_float(0x4B000000u | ((w >> (8 * k + 4)) & 0xFu)) - 8388616.0f;
+    o[k] = pack_bf16(lo, hi);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
 // byte offset of element (row, col) in a tile of 128-byte rows with the
 // 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)); col in bf16
 __device__ __forceinline__ uint32_t swz(int row, int col) {
@@ -384,8 +426,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int slot = t % S;
     const uint32_t bar_t = smem_u32(&full[slot]);
     mbar_expect_tx(bar_t, C::kSlot);
-    tma_2d(base + C::OFF_RING + slot * C::kSlot, &mmap, i0 + (t % nj) * kBI, u0 + (t / nj) * kBU,
-           bar_t);
+    tma_2d(base + C::OFF_RING + slot * C::kSlot, &mmap, (i0 + (t % nj) * kBI) / Store<MT>::kCells,
+           u0 + (t / nj) * kBU, bar_t);
   };
   if (tid == 0)
     for (int t = 0; t < min(total, S); ++t) issue(t);
@@ -490,7 +532,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int k = 0; k < kChunks / kThreads; ++k) {
             const int e = tid + k * kThreads;
             const uint4 v = reinterpret_cast<const uint4*>(src)[e];
-            if (sizeof(MT) == 1) {
+            if constexpr (Store<MT>::kBits == 4) {
+              const int row = e / 2, col = (e % 2) * 32;
+              *reinterpret_cast<uint4*>(dst + swz(row, col)) = cvt_nibbles(v.x);
+              *reinterpret_cast<uint4*>(dst + swz(row, col + 8)) = cvt_nibbles(v.y);
+              *reinterpret_cast<uint4*>(dst + swz(row, col + 16)) = cvt_nibbles(v.z);
+              *reinterpret_cast<uint4*>(dst + swz(row, col + 24)) = cvt_nibbles(v.w);
+            } else if constexpr (Store<MT>::kBits == 8) {
               const int row = e / 4, col = (e % 4) * 16;
               uint4 lo, hi;
               cvt_chunk(v, lo, hi);
@@ -712,9 +760,11 @@ cudaError_t launch(const void* mat, long long ld, const void* zu, const void* zi
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap mmap;
-  const bool i8 = sizeof(MT) == 1;
-  if (!make_map(&mmap, i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, mat,
-                U, I, ld * (long long)sizeof(MT), kBU, kBI))
+  // one storage element: a byte (int8, or two int4 cells) or a bf16
+  constexpr int kCells = Store<MT>::kCells;
+  constexpr int kElem = Store<MT>::kBits * kCells / 8;
+  if (!make_map(&mmap, kElem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                mat, U, cdiv(I, kCells), ld * kElem, kBU, kBI / kCells))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = config(dim3(p[1], p[2]), p[0], C::SMEM, stream, p[4] > 1 || p[2] > 1, attr);
@@ -727,54 +777,72 @@ cudaError_t launch(const void* mat, long long ld, const void* zu, const void* zi
   return cudaGetLastError();
 }
 
+// the instances for the storage kind: 0 bf16, 1 int8, 2 packed int4
+template <int D>
+cudaError_t plan_kind(int kind, int U, int I, int n_sm, int* out) {
+  switch (kind) {
+    case 0: return plan<D, bf16>(U, I, n_sm, out);
+    case 1: return plan<D, int8_t>(U, I, n_sm, out);
+    case 2: return plan<D, Int4x2>(U, I, n_sm, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t launch_kind(int kind, const void* mat, long long ld, const void* zu, const void* zi,
+                        void* yu, void* yi, void* pu, void* pi, void* ctr, int U, int I,
+                        const int* p, cudaStream_t stream) {
+  switch (kind) {
+    case 0: return launch<D, bf16>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, p, stream);
+    case 1: return launch<D, int8_t>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, p, stream);
+    case 2: return launch<D, Int4x2>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// The launch plan for (U, I, D) and the storage type on a card of n_sm SMs:
-// out[0..6] = cluster size, column blocks (a multiple of it), row blocks R,
-// U rows a row block owns, cluster groups G along I, 128-row strips of U,
-// I columns a column block owns.
+// The launch plan for (U, I, D) and the storage kind (0 bf16, 1 int8, 2
+// packed int4) on a card of n_sm SMs: out[0..6] = cluster size, column
+// blocks (a multiple of it), row blocks R, U rows a row block owns, cluster
+// groups G along I, 128-row strips of U, I columns a column block owns.
 // Returns a cudaError_t (cudaErrorInvalidValue for an unsupported D).
-int spmm_dual_plan(int U, int I, int D, int mat_is_int8, int n_sm, int* out) {
+int spmm_dual_plan(int U, int I, int D, int mat_kind, int n_sm, int* out) {
   if (U <= 0 || I <= 0 || n_sm <= 0) return (int)cudaErrorInvalidValue;
-  switch (D * 2 + (mat_is_int8 ? 1 : 0)) {
-    case 33: return (int)plan<16, int8_t>(U, I, n_sm, out);
-    case 32: return (int)plan<16, bf16>(U, I, n_sm, out);
-    case 65: return (int)plan<32, int8_t>(U, I, n_sm, out);
-    case 64: return (int)plan<32, bf16>(U, I, n_sm, out);
-    case 129: return (int)plan<64, int8_t>(U, I, n_sm, out);
-    case 128: return (int)plan<64, bf16>(U, I, n_sm, out);
+  switch (D) {
+    case 16: return (int)plan_kind<16>(mat_kind, U, I, n_sm, out);
+    case 32: return (int)plan_kind<32>(mat_kind, U, I, n_sm, out);
+    case 64: return (int)plan_kind<64>(mat_kind, U, I, n_sm, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The widest I one launch takes on a card of n_sm SMs (clusters of one
 // block, one wave); 0 with an error.
-int spmm_dual_max_items(int D, int mat_is_int8, int n_sm) {
+int spmm_dual_max_items(int D, int mat_kind, int n_sm) {
   int out[7];
   for (int cols = n_sm; cols > 0; --cols)
-    if (spmm_dual_plan(1, cols * kSI, D, mat_is_int8, n_sm, out) == 0) return cols * kSI;
+    if (spmm_dual_plan(1, cols * kSI, D, mat_kind, n_sm, out) == 0) return cols * kSI;
   return 0;
 }
 
-// (y_u, y_i) = (M @ bf16(z_i), Mᵀ @ bf16(z_u)). mat: (U, I) int8
-// (mat_is_int8 = 1) or bf16, row stride ld elements (ld * itemsize a multiple
-// of 16, mat 16-byte aligned); zu (U, D), zi (I, D) f32, contiguous, 16-byte
-// aligned; yu (U, D), yi (I, D) f32; pu (G, U, D) when G > 1 and pi (R, I, D)
-// when R > 1, f32 scratch; ctr the barrier's words; plan from spmm_dual_plan
-// for the same U, I, D and type.
-int spmm_dual_forward(const void* mat, int mat_is_int8, long long ld, const void* zu,
+// (y_u, y_i) = (M @ bf16(z_i), Mᵀ @ bf16(z_u)). mat: (U, I) bf16 (mat_kind
+// 0), int8 (1) or packed int4 (2: (U, ceil(I / 2)) bytes, see the top of the
+// file), row stride ld storage elements (its bytes a multiple of 16, mat
+// 16-byte aligned); zu (U, D), zi (I, D) f32, contiguous, 16-byte aligned;
+// yu (U, D), yi (I, D) f32; pu (G, U, D) when G > 1 and pi (R, I, D) when R
+// > 1, f32 scratch; ctr the barrier's words; plan from spmm_dual_plan for the
+// same U, I, D and kind.
+int spmm_dual_forward(const void* mat, int mat_kind, long long ld, const void* zu,
                       const void* zi, void* yu, void* yi, void* pu, void* pi, void* ctr, int U,
                       int I, int D, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D * 2 + (mat_is_int8 ? 1 : 0)) {
-    case 33: return (int)launch<16, int8_t>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
-    case 32: return (int)launch<16, bf16>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
-    case 65: return (int)launch<32, int8_t>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
-    case 64: return (int)launch<32, bf16>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
-    case 129: return (int)launch<64, int8_t>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
-    case 128: return (int)launch<64, bf16>(mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
+  switch (D) {
+    case 16: return (int)launch_kind<16>(mat_kind, mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
+    case 32: return (int)launch_kind<32>(mat_kind, mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
+    case 64: return (int)launch_kind<64>(mat_kind, mat, ld, zu, zi, yu, yi, pu, pi, ctr, U, I, plan, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

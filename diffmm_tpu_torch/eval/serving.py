@@ -5,8 +5,10 @@ final GCN embeddings with the train-seen lists as user-major CSR (O(nnz)),
 then answer per-user top-k queries with one matmul and an exact top-k, seen
 items masked like eval (reference `Main.py:410`). The npz format is the
 same, so an index exported by either package loads in the other. The JAX
-package's compile lock and ``approx`` top-k have no counterpart here; the
-mesh-sharded index comes with the multi-device slice.
+package's compile lock and ``approx`` top-k have no counterpart here (a
+request compiles nothing; :func:`warmup` runs each k once, so cuBLAS's
+and the allocator's first-use costs fall before the first request); the
+mesh-sharded index comes with the multi-device slice (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -67,6 +69,21 @@ def recommend(
         scores[rows[keep], seen[keep]] = -1e9
     top_scores, top_ids = torch.topk(scores, k_pad, dim=1, sorted=True)
     return top_ids[:, :k].to(torch.int32), top_scores[:, :k]
+
+
+def warmup(index: RecIndex, ks: list[int] | None = None) -> None:
+    """Run :func:`recommend` once for each ``k`` (default 20) and both mask
+    modes on a single-user request and wait for the card (JAX ``warmup``,
+    which compiles the variants): the first request of each k pays no
+    first-use cost of its own. A new host thread still pays for its cuBLAS
+    handle on its first product, which a warmup on another thread cannot
+    cover."""
+    users = torch.zeros((1,), dtype=torch.int32, device=index.u_final.device)
+    for k in ks or [20]:
+        for mask_seen in (True, False):
+            recommend(index, users, k, mask_seen)
+    if index.u_final.device.type == "cuda":
+        torch.cuda.synchronize(index.u_final.device)
 
 
 def seen_csr_from_edges(

@@ -75,28 +75,50 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
     return emb
 
 
+def _linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """``x @ w + b`` in the type JAX promotes the operands to (f32 with
+    bf16 weights widens the weights exactly, as ``jnp.matmul`` does; bf16
+    with bf16 stays bf16, f32 accumulation on the card)."""
+    w, b = layer["w"], layer["b"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt) + b
+
+
 def denoise_forward(
     params: Params,
     x_t: torch.Tensor,
     timesteps: torch.Tensor,
     modal_feat: torch.Tensor | None = None,
+    compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Predict x0 from x_t (reference `Model.py:183-220`), in f32.
+    """Predict x0 from x_t (reference `Model.py:183-220`).
 
     ``modal_feat`` (I, latdim) enables the modality gating of diffusion
-    training; reverse sampling passes None."""
+    training; reverse sampling passes None. ``compute_dtype`` (JAX
+    ``compute_dtype``, e.g. bf16 for ``train.rebuild_compute="bf16"``)
+    casts x_t, the time embedding and the features, so the MLP's products
+    run in that type; the weights are not cast here (pass them in that type,
+    cast once per rebuild), and the time embedding's projection stays in
+    the weights' promoted type and is cast after it. Without it the forward
+    runs in x_t's type, bf16 weights widened (``base.denoise_param_dtype=
+    "bf16"``: gradients reach them rounded back to bf16, as JAX's do)."""
     emb = timestep_embedding(timesteps, params["emb"]["w"].shape[0])
-    time_emb = emb @ params["emb"]["w"] + params["emb"]["b"]
+    time_emb = _linear(emb, params["emb"])
+    if compute_dtype is not None:
+        x_t = x_t.to(compute_dtype)
+        time_emb = time_emb.to(compute_dtype)
+        if modal_feat is not None:
+            modal_feat = modal_feat.to(compute_dtype)
     if modal_feat is not None:
         projected = x_t @ modal_feat
-        gate = torch.sigmoid(projected @ params["gate"]["w"] + params["gate"]["b"])
+        gate = torch.sigmoid(_linear(projected, params["gate"]))
         x_t = x_t + (projected * gate) @ modal_feat.T
     h = torch.cat([x_t, time_emb], dim=-1)
     for layer in params["in_layers"]:
-        h = torch.tanh(h @ layer["w"] + layer["b"])
+        h = torch.tanh(_linear(h, layer))
     n_out = len(params["out_layers"])
     for i, layer in enumerate(params["out_layers"]):
-        h = h @ layer["w"] + layer["b"]
+        h = _linear(h, layer)
         if i != n_out - 1:
             h = torch.tanh(h)
     return h

@@ -11,10 +11,13 @@ propagate ``[u_embs ; i_embs]`` once over the main graph, mix, fuse with the
 softmax modality weights, then one more hop with the residual quirk
 ``final = (1 + rw) * (fused + A@fused)`` (the reference's in-place chain
 aliases ``modal_embs``, `Model.py:129-131`). On the sparse form with more
-than one modality the modal loop always runs stacked
-(``ops/graph.py::spmm_bi_modal_stacked``): ``train.stack_modal``, the JAX
-package's opt-out from a gate it measured on the TPU, is read and ignored
-(``train/coach.py``). ``segsum_compute`` sets the messages' type. The JAX
+than one modality the modal loop runs stacked
+(``ops/graph.py::spmm_bi_modal_stacked``) when the modality graphs share one
+rows tensor, as the rebuilt ones share the train rows; the KNN ablation's
+graphs, laid out per user and k, each have their own and propagate one by
+one, as the JAX package keeps them off its stacked path.
+``train.stack_modal``, the JAX package's opt-out from a gate it measured on
+the TPU, is read and ignored (``train/coach.py``). ``segsum_compute`` sets the messages' type. The JAX
 function's static plans have no counterpart (the K4 kernel needs none).
 """
 
@@ -103,7 +106,8 @@ def gcn_mm(
     weight = torch.softmax(params["modal_weight"], dim=0)
 
     feats_n = [l2_normalize(f, dim=1) for f in feats]
-    if len(modal_adjs) > 1 and isinstance(modal_adjs[0], BiAdj):
+    rows = modal_adjs[0].ui_rows if modal_adjs and isinstance(modal_adjs[0], BiAdj) else None
+    if len(modal_adjs) > 1 and rows is not None and all(a.ui_rows is rows for a in modal_adjs):
         modal_u, modal_i = spmm_bi_modal_stacked(modal_adjs, u_embs, feats_n, segsum_compute)
     else:
         modal_u, modal_i = [], []

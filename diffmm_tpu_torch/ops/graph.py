@@ -5,7 +5,7 @@ bipartite adjacency ``D^-1/2 (A + I) D^-1/2`` over the (user, item) nodes
 (reference `DataHandler.py:68-93`) with the self-loop folded analytically,
 ``y = s * (A (s * x)) + s^2 * x``. The 0/1 block A is held either
 
-* dense (:class:`DenseBiAdj`): a (U, I) int8 or bf16 matrix; both
+* dense (:class:`DenseBiAdj`): a (U, I) int8, bf16 or packed int4 matrix; both
   propagation directions go through the ``spmm_dual`` kernel (K1) on the
   card, with bf16 operands and f32 accumulation as in the JAX package; or
 * sparse (:class:`BiAdj`): the edges sorted user-major plus a permutation
@@ -39,7 +39,9 @@ class DenseBiAdj(NamedTuple):
 
     Attributes:
       mat: (U, I) 0/1 interaction matrix (no normalisation folded in),
-        stored int8 or bf16 (``train.dense_store``).
+        stored int8 or bf16, or packed int4 as (U, ceil(I / 2)) uint8
+        (``train.dense_store``; ``ops/kernels/spmm_dual.py`` gives the
+        nibble order).
       s_user: (U,) f32 ``(deg_u + 1)^-1/2``.
       s_item: (I,) f32 ``(deg_i + 1)^-1/2``.
     """
@@ -50,11 +52,11 @@ class DenseBiAdj(NamedTuple):
 
     @property
     def user_num(self) -> int:
-        return self.mat.shape[0]
+        return self.s_user.shape[0]
 
     @property
     def item_num(self) -> int:
-        return self.mat.shape[1]
+        return self.s_item.shape[0]
 
 
 class BiAdj(NamedTuple):
@@ -110,27 +112,42 @@ def build_dense_bi_adj_device(
 ) -> DenseBiAdj:
     """Dense-form adjacency from (possibly sentinel-padded) device edges,
     into ``out`` in place when given (a captured graph that reads ``out``
-    then reads the new graph).
+    then reads the new graph). ``store_dtype`` int8, bf16, or uint8 for
+    packed int4 (``ops/kernels/spmm_dual.py``).
 
     The JAX package drops the sentinel pad edges ``(user_num, item_num)``
     with ``mode="drop"`` in its scatter and degree sums. Here nothing is
     filtered (a filter's output size depends on the data, and the card
-    would have to report it to the host): each pad edge writes its 1 into
-    the spare row of :func:`dense_storage`, which nothing reads, and adds
-    its count to an extra degree slot that is cut off. Edges are unique (one
-    per train interaction or per rebuilt top-k slot), so the degrees count
-    them; integer counts in f32 are exact in any order of adds."""
+    would have to report it to the host): each pad edge writes into the
+    spare row of :func:`dense_storage`, which nothing reads, and adds its
+    count to an extra degree slot that is cut off. Edges are unique (one per
+    train interaction or per rebuilt top-k slot), so the degrees count
+    them; integer counts in f32 are exact in any order of adds.
+
+    Packed int4 is built in place with no (U, I) transient: each edge adds
+    ``1 << 4 * (col % 2)`` to its byte (``index_add_``). Two edges of one
+    user can share a byte; the edges are unique, so the adds set distinct
+    nibbles, and integer adds give the same byte in any order: the build is
+    deterministic (the JAX package scatters at int8 and narrows,
+    ``diffmm_tpu/ops/graph.py:291-297``; the port's extra memory is the
+    O(nnz) index and value vectors)."""
     rows, cols = ui_rows.long(), ui_cols.long()
     pad = (rows >= user_num) | (cols >= item_num)
     rows = torch.where(pad, user_num, rows)
     cols = torch.where(pad, item_num, cols)
     dev = ui_rows.device
     # rows on 16-byte boundaries, so the spmm_dual kernel reads them in
-    # 16-byte vectors (a (U, I) view of padded storage)
-    mat = dense_storage(user_num, item_num, store_dtype, dev) if out is None else out.mat.zero_()
+    # 16-byte vectors (a (U, I) view of padded storage, the spare row past it)
+    mat = dense_storage(user_num, item_num, store_dtype, dev) if out is None else out.mat
     ld = mat.stride(0)
     flat = mat.as_strided((user_num + 1, ld), (ld, 1)).view(-1)
-    flat.index_fill_(0, rows * ld + torch.where(pad, 0, cols), 1)
+    flat.zero_()
+    col = torch.where(pad, 0, cols)
+    if store_dtype == torch.uint8:
+        nibble = torch.where(col % 2 == 0, 1, 16).to(torch.uint8)
+        flat.index_add_(0, rows * ld + col // 2, nibble)
+    else:
+        flat.index_fill_(0, rows * ld + col, 1)
     ones = torch.ones(rows.shape[0], dtype=torch.float32, device=dev)
     deg_u = torch.zeros(user_num + 1, dtype=torch.float32, device=dev).index_add_(0, rows, ones)
     deg_i = torch.zeros(item_num + 1, dtype=torch.float32, device=dev).index_add_(0, cols, ones)

@@ -250,7 +250,8 @@ def prepare_denoiser(params) -> PreparedDenoiser:
     if len(params["in_layers"]) != 1 or len(params["out_layers"]) != 1:
         raise NotImplementedError(
             "the denoise_mlp kernels take a single hidden layer; a deeper "
-            "denoiser is ROADMAP.md A4 (execution knobs, part 2)"
+            "denoiser's rebuild runs the plain f32 forward instead "
+            "(train/steps.py::rebuild_forward, ROADMAP.md A4)"
         )
     w1 = params["in_layers"][0]["w"]  # (I + d_emb, H)
     item_num = w1.shape[0] - params["emb"]["w"].shape[0]

@@ -12,8 +12,10 @@ phase-2 rebuild as :meth:`Coach.rebuild_graphs`, ``test_epoch``
 1296-1341), ``reset`` (486-492), the fused multi-epoch chunks
 (``train_epochs_fused``, ``_fused_eval_blocks``, ``_capture_best_from``,
 ``_chunk_size``, 976-1229), the checkpoints (``_ckpt_arrays``,
-``save_checkpoint``, ``restore_checkpoint``, 1343-1447) and the epoch loop
-with resume and periodic saves (``make_print``, ``run``, 1450-1587).
+``save_checkpoint``, ``restore_checkpoint``, 1343-1447), the epoch loop
+with resume and periodic saves (``make_print``, ``run``, 1450-1587), and
+the KNN ablation's graphs (``_knn_adjs``, 719-733, and its branches in the
+epoch, the fused path, the best epoch and the checkpoints).
 
 On the card each phase's per-block step is a captured CUDA graph, replayed
 for every block (``train/graphs.py``, ``self.graphs``), the counterpart of
@@ -27,8 +29,13 @@ once as it starts and reads its results once as it ends; a fused chunk of
 eval of each ``tstEpoch`` boundary and the best epoch's state kept on the
 card between.
 
-Left to ROADMAP.md A: the mesh, the KNN ablation and the execution knobs
-that ``config.check_slice_support`` refuses.
+The execution knobs: ``base.denoise_param_dtype="bf16"`` stores the
+denoisers and their Adam moments in bf16 (``train/optim.py``);
+``train.rebuild_compute`` and the denoiser's depth choose the rebuild's
+forward (``train/steps.py::rebuild_forward``); ``train.dense_store="int4"``
+packs the dense blocks two cells a byte, which K1 reads;
+``train.donate_buffers`` is accepted and changes nothing (the port updates
+its state in place already). Left to ROADMAP.md A7: the mesh.
 
 Random draws come from one ``torch.Generator`` on the Coach's device
 (parameter init, negatives, diffusion timesteps and noise, the rebuild's
@@ -80,7 +87,10 @@ from diffmm_tpu_torch.utils.profiling import PhaseTimer
 DENSE_GRAPH_BUDGET_BYTES = 4 << 30
 _DENSE_BUDGET_HBM_FRACTION = 0.6
 
-_DENSE_STORES = {"int8": (torch.int8, 1.0), "bf16": (torch.bfloat16, 2.0)}
+# train.dense_store -> (storage type, bytes a cell); a uint8 block is packed
+# int4, two cells a byte (ops/kernels/spmm_dual.py)
+_DENSE_STORES = {"int8": (torch.int8, 1.0), "bf16": (torch.bfloat16, 2.0), "int4": (torch.uint8, 0.5)}
+_PARAM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 _LOSS_NAMES = {"image": "image loss", "text": "text loss", "audio": "audio loss"}
 
@@ -173,11 +183,14 @@ class Coach:
                 raise ValueError(f"{name} must be {'|'.join(allowed)}, got {value!r}")
         if config.train.epoch_scan < 1:
             raise ValueError(f"train.epoch_scan must be >= 1, got {config.train.epoch_scan}")
+        # bf16 denoisers with their Adam moments (JAX coach.py:422-441); K2/K3
+        # take them widened to f32 (train/steps.py::rebuild_forward), so the
+        # JAX package's refusal for its Pallas kernel's f32 VMEM plan has no
+        # counterpart here
+        self.dn_dtype = _PARAM_DTYPES[config.base.denoise_param_dtype]
+        # the KNN ablation's modality graphs replace the rebuild
+        self.knn = bool(config.hyper.use_knn_adj)
 
-        if config.train.dense_store not in _DENSE_STORES:
-            raise ValueError(
-                f"train.dense_store must be int8|bf16|int4, got {config.train.dense_store!r}"
-            )
         self.dense_store_dtype, bytes_per_cell = _DENSE_STORES[config.train.dense_store]
         budget = DENSE_GRAPH_BUDGET_BYTES
         if config.train.graph_form == "auto":
@@ -190,6 +203,7 @@ class Coach:
                         self.n_modal, host.user_num, host.item_num,
                         config.base.latdim, config.base.denoise_dims(),
                         config.base.d_emb_size, host.feat_dims,
+                        param_bytes=self.dn_dtype.itemsize,
                     ),
                 )
         self.dense_graphs = choose_graph_form(
@@ -295,10 +309,10 @@ class Coach:
             host.feat_dims, self.device,
         )
         self.dn_params = [
-            init_denoise_params(
+            tree_map(lambda a: a.to(self.dn_dtype), init_denoise_params(
                 self.generator, host.item_num, cfg.base.denoise_dims(),
                 cfg.base.d_emb_size, cfg.base.latdim, self.device,
-            )
+            ))
             for _ in range(self.n_modal)
         ]
         self.gcn_opt_state = adam_init(self.gcn_params)
@@ -334,14 +348,18 @@ class Coach:
         fresh Adam states otherwise. Drops any rebuilt graphs and captured
         steps."""
         self.gcn_params = tree_to(gcn_params, self.device)
-        self.dn_params = tree_to(list(dn_params), self.device)
+        self.dn_params = [tree_map(lambda a: a.to(self.dn_dtype), p)
+                          for p in tree_to(list(dn_params), self.device)]
         if len(self.dn_params) != self.n_modal:
             raise ValueError(f"expected {self.n_modal} denoisers, got {len(self.dn_params)}")
 
         def state_to(state, params):
             if state is None:
                 return adam_init(params)
-            return AdamState(state.count, tree_to(state.mu, self.device), tree_to(state.nu, self.device))
+            # the moments in their parameters' types, as optax's zeros_like
+            mu, nu = ([m.to(p.dtype) for m, p in zip(tree_to(ms, self.device), tree_leaves(params))]
+                      for ms in (state.mu, state.nu))
+            return AdamState(state.count, mu, nu)
 
         self.gcn_opt_state = state_to(gcn_opt_state, self.gcn_params)
         dn_opt_states = dn_opt_states or [None] * self.n_modal
@@ -374,6 +392,16 @@ class Coach:
                 rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype, out=out
             )
         return build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num, out=out)
+
+    def _knn_adjs(self) -> list:
+        """The KNN ablation's modality graphs (JAX ``_knn_adjs``; reference
+        `Main.py:118-134`): a function of the features and the train edges
+        only, built once a run."""
+        from diffmm_tpu_torch.ops.knn import build_knn_adj
+
+        return [build_knn_adj(self.data.train_rows, self.data.train_cols, feats, self.host.user_num,
+                              self.host.item_num, self.config.hyper.knn_topk)
+                for feats in self.data.raw_feats]
 
     def set_edge_buffers(self, buffers: list[torch.Tensor]) -> None:
         """Take ``buffers`` (one CSR edge buffer a modality, on this device)
@@ -437,9 +465,14 @@ class Coach:
                 data.raw_feats, data.train_store, tables["users"], self._diff_weights,
                 tables["dn_scalars"], hp, self.host.item_num, self.generator, self.graphs,
             )
-        # phase 2: modality graph rebuild (reference Main.py:195-253)
-        with self.timer.phase("rebuild", fence_dev):
-            self.rebuild_graphs()
+        # phase 2: modality graph rebuild (reference Main.py:195-253), or the
+        # KNN ablation's graphs, built once a run (Main.py:118-134)
+        if self.knn:
+            if self.modal_adjs is None:
+                self.modal_adjs = self._knn_adjs()
+        else:
+            with self.timer.phase("rebuild", fence_dev):
+                self.rebuild_graphs()
         # phase 3: joint GCN training (reference Main.py:291-377)
         with self.timer.phase("joint", fence_dev):
             joint_acc = self._joint_phase(tables["perm"], negs, tables["gcn_scalars"], hp)
@@ -492,13 +525,17 @@ class Coach:
         """Phase 2 of an epoch: reverse-diffuse every user's train row per
         modality, keep each user's top-degree items as that modality's graph
         (reference `Main.py:195-253`). Sets ``edge_buffers`` and
-        ``modal_adjs`` (:meth:`set_edge_buffers`) and returns the buffers."""
+        ``modal_adjs`` (:meth:`set_edge_buffers`) and returns the buffers.
+        A KNN Coach has nothing to rebuild, and refuses."""
         cfg = self.config
+        if self.knn:
+            raise ValueError("hyper.use_knn_adj: the modality graphs are the KNN graphs, built once "
+                             "a run; there is nothing to rebuild")
         self.set_edge_buffers(steps.rebuild_epoch(
             self.schedule, self.dn_params, self.data.train_store,
             self.rebuild_blocks, self.rebuild_widths, self.rebuild_starts,
             *self.csr_gather_layout, self.host.item_num,
-            cfg.hyper.sampling_step, self.generator, self.graphs,
+            cfg.hyper.sampling_step, self.generator, self.graphs, cfg.train.rebuild_compute,
         ))
         return self.edge_buffers
 
@@ -520,8 +557,12 @@ class Coach:
         Returns ``(results, eval_results, best_bundle)`` then: eval dicts
         (None on epochs without eval) and ``(best_recall_sum,
         best_gcn_params, best_edge_buffers)`` on the card, None when no
-        epoch evaluated."""
+        epoch evaluated. A KNN Coach refuses: its epochs rebuild nothing,
+        and :meth:`_chunk_size` gives it single epochs."""
         cfg = self.config
+        if self.knn:
+            raise ValueError("epoch fusion needs the diffusion rebuild path "
+                             "(hyper.use_knn_adj rebuilds nothing per epoch)")
         tables = self._epoch_tables(epoch0, n)
         flags = eval_blocks = None
         if eval_split is not None:
@@ -621,7 +662,7 @@ class Coach:
         self.best_snapshot = {
             "epoch": epoch,
             "gcn_params": tree_map(lambda p: p.to("cpu", copy=True), best_g),
-            "edge_buffers": [b.to("cpu", copy=True) for b in best_bufs],
+            "edge_buffers": None if best_bufs is None else [b.to("cpu", copy=True) for b in best_bufs],
         }
 
     def _chunk_size(self, epoch: int, n_epochs: int) -> int:
@@ -632,7 +673,7 @@ class Coach:
         package, where each length is a new compile: here a shorter tail
         runs the single-epoch path, which replays the same graphs."""
         cfg = self.config
-        if cfg.train.epoch_scan <= 1:
+        if cfg.train.epoch_scan <= 1 or self.knn:
             return 1
         n = cfg.train.epoch_scan
         if n > n_epochs - epoch:
@@ -677,7 +718,8 @@ class Coach:
     def capture_best(self, epoch: int) -> None:
         """Copy to the host the state that reproduces this epoch's eval: the
         GCN params and the rebuilt edge buffers (the denoisers do not feed
-        eval). Called whenever the best Recall improves."""
+        eval; a KNN Coach's graphs do not change, so it keeps no buffers).
+        Called whenever the best Recall improves."""
         self._capture_best_from(self.gcn_params, self.edge_buffers, epoch)
 
     def best_state(self):
@@ -689,6 +731,8 @@ class Coach:
                 raise RuntimeError("no trained epoch and no best snapshot to serve from")
             return self.gcn_params, self.modal_adjs
         params = tree_to(snap["gcn_params"], self.device)
+        if self.knn:
+            return params, self.modal_adjs or self._knn_adjs()
         modal_adjs = [self._make_adj(self.data.train_rows, b.to(self.device))
                       for b in snap["edge_buffers"]]
         return params, modal_adjs
@@ -698,13 +742,14 @@ class Coach:
         """The tensors of a checkpoint: parameters, Adam moments, the edge
         buffers, the best snapshot (the live state stands in before any eval;
         ``best_snapshot_epoch`` -1 marks it absent) and the generator's
-        state. The Adam counts and the numpy stream go in the JSON part."""
+        state; a KNN Coach has no edge buffers (empty lists). The Adam counts
+        and the numpy stream go in the JSON part."""
         snap = self.best_snapshot
         buffers = self.edge_buffers or []
         if snap is None:
             best_params, best_buffers = self.gcn_params, buffers
         else:
-            best_params, best_buffers = snap["gcn_params"], snap["edge_buffers"]
+            best_params, best_buffers = snap["gcn_params"], snap["edge_buffers"] or []
         moments = lambda s: {"mu": s.mu, "nu": s.nu}  # noqa: E731
         return {
             "gcn_params": self.gcn_params,
@@ -751,11 +796,13 @@ class Coach:
         self.np_rng = rng_state_from_json(aux["np_rng"])
         if arrays["edge_buffers"]:
             self.set_edge_buffers([b.to(self.device) for b in arrays["edge_buffers"]])
+        elif self.knn and self.modal_adjs is None:
+            self.modal_adjs = self._knn_adjs()
         snap_epoch = aux["best_snapshot_epoch"]
         self.best_snapshot = None if snap_epoch < 0 else {
             "epoch": snap_epoch,
             "gcn_params": arrays["best_gcn_params"],
-            "edge_buffers": list(arrays["best_edge_buffers"]),
+            "edge_buffers": None if self.knn else list(arrays["best_edge_buffers"]),
         }
 
     def restore_checkpoint(self) -> dict | None:

@@ -22,6 +22,7 @@ as optax does (the same numbers on the CPU and the card).
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -96,7 +97,16 @@ def adam_update(params, grads: list[torch.Tensor], state: AdamState, lr) -> Adam
     corrections). With a float the step's scalars are made here and the
     count advances by one; with a row the caller made them from the count
     and advances it (a captured step runs no host code). Returns the state
-    (its tensors updated in place)."""
+    (its tensors updated in place).
+
+    A tree with leaves narrower than f32 (bf16 denoisers, ``base.
+    denoise_param_dtype``) takes the step in their type, op by op as optax
+    takes it there: the moments are of the leaves' type (optax's
+    ``zeros_like``), each operation rounds to it, its constants are cast to
+    it as JAX casts a Python scalar against a bf16 array (0.9 becomes
+    0.8984375), and so are the bias corrections (``optax.tree.
+    bias_correction``); the update is applied as ``(p - lr * u).astype(
+    p.dtype)``, in f32, rounded once."""
     leaves = tree_leaves(params)
     if not isinstance(lr, torch.Tensor):
         scalars = torch.as_tensor(adam_scalars(lr, state.count, 1)[0], device=leaves[0].device)
@@ -104,18 +114,37 @@ def adam_update(params, grads: list[torch.Tensor], state: AdamState, lr) -> Adam
     else:
         scalars = lr
     lr_t, bc1, bc2 = scalars[0], scalars[1], scalars[2]
-    torch._foreach_mul_(state.mu, B1)
-    torch._foreach_add_(state.mu, grads, alpha=1 - B1)
-    torch._foreach_mul_(state.nu, B2)
-    torch._foreach_addcmul_(state.nu, grads, grads, value=1 - B2)
-    denom = torch._foreach_div(state.nu, bc2)
+    if all(p.dtype == torch.float32 for p in leaves):
+        _adam_f32(leaves, grads, state.mu, state.nu, lr_t, bc1, bc2)
+        return state
+    for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
+        c = functools.partial(_weak, dtype=p.dtype)
+        mu.copy_(g * c(1 - B1) + mu * c(B1))
+        nu.copy_(torch.square(g) * c(1 - B2) + nu * c(B2))
+        u = (mu / bc1.to(p.dtype)) / (torch.sqrt(nu / bc2.to(p.dtype)) + c(EPS))
+        p.copy_(p.float() - lr_t * u.float())
+    return state
+
+
+def _weak(x: float, dtype: torch.dtype) -> float:
+    """The Python constant ``x`` rounded to ``dtype``, as JAX casts a
+    weakly typed scalar to the array's type before the operation."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+def _adam_f32(leaves, grads, mu, nu, lr_t, bc1, bc2) -> None:
+    """The step of a tree of f32 leaves, fused over them (``torch._foreach_*``)."""
+    torch._foreach_mul_(mu, B1)
+    torch._foreach_add_(mu, grads, alpha=1 - B1)
+    torch._foreach_mul_(nu, B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - B2)
+    denom = torch._foreach_div(nu, bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, EPS)
-    update = torch._foreach_div(state.mu, bc1)
+    update = torch._foreach_div(mu, bc1)
     torch._foreach_div_(update, denom)
     torch._foreach_mul_(update, lr_t)
     torch._foreach_sub_(leaves, update)
-    return state
 
 
 def cosine_lr(epoch: int, base_lr: float, total_epochs: int, eta_min: float = 1e-4) -> float:

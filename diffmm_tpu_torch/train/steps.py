@@ -38,6 +38,7 @@ import torch
 from diffmm_tpu_torch.data.membership import gather_rows
 from diffmm_tpu_torch.diffusion.gaussian import generate_view, training_losses
 from diffmm_tpu_torch.diffusion.schedule import DiffusionSchedule
+from diffmm_tpu_torch.models.denoise import denoise_forward
 from diffmm_tpu_torch.models.gcn import gcn_mm, project_features
 from diffmm_tpu_torch.ops.gather import gather, gather_plan
 from diffmm_tpu_torch.ops.graph import spmm_bi
@@ -174,41 +175,84 @@ def diffusion_epoch(
 # ------------------------------------------------------------------ phase 2
 def rebuild_block_tables(
     schedule: DiffusionSchedule,
-    denoisers: list[PreparedDenoiser],
+    denoisers: list,
     train_store,
     users: torch.Tensor,
     item_num: int,
     sampling_step: int,
     k_table: int,
     generator: torch.Generator | None = None,
+    denoise_apply=denoise_forward_fused,
 ) -> list[torch.Tensor]:
     """Reverse-diffuse a user block per modality -> value-sorted (B,
-    k_table) top-index tables, one per modality. The denoiser runs through
-    the denoise_mlp kernels (K2, K3) on the card, on ``denoisers`` as
-    :func:`rebuild_epoch` prepares them (only prepared forms: a params dict
-    would be put in the kernels' layout again at every step)."""
-    if not all(isinstance(p, PreparedDenoiser) for p in denoisers):
-        raise TypeError("rebuild_block_tables takes prepare_denoiser forms")
+    k_table) top-index tables, one per modality, with ``denoise_apply`` on
+    ``denoisers`` as :func:`rebuild_forward` makes them. The default runs
+    the denoise_mlp kernels (K2, K3) on the card, on prepared forms only (a
+    params dict would be put in the kernels' layout again at every step)."""
+    if denoise_apply is denoise_forward_fused and not all(
+            isinstance(p, PreparedDenoiser) for p in denoisers):
+        raise TypeError("rebuild_block_tables runs K2/K3 on prepare_denoiser forms only")
     x0 = gather_rows(train_store, users, item_num)
     tables = []
     for params in denoisers:
         denoised = generate_view(
-            schedule, params, x0, sampling_step, generator=generator,
-            denoise_apply=denoise_forward_fused,
+            schedule, params, x0, sampling_step, generator=generator, denoise_apply=denoise_apply,
         )
         tables.append(topk_table(denoised, k_table))
     return tables
 
 
+def _hold_tree(graphs: GraphCache | None, key: tuple, tree):
+    """``tree`` with each tensor in a buffer of ``graphs`` (what a captured
+    rebuild reads keeps its address from rebuild to rebuild)."""
+    leaves = iter(range(len(tree_leaves(tree))))
+    return tree_map(lambda a: hold(graphs, (*key, next(leaves)), a), tree)
+
+
+def _bf16_apply(params, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The plain forward with bf16 products, back in f32 (JAX
+    ``rebuild_apply`` under ``train.rebuild_compute="bf16"``)."""
+    return denoise_forward(params, x_t, t, compute_dtype=torch.bfloat16).to(torch.float32)
+
+
+def rebuild_forward(dn_params_list: list, compute: str = "f32", graphs: GraphCache | None = None):
+    """The rebuild's denoisers and forward, chosen as the JAX package
+    chooses them (``diffmm_tpu/train/steps.py:115-168``), put in their form
+    once per rebuild: ``(denoisers, denoise_apply)``.
+
+    * ``compute="bf16"`` (``train.rebuild_compute``, its spelling checked
+      by ``config.check_slice_support``): the plain forward in bf16 (f32 accumulation on
+      the card), on the parameters cast to bf16 once, into buffers of
+      ``graphs``; its output cast back to f32. No kernel: the JAX package
+      runs its XLA forward here too.
+    * f32 and one hidden layer: K2/K3 on :func:`prepare_denoiser` forms
+      (bf16 parameters widened to f32 first: exact, and the function the
+      JAX forward computes on them).
+    * f32 and more hidden layers: the plain f32 forward (TF32 off) on the
+      parameters as they are; K2/K3 take one hidden layer, and the JAX
+      package runs its XLA forward there too."""
+    if compute == "bf16":
+        cast = [_hold_tree(graphs, ("rebuild_bf16", m), tree_map(lambda a: a.to(torch.bfloat16), p))
+                for m, p in enumerate(dn_params_list)]
+        return cast, _bf16_apply
+    if any(len(p["in_layers"]) != 1 or len(p["out_layers"]) != 1 for p in dn_params_list):
+        return dn_params_list, denoise_forward
+    wide = [tree_map(lambda a: a.to(torch.float32), p) for p in dn_params_list]
+    return [_hold_denoiser(graphs, m, prepare_denoiser(p)) for m, p in enumerate(wide)], denoise_forward_fused
+
+
 def _hold_denoiser(graphs: GraphCache | None, m: int, p: PreparedDenoiser) -> PreparedDenoiser:
-    """``p`` with its two prepared weights in buffers of ``graphs`` (its
-    other fields are views of the denoiser's parameters, which stay put)."""
+    """``p`` with its tensors in buffers of ``graphs`` (for f32 parameters
+    the small ones are views of them, which stay put anyway; widened bf16
+    parameters are new tensors at every rebuild)."""
     if graphs is None or not isinstance(p.w1x, KernelWeight):
         return p
+    small = [graphs.hold(("denoiser", m, j), t)
+             for j, t in enumerate((p.emb_w, p.emb_b, p.w1_time, p.b1, p.b2))]
     return PreparedDenoiser(
-        p.emb_w, p.emb_b, p.w1_time, p.b1,
+        *small[:4],
         KernelWeight(graphs.hold(("w1x", m), p.w1x.data), p.w1x.k, p.w1x.n),
-        KernelWeight(graphs.hold(("w2", m), p.w2.data), p.w2.k, p.w2.n), p.b2,
+        KernelWeight(graphs.hold(("w2", m), p.w2.data), p.w2.k, p.w2.n), small[4],
     )
 
 
@@ -226,6 +270,7 @@ def rebuild_epoch(
     sampling_step: int,
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
+    compute: str = "f32",
 ) -> list[torch.Tensor]:
     """All rebuild blocks of one epoch -> one CSR edge buffer per modality.
 
@@ -234,11 +279,12 @@ def rebuild_epoch(
     the stacked table. Identity order is the single bucket ``(k_max,)``
     from row 0; degree order is the two-bucket plan of
     ``ops/topk.py::plan_rebuild_buckets``. ``row_of_pos``/``lane_of_pos``
-    map each CSR position to its (row, lane) of the stacked table. Each
-    denoiser's weights are put in the kernels' layout once, here, for all
-    blocks and steps. A step (one block of one bucket; a graph per bucket on
-    the card) writes its users' tables into the bucket's rows."""
-    denoisers = [_hold_denoiser(graphs, m, prepare_denoiser(p)) for m, p in enumerate(dn_params_list)]
+    map each CSR position to its (row, lane) of the stacked table. The
+    denoisers are put in the form their forward takes once, here, for all
+    blocks and steps (:func:`rebuild_forward`, ``compute`` is
+    ``train.rebuild_compute``). A step (one block of one bucket; a graph per
+    bucket on the card) writes its users' tables into the bucket's rows."""
+    denoisers, apply = rebuild_forward(dn_params_list, compute, graphs)
     n_modal = len(denoisers)
     dev = row_of_pos.device
     bucket_tables = []  # [bucket][modality] -> (rows_b, k_b)
@@ -251,11 +297,11 @@ def rebuild_epoch(
 
         def step(blk, tables=tables, k_b=k_b):
             out = rebuild_block_tables(schedule, denoisers, train_store, blk[0], item_num,
-                                       sampling_step, k_b, generator)
+                                       sampling_step, k_b, generator, apply)
             for table, o in zip(tables, out):
                 table.index_copy_(0, blk[1], o)
 
-        key = ("rebuild", b, batch, k_b, sampling_step)
+        key = ("rebuild", b, batch, k_b, sampling_step, compute)
         for j in range(nb):
             run_step(graphs, key, step, inputs[j])
         bucket_tables.append(tables)

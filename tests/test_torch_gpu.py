@@ -76,7 +76,7 @@ def test_spmm_dual_ragged_plans(cuda, store, d, shape):
     for g, a, w in zip(got, again, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
         assert torch.equal(g, a)
-    p = plan(U, I, d, store == torch.int8, cuda)
+    p = plan(U, I, d, "int8" if store == torch.int8 else "bf16", cuda)
     assert p.col_blocks % p.cluster == 0 and p.col_blocks * p.items >= I
     assert p.row_blocks * p.rows >= U and p.rows % 128 == 0
 
@@ -88,7 +88,7 @@ def test_spmm_dual_wide_catalog_in_chunks(cuda, store):
         LAUNCHES, dense_storage, max_items, spmm_dual, spmm_dual_plain)
 
     U, d = 200, 32
-    I = max_items(d, store == torch.int8, cuda) + 1000
+    I = max_items(d, "int8" if store == torch.int8 else "bf16", cuda) + 1000
     gen = torch.Generator(device=cuda).manual_seed(8)
     mat = dense_storage(U, I, store, cuda).copy_(torch.rand((U, I), generator=gen, device=cuda) < 0.05)
     z_u = torch.randn((U, d), generator=gen, device=cuda)
@@ -591,3 +591,141 @@ def test_capture_failure_raises(cuda):
     with pytest.raises(RuntimeError):
         graph(torch.ones(4, device=cuda))
     assert graph.graph is None
+
+
+# ---------------------------------------------------------------- int4, KNN, HTTP
+def _layout(p):
+    return (p.cluster, p.col_blocks, p.row_blocks, p.rows, p.groups)
+
+
+# (U, I): odd I under one block; I under one block; U of one 128-row strip;
+# U and I one past a strip and a block; odd I past 8 blocks; the tiktok shape
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("shape", [(100, 101), (300, 200), (128, 385), (129, 385), (70, 3073),
+                                   (9308, 6710)])
+def test_spmm_dual_int4_matches_plain_and_int8(cuda, d, shape):
+    """K1 on packed int4 M: within TOL of the plain version, bitwise across
+    launches, bitwise against the int8 launch on the same cells where the
+    two plans agree (the same bf16 tiles and sums), forward and backward
+    (``SpmmDual``)."""
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import (
+        LAUNCHES, SpmmDual, dense_storage, pack_int4, plan, spmm_dual, spmm_dual_plain)
+
+    U, I = shape
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    mask = torch.rand((U, I), generator=gen, device=cuda) < 0.08
+    m4 = dense_storage(U, I, torch.uint8, cuda).copy_(pack_int4(mask))
+    m8 = dense_storage(U, I, torch.int8, cuda).copy_(mask)
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    before = LAUNCHES["spmm_dual"]
+    got, again = spmm_dual(m4, z_u, z_i), spmm_dual(m4, z_u, z_i)
+    assert LAUNCHES["spmm_dual"] == before + 2
+    want = spmm_dual_plain(m4, z_u, z_i)
+    by8 = spmm_dual(m8, z_u, z_i)
+    same_plan = _layout(plan(U, I, d, "int4", cuda)) == _layout(plan(U, I, d, "int8", cuda))
+    torch.cuda.synchronize()
+    for g, a, w, e in zip(got, again, want, by8):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g, a)
+        if same_plan:
+            assert torch.equal(g, e)
+    zu, zi = z_u.clone().requires_grad_(), z_i.clone().requires_grad_()
+    g_u = torch.randn((U, d), generator=gen, device=cuda)
+    g_i = torch.randn((I, d), generator=gen, device=cuda)
+    grads = torch.autograd.grad(SpmmDual.apply(m4, zu, zi), (zu, zi), (g_u, g_i))
+    for g, w in zip(grads, spmm_dual_plain(m4, g_u, g_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_spmm_dual_int4_values_are_exact(cuda):
+    """Any signed int4 value of M, not only 0/1, converts exactly to bf16."""
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, pack_int4, spmm_dual, spmm_dual_plain
+
+    U, I, d = 256, 513, 32
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    cells = torch.randint(-8, 8, (U, I), generator=gen, device=cuda, dtype=torch.int32)
+    mat = dense_storage(U, I, torch.uint8, cuda).copy_(pack_int4(cells))
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    for g, w in zip(spmm_dual(mat, z_u, z_i), spmm_dual_plain(mat, z_u, z_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-2)
+
+
+def test_int4_refill_inside_a_captured_graph(cuda):
+    """``set_edge_buffers`` refills a packed int4 block in place on a Coach
+    whose joint step is captured: the same pointer, and a replay of the step
+    equals the eager step bitwise on the new graphs."""
+    coach = _tiny_coach(cuda, "dense", dense_store="int4")
+    coach.total_epochs = 3
+    for epoch in range(2):
+        coach.train_epoch(epoch)
+    adj = coach.modal_adjs[0]
+    ptr = adj.mat.data_ptr()
+    coach.rebuild_graphs()  # a new graph, into the same storage
+    assert coach.modal_adjs[0] is adj and adj.mat.data_ptr() == ptr and adj.mat.dtype == torch.uint8
+    arrays, aux = _snapshot(coach)
+    graph = coach.graphs.find("joint")[0]
+    inputs = [x.clone() for x in graph.inputs]
+    acc = [b for key, b in coach.graphs._buffers.items() if key[0] == "joint_acc"]
+    results = []
+    for run in (graph, graph.step):
+        coach._load_state(arrays, aux)
+        for b in acc:
+            b.zero_()
+        run(*inputs)
+        torch.cuda.synchronize()
+        results.append(_state(coach) + [b.clone() for b in acc])
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+
+
+def test_knn_edges_on_the_card_match_plain(cuda):
+    """The KNN graphs on the card (K4 prototypes) against the same function
+    on the CPU (plain segment sums): prototypes within K4's rule, each
+    user's top-k set equal outside similarity ties of 1e-5."""
+    from diffmm_tpu_torch.ops.knn import knn_edges, knn_prototypes
+    from diffmm_tpu_torch.ops.losses import l2_normalize
+
+    coach = _tiny_coach(cuda, "dense")
+    rows, cols = coach.data.train_rows, coach.data.train_cols
+    U, topk = coach.host.user_num, 10
+    for feats in coach.data.raw_feats:
+        got = knn_prototypes(rows, cols, feats, U)
+        want = knn_prototypes(rows.cpu(), cols.cpu(), feats.cpu(), U)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+        _, g_cols = knn_edges(rows, cols, feats, U, topk)
+        _, w_cols = knn_edges(rows.cpu(), cols.cpu(), feats.cpu(), U, topk)
+        sim = l2_normalize(want, dim=1) @ l2_normalize(feats.cpu(), dim=1).T
+        kth = torch.topk(sim, topk, dim=1).values[:, -1]
+        for u, (a, b) in enumerate(zip(g_cols.cpu().view(U, topk).tolist(), w_cols.view(U, topk).tolist())):
+            for item in set(a) ^ set(b):
+                assert abs(float(sim[u, item] - kth[u])) <= 1e-5, (u, item)
+
+
+def test_http_server_on_the_card(cuda, tmp_path):
+    """The HTTP front end over an index on the card: every answer equals a
+    direct ``recommend`` (ids and scores bitwise), each request on its own
+    handler thread."""
+    import json
+    import threading
+    import urllib.request
+
+    from diffmm_tpu_torch.eval import serve_http, serving
+
+    coach = _tiny_coach(cuda, "dense")
+    coach.train_epoch(0)
+    path = str(tmp_path / "idx.npz")
+    serving.save_index(serving.build_index(coach), path)
+    index = serving.load_index(path)
+    assert index.u_final.is_cuda
+    srv = serve_http.make_server(index, "127.0.0.1", 0, warmup_ks=[20])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    for user in range(0, 300, 37):
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/recommend?user={user}&k=20") as r:
+            body = json.loads(r.read())
+        ids, scores = serving.recommend(index, torch.tensor([user], device=cuda), 20)
+        assert body["items"] == ids[0].tolist() and body["scores"] == scores[0].tolist()
+    srv.shutdown()
+    srv.server_close()
+    thread.join()

@@ -41,7 +41,8 @@ def test_module_walk_finds_the_training_slice():
     for name in ("diffmm_tpu_torch.cli", "diffmm_tpu_torch.__main__", "diffmm_tpu_torch.train.optim",
                  "diffmm_tpu_torch.train.steps", "diffmm_tpu_torch.data.sampling",
                  "diffmm_tpu_torch.utils.profiling", "diffmm_tpu_torch.ops.gather",
-                 "diffmm_tpu_torch.train.graphs", "diffmm_tpu_torch.utils.checkpoint"):
+                 "diffmm_tpu_torch.train.graphs", "diffmm_tpu_torch.utils.checkpoint",
+                 "diffmm_tpu_torch.ops.knn", "diffmm_tpu_torch.eval.serve_http"):
         assert name in MODULES
 
 
@@ -158,14 +159,16 @@ def test_training_path_catches_no_kernel_failure():
         "rebuild_block_tables", "train_epoch", "_joint_phase", "rebuild_graphs", "test_epoch",
         "forward", "run", "build_index", "negative_sampling", "contains", "adam_update",
         "gather", "run_step", "train_epochs_fused", "_epoch_on_device", "set_edge_buffers",
-        "restore_checkpoint", "_eval_sums", "replay", "step",
+        "restore_checkpoint", "_eval_sums", "replay", "step", "knn_prototypes", "knn_edges",
+        "build_knn_adj", "_knn_adjs", "rebuild_forward",
     }
     paths = [PKG / "cli.py", PKG / "train" / "coach.py", PKG / "train" / "steps.py",
              PKG / "train" / "optim.py", PKG / "ops" / "graph.py", PKG / "ops" / "losses.py",
              PKG / "data" / "sampling.py", PKG / "data" / "membership.py",
              PKG / "diffusion" / "gaussian.py", PKG / "models" / "gcn.py", PKG / "eval" / "serving.py",
              PKG / "ops" / "kernels" / "spmm_dual.py", PKG / "ops" / "kernels" / "segsum.py",
-             PKG / "ops" / "gather.py", PKG / "train" / "graphs.py", REPO / "chip_smoke.py"]
+             PKG / "ops" / "gather.py", PKG / "train" / "graphs.py", PKG / "ops" / "knn.py",
+             PKG / "eval" / "serve_http.py", REPO / "chip_smoke.py"]
     for path in paths:
         for name in _calls_inside_try(path, allowed=("KeyboardInterrupt",)):
             assert name not in reaches_a_kernel, f"{path}: {name} inside try"

@@ -116,12 +116,14 @@ def test_rebuild_forward_eval_match_jax(order, shape):
 
 
 def test_coach_rejects_what_the_slice_cannot_run():
+    """Unknown spellings raise; ``dense_store="int4"``, once refused here,
+    builds the packed blocks (tests/test_torch_int4.py holds them)."""
     _, tcfg = _configs("identity")
     host = t_synth(copy.deepcopy(tcfg), user_num=20, item_num=15, seed=1)
     for section, key, value, exc in (
         ("train", "segsum_compute", "f16", ValueError),
         ("train", "train_store", "coo", ValueError),
-        ("train", "dense_store", "int4", NotImplementedError),
+        ("train", "dense_store", "int2", ValueError),
         ("train", "rebuild_order", "random", ValueError),
         ("train", "graph_form", "bogus", ValueError),
     ):
@@ -129,3 +131,7 @@ def test_coach_rejects_what_the_slice_cannot_run():
         setattr(getattr(cfg, section), key, value)
         with pytest.raises(exc):
             TCoach(cfg, host, device="cpu")
+    cfg = copy.deepcopy(tcfg)
+    cfg.train.dense_store = "int4"
+    coach = TCoach(cfg, host, device="cpu")
+    assert coach.data.adj.mat.dtype == torch.uint8 and coach.data.adj.mat.shape == (20, 8)

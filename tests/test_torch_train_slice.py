@@ -173,7 +173,7 @@ def test_cli_refuses_without_a_card_and_slice_four_flags(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["-c", conf, "--epochs", "1"])
     for flag in (["--mesh", "4x2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="A7"):
             cli.main(["-c", conf, "--device", "cpu", *flag])
     assert cli.main(["-c", str(tmp_path / "missing.toml"), "--device", "cpu"]) == 1
 
