@@ -16,16 +16,19 @@ exit, no result line):
    its backward through autograd (``SpmmDual``); K2/K3 ``denoise_mlp`` at
    B 1,024, H 1,024 and I 6,710 and 20,000, on weights prepared once (also
    bitwise across two launches and within twice the plain f32 product's
-   error against float64); K4 ``segsum`` at the yelp shape: the user
-   direction, n 38,403, nnz 307,200, d 64; the item direction, n 20,000,
-   ids with gaps; the stacked width d 128; the item direction of a rebuilt
-   graph, one hub of 38,389 edges; f32 and bf16 messages; and the backward
-   of the sparse form's three autograd Functions, user and item
-   directions, stacked user and multi-item) against its plain PyTorch
-   version within the stated tolerance (K1's and K4's also bitwise across
-   two launches); times (CUDA events, warm, many launches) of the kernel,
-   the plain version and one PyTorch library call computing the same
-   function, beside the bound.
+   error against float64); K4 ``segsum_gather`` (the gather-fused sorted
+   segment sum) at the yelp shape: the user direction, n 38,403, nnz
+   307,200, d 64; the item direction, n 20,000, ids with gaps; two
+   modalities stacked in one launch; the item direction of a rebuilt graph,
+   one hub of 38,389 edges; f32 and bf16 tables; the backward of the sparse
+   form's three autograd Functions, user and item directions, stacked user
+   and multi-item; the loss gathers' backward; the KNN prototypes at width
+   4,096) against its plain PyTorch version within the stated tolerance
+   (K1's and K4's also bitwise across two launches, K4's also bitwise the
+   unfused route it replaces, ``index_select`` then K4 on the messages);
+   times (CUDA events, warm, many launches) of the kernel, the plain
+   version, one PyTorch library call computing the same function and, for
+   K4, the unfused route, beside the bound.
 3. reference: a tiny synthetic Coach on the card against the same Coach on
    the CPU (plain versions) with the same parameters, dense form and sparse
    form; the sparse one also against the dense one on the same graphs; and
@@ -90,7 +93,11 @@ exit, no result line):
 20. profiles (torch.profiler, after every path's host-clock times): A's
     and C's rebuild + eval, one more joint phase of E at epoch 1's
     learning rate, replayed from its graph and run eagerly, and one more
-    joint phase of F replayed.
+    joint phase of F replayed; each with its idle share and the shares of
+    PyTorch's ``index_select`` and of K4 in its device time.
+
+Every path's K4 launches are the fused entry's: each path checks that the
+unfused entry launched no time.
 
 It then prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. A full report
@@ -150,6 +157,10 @@ KERNELS = {
         "replaces": "diffmm_tpu/ops/pallas/segsum.py:127",
     },
 }
+# what the kernels line keeps of each K4 case
+K4_CASE_FIELDS = ("ok", "ms", "unfused_ms", "plain_ms", "library_ms", "library_refused", "bound_ms", "bound_by",
+                  "l2_rate_gb_s", "bitwise_unfused", "bitwise_across_launches", "max_abs_err", "backward_ms",
+                  "launches_per_call", "launches_per_backward")
 # Path A's shape: tiktok's catalog at its density, its feature widths
 # (conf/test.toml's dataset; the full data is not in the repository)
 TIKTOK = {"user_num": 9308, "item_num": 6710, "density": 0.000953, "feat_dims": [128, 768, 128]}
@@ -299,11 +310,13 @@ def _gather_backward_cases(dev, gen) -> dict:
     """K4 in the backward of the loss gathers (``ops/gather.py``) at path E's
     shapes: a joint block's 1,024 users gathered from u_final (9,308 x 64)
     and its 1,024 items from i_final (6,710 x 64), indices drawn from the
-    train edges as the joint phase draws them. One launch a backward call,
-    against segsum_plain on the same sorted cotangent within TOL["segsum"]
-    (scaled by the sum of each row's |terms|), bitwise across two calls; the
-    launch alone timed beside the plain version and the library's scatter
-    (``index_add_``, atomic adds), and the whole autograd call."""
+    train edges as the joint phase draws them. One fused launch a backward
+    call (the cotangent's rows named by the plan's int32 permutation),
+    against the plain version within TOL["segsum"] (scaled by the sum of
+    each row's |terms|), bitwise across two calls; the launch alone through
+    :func:`_k4_case` (bitwise the unfused route, ``g[perm]`` then K4, as the
+    parent ran it), beside the library's scatter (``index_add_``, atomic
+    adds) and the whole autograd call."""
     import torch
 
     from diffmm_tpu_torch.ops.gather import gather, gather_plan
@@ -325,29 +338,22 @@ def _gather_backward_cases(dev, gen) -> dict:
         def backward():
             return torch.autograd.grad(y, table, g, retain_graph=True)[0]
 
-        before = sg.LAUNCHES["segsum"]
+        before = dict(sg.LAUNCHES)
         got, again = backward(), backward()
-        per_call = (sg.LAUNCHES["segsum"] - before) / 2
-        msgs = g.index_select(0, plan.perm)
-        want = sg.segsum_plain(msgs, plan.offsets)
-        scale = sg.segsum_plain(msgs.abs(), plan.offsets)
+        per_call = {k: (v - before[k]) / 2 for k, v in sg.LAUNCHES.items()}
+        want = sg.segsum_gather_plain(g, plan.perm, plan.offsets)
+        scale = sg.segsum_gather_plain(g.abs(), plan.perm, plan.offsets)
         torch.cuda.synchronize()
-        err = max_err(got, want)
         bitwise = torch.equal(got, again)
-        ok = bool(((got - want).abs() <= rtol * scale + atol).all()) and bitwise and per_call == 1
-        check(ok, f"gather backward[{name}] vs plain: max_abs_err {err}, bitwise {bitwise}, "
-                  f"launches {per_call}")
-        # the sorted cotangent and the offsets read once, the (n, d) output
-        # written once; one add per cotangent element
-        b, by = bound_ms(B * d * 4 + plan.offsets.numel() * 8 + n * d * 4, B * d, F32_FLOPS)
+        rec = _k4_case(g, plan.perm, plan.offsets)
+        ok = (bool(((got - want).abs() <= rtol * scale + atol).all()) and bitwise and rec["ok"]
+              and per_call == {"segsum": 1, "segsum_unfused": 0})
+        check(ok, f"gather backward[{name}] vs plain: max_abs_err {max_err(got, want)}, bitwise {bitwise}, "
+                  f"launches {per_call}, launch {rec}")
         idx_l = idx.long()
-        rec = {"ok": ok, "shape": [n, B, d], "max_segment": int(plan.offsets.diff().max()),
-               "max_abs_err": err, "bitwise_across_launches": bitwise, "launches_per_backward": per_call,
-               "backward_ms": time_ms(backward, 50),
-               "ms": time_ms(lambda: sg.segsum(msgs, plan.offsets), 50),
-               "plain_ms": time_ms(lambda: sg.segsum_plain(msgs, plan.offsets), 20),
-               "bound_ms": b, "bound_by": by,
-               "library_ms": time_ms(lambda: torch.zeros((n, d), device=dev).index_add_(0, idx_l, g), 50)}
+        rec.update({"ok": ok, "max_abs_err": max_err(got, want), "bitwise_across_launches": bitwise,
+                    "launches_per_backward": per_call["segsum"], "backward_ms": time_ms(backward, 50),
+                    "index_add_ms": time_ms(lambda: torch.zeros((n, d), device=dev).index_add_(0, idx_l, g), 50)})
         out[f"segsum_gather_backward_{name}"] = rec
         print(f"[kernels] segsum_gather_backward_{name}: {json.dumps(rec)}")
     return out
@@ -514,14 +520,113 @@ def hub_segment_ids(gen, n: int, nnz: int, pads: int, hub: int, device):
     return torch.cat([ids, torch.full((pads,), n, dtype=torch.int32, device=device)])
 
 
+def _unfused(tables, srcs, offsets, zero_row: bool):
+    """The route the fused K4 replaces, as the parent ran it: each
+    modality's rows gathered per edge with ``index_select`` (a forward's
+    pads clamped to the last row, or a backward's cotangent with a zero row
+    appended for the forward's pads), side by side, then K4 on the (nnz,
+    M·d) messages (``segsum``, its unfused entry)."""
+    import torch
+
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+
+    R, d = tables.shape[1:]
+    msgs = [torch.cat([t, t.new_zeros((1, d))]).index_select(0, s.clamp_max(R)) if zero_row
+            else t.index_select(0, s.clamp_max(R - 1)) for t, s in zip(tables, srcs)]
+    return sg.segsum(msgs[0] if len(msgs) == 1 else torch.cat(msgs, dim=1), offsets)
+
+
+def _library_ms(tables, srcs, offsets, iters: int):
+    """The library's call for the same function: ``torch.sparse.mm`` of a
+    CSR matrix (the offsets, the real edges' indices, ones; zero for an
+    index past the table) by each table, the matrices built once outside
+    the timing. Returns (ms, None), or (None, the refusal) where the library
+    does not take the table's type."""
+    import torch
+
+    R = tables.shape[1]
+    n, real = offsets.numel() - 1, int(offsets[-1])
+    mats = []
+    for s in srcs:
+        s = s[:real].long()
+        valid = (s >= 0) & (s < R)
+        mats.append(torch.sparse_csr_tensor(offsets, s.clamp(0, R - 1), valid.to(tables.dtype), size=(n, R)))
+
+    def call():
+        return [torch.sparse.mm(a, t) for a, t in zip(mats, tables)]
+
+    try:
+        call()
+    except RuntimeError as exc:  # a library refusal (its type support), never one of the port's kernels
+        return None, str(exc).splitlines()[0][:160]
+    return time_ms(call, iters), None
+
+
+def _k4_case(table, src, offsets, zero_row: bool = False, iters: int = 50) -> dict:
+    """K4's fused entry on one case: against its plain version within
+    TOL["segsum"] (scaled by the sum of each output's |terms|), bitwise
+    across two calls and bitwise the unfused route (:func:`_unfused`), one
+    launch a call; the fused launch timed beside the unfused route, the
+    plain version and the library (:func:`_library_ms`); the bound counts
+    the table's rows that the real edges name, their indices, the offsets
+    and the output, each once, and one add per gathered element; the L2
+    rate is the gathered rows' bytes over the fused time."""
+    import torch
+
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+
+    tables = table[None] if table.dim() == 2 else table
+    srcs = [src] if isinstance(src, torch.Tensor) else list(src)
+    M, R, d = tables.shape
+    n, real = offsets.numel() - 1, int(offsets[-1])
+    before = dict(sg.LAUNCHES)
+    got = sg.segsum_gather(table, src, offsets)
+    again = sg.segsum_gather(table, src, offsets)
+    per_call = {k: (v - before[k]) / 2 for k, v in sg.LAUNCHES.items()}
+    unfused = _unfused(tables, srcs, offsets, zero_row)
+    want = sg.segsum_gather_plain(table, src, offsets)
+    scale = sg.segsum_gather_plain(table.abs(), src, offsets)
+    torch.cuda.synchronize()
+    rtol, atol = TOL["segsum"]
+    close = bool(((got - want).abs() <= rtol * scale + atol).all())
+    bitwise, bitwise_unfused = torch.equal(got, again), torch.equal(got, unfused)
+    ok = close and bitwise and bitwise_unfused and per_call == {"segsum": 1, "segsum_unfused": 0}
+    elem = tables.element_size()
+    named = sum(int(torch.unique(s[:real][(s[:real] >= 0) & (s[:real] < R)]).numel()) for s in srcs)
+    n_bytes = named * d * elem + 4 * real * M + 8 * (n + 1) + 4 * n * M * d
+    b, by = bound_ms(n_bytes, real * M * d, F32_FLOPS)
+    del unfused, want, scale, again
+    ms = time_ms(lambda: sg.segsum_gather(table, src, offsets), iters)
+    library_ms, library_refused = _library_ms(tables, srcs, offsets, max(iters // 5, 3))
+    gathered = real * M * d * elem
+    rec = {
+        "ok": ok, "shape": [n, R, real, M, d], "table": str(tables.dtype).removeprefix("torch."),
+        "merge_group": sg.merge_group(n, srcs[0].numel()),
+        "empty_segments": int((offsets.diff() == 0).sum()), "max_segment": int(offsets.diff().max()),
+        "max_abs_err": max_err(got, sg.segsum_gather_plain(table, src, offsets)),
+        "bitwise_across_launches": bitwise, "bitwise_unfused": bitwise_unfused, "close": close,
+        "launches_per_call": per_call,
+        "ms": ms,
+        "unfused_ms": time_ms(lambda: _unfused(tables, srcs, offsets, zero_row), max(iters // 2, 3)),
+        "plain_ms": time_ms(lambda: sg.segsum_gather_plain(table, src, offsets), max(iters // 5, 3)),
+        "library_ms": library_ms, "library_refused": library_refused,
+        "bound_ms": b, "bound_by": by, "bound_bytes": n_bytes,
+        "gathered_bytes": gathered, "l2_rate_gb_s": gathered / (ms * 1e-3) / 1e9,
+    }
+    return rec
+
+
 def _segsum_cases(dev, gen) -> dict:
-    """K4 at path C's shapes: the user direction (38,403 segments of about
-    8 edges, the train rows), the item direction (20,000 segments, skewed
-    ids with gaps: :func:`sorted_segment_ids`), the stacked user direction
-    at d 128, and the item direction of a rebuilt graph (one hub segment of
-    38,389 edges: :func:`hub_segment_ids`); f32 and bf16 messages; 307,180
-    real edges plus 20 sentinel pads whose messages (NaN here) are never
-    read."""
+    """K4 (fused) at path C's and F's shapes: the user direction (38,403
+    segments of about 8 edges, the train rows, over the 20,000 x 64 item
+    table), the item direction (20,000 segments, skewed ids with gaps:
+    :func:`sorted_segment_ids`, over the 38,403 x 64 user table), the
+    stacked user direction (two modalities' tables and indices, one launch
+    at width 128), and the item direction of a rebuilt graph (one hub
+    segment of 38,389 edges: :func:`hub_segment_ids`); f32 and bf16 tables;
+    307,180 real edges plus 20 sentinel pads (index one past the table,
+    past offsets[n], never read). Then the KNN prototypes at yelp's image
+    width: F's train rows over a 20,000 x 4,096 f32 feature table."""
     import torch
 
     from diffmm_tpu_torch.ops.kernels import segsum as sg
@@ -529,50 +634,35 @@ def _segsum_cases(dev, gen) -> dict:
     U, I, nnz = YELP["user_num"], YELP["item_num"], YELP["edges"]
     out = {}
     # path C's rebuilt modality graphs put 38,389 of 38,403 users on one item
-    for case, n, d, skew in (("user", U, 64, 1.0), ("item", I, 64, 2.0), ("stacked", U, 128, 1.0),
-                             ("item_hub", I, 64, None)):
+    for case, n, R, M, skew in (("user", U, I, 1, 1.0), ("item", I, U, 1, 2.0), ("stacked", U, I, 2, 1.0),
+                                ("item_hub", I, U, 1, None)):
         ids = (hub_segment_ids(gen, n, nnz, 20, YELP["hub"], dev) if skew is None
                else sorted_segment_ids(gen, n, nnz, 20, skew, dev))
         offsets = sg.segment_offsets(ids, n)
-        real = int(offsets[-1])
+        srcs = []
+        for _ in range(M):
+            src = torch.randint(0, R, (nnz,), generator=gen, device=dev).to(torch.int32)
+            src[int(offsets[-1]):] = R  # the pads' index: one past the table
+            srcs.append(src)
         for dtype in (torch.float32, torch.bfloat16):
-            msgs = torch.randn((nnz, d), generator=gen, device=dev).to(dtype)
-            msgs[real:] = float("nan")
-            got = sg.segsum(msgs, offsets)
-            again = sg.segsum(msgs, offsets)
-            want = sg.segsum_plain(msgs, offsets)
-            torch.cuda.synchronize()
-            rtol, atol = TOL["segsum"]
-            err = max_err(got, want)
-            scale = sg.segsum_plain(msgs.abs(), offsets)
-            ok = bool(((got - want).abs() <= rtol * scale + atol).all()) and torch.equal(got, again)
-            check(ok, f"segsum[{case}, {dtype}] vs plain: max_abs_err {err}, "
-                      f"bitwise across launches: {torch.equal(got, again)}")
-            # each input the kernel takes (messages, offsets) read once, the
-            # output written once; one add per message element of the real edges
-            n_bytes = msgs.numel() * msgs.element_size() + offsets.numel() * 8 + n * d * 4
-            b, by = bound_ms(n_bytes, real * d, F32_FLOPS)
-            rec = {
-                "ok": ok,
-                "shape": [n, nnz, d],
-                "msgs": str(dtype).removeprefix("torch."),
-                "empty_segments": int((offsets.diff() == 0).sum()),
-                "max_segment": int(offsets.diff().max()),
-                "max_abs_err": err,
-                "max_err_over_abs_sum": float(((got - want).abs() / (scale + 1e-30)).max()),
-                "ms": time_ms(lambda: sg.segsum(msgs, offsets), 50),
-                "plain_ms": time_ms(lambda: sg.segsum_plain(msgs, offsets), 20),
-                "bound_ms": b,
-                "bound_by": by,
-                # torch.segment_reduce sums bf16 input in bf16 (measured
-                # 5.7 off on 980 terms): the same function only for f32
-                "library_ms": time_ms(
-                    lambda: torch.segment_reduce(msgs, "sum", offsets=offsets, axis=0), 20)
-                if dtype == torch.float32 else None,
-            }
+            tables = torch.randn((M, R, 64), generator=gen, device=dev).to(dtype)
+            table, src = (tables[0], srcs[0]) if M == 1 else (tables, srcs)
+            rec = _k4_case(table, src, offsets)
             key = f"segsum_{case}" + ("" if dtype == torch.float32 else "_bf16")
+            check(rec["ok"], f"{key}: {rec}")
             out[key] = rec
             print(f"[kernels] {key}: {json.dumps(rec)}")
+    # the KNN prototypes (ops/knn.py) at yelp's image feature width
+    rows = sorted_segment_ids(gen, U, nnz, 20, 1.0, dev)
+    offsets = sg.segment_offsets(rows, U)
+    cols = torch.randint(0, I, (nnz,), generator=gen, device=dev).to(torch.int32)
+    cols[int(offsets[-1]):] = I
+    feats = torch.randn((I, YELP["feat_dims"][0]), generator=gen, device=dev)
+    rec = _k4_case(feats, cols, offsets, iters=10)
+    check(rec["ok"], f"segsum_knn_prototypes: {rec}")
+    out["segsum_knn_prototypes"] = rec
+    print(f"[kernels] segsum_knn_prototypes: {json.dumps(rec)}")
+    del feats
     return out
 
 
@@ -605,12 +695,13 @@ def _segsum_backward_cases(dev, gen) -> dict:
     """K4 in the backward of the sparse form's three Functions at path C's
     shape (``ops/graph.py``): a user-direction and an item-direction
     ``Propagate``, ``StackedUserPropagate`` (one launch a modality, the
-    first over a hub) and ``MultiItemPropagate`` (one wide launch at M·d).
-    Each backward call's gradient against its plain twin (the same
-    cotangent messages through ``segsum_plain``) within TOL["segsum"]
-    scaled by the sum of each output's |terms|, bitwise across two calls,
-    its K4 launches a call, the call's time, and its K4 launches alone
-    (kernel, plain, library, bound) on the call's messages."""
+    first over a hub) and ``MultiItemPropagate`` (one launch over both
+    modalities' cotangents). Each backward call's gradient against the
+    plain version of its launches within TOL["segsum"] scaled by the sum of
+    each output's |terms|, bitwise across two calls, its K4 launches a
+    call, and the call's time; each launch alone through :func:`_k4_case`
+    (bitwise the unfused route with the cotangent's zero row, the times,
+    the bound), summed over the call's launches."""
     import torch
 
     from diffmm_tpu_torch.ops import graph as og
@@ -620,21 +711,21 @@ def _segsum_backward_cases(dev, gen) -> dict:
     U, I, d = main.user_num, main.item_num, 64
     M = len(modal)
     cases = {
-        # name: (function of z, z shape, output shape, [(bwd_src, bwd_offsets)] per launch, widths)
+        # name: (function of z, z shape, output shape, its launches: (table of g, indices, offsets))
         "user_direction": (lambda z: og.Propagate.apply(z, main.ui_cols, main.ui_offsets, main.iu_cols,
                                                         main.iu_offsets, "f32"),
-                           (I, d), (U, d), [("g", main.iu_cols, main.iu_offsets)]),
+                           (I, d), (U, d), lambda g: [(g, main.iu_cols, main.iu_offsets)]),
         "item_direction": (lambda z: og.Propagate.apply(z, main.iu_cols, main.iu_offsets, main.ui_cols,
                                                         main.ui_offsets, "f32"),
-                           (U, d), (I, d), [("g", main.ui_cols, main.ui_offsets)]),
+                           (U, d), (I, d), lambda g: [(g, main.ui_cols, main.ui_offsets)]),
         "stacked_user": (lambda z: og.StackedUserPropagate.apply(z, tuple(modal), "f32"),
-                         (M, I, d), (M, U, d), [(m, a.iu_cols, a.iu_offsets) for m, a in enumerate(modal)]),
+                         (M, I, d), (M, U, d),
+                         lambda g: [(g[m].contiguous(), a.iu_cols, a.iu_offsets) for m, a in enumerate(modal)]),
         "multi_item": (lambda z: og.MultiItemPropagate.apply(z, tuple(modal), "f32"),
-                       (M, U, d), (M, I, d), [("wide", [a.ui_cols for a in modal], modal[0].ui_offsets)]),
+                       (M, U, d), (M, I, d), lambda g: [(g, [a.ui_cols for a in modal], modal[0].ui_offsets)]),
     }
     out = {}
-    rtol, atol = TOL["segsum"]
-    for name, (fn, z_shape, y_shape, launches) in cases.items():
+    for name, (fn, z_shape, y_shape, launches_of) in cases.items():
         z = torch.randn(z_shape, generator=gen, device=dev).requires_grad_()
         g = torch.randn(y_shape, generator=gen, device=dev)
         y = fn(z)
@@ -642,58 +733,40 @@ def _segsum_backward_cases(dev, gen) -> dict:
         def backward():
             return torch.autograd.grad(y, z, g, retain_graph=True)[0]
 
-        before = sg.LAUNCHES["segsum"]
+        before = dict(sg.LAUNCHES)
         got, again = backward(), backward()
-        per_call = (sg.LAUNCHES["segsum"] - before) / 2
-        # the backward's messages and offsets, launch by launch
-        msgs_offsets = []
-        for part, src, offsets in launches:
-            if part == "g":
-                msgs = og._gather_cotangent(g, src, "f32")
-            elif part == "wide":
-                msgs = torch.cat([og._gather_cotangent(g[m], s, "f32") for m, s in enumerate(src)], dim=1)
-            else:
-                msgs = og._gather_cotangent(g[part], src, "f32")
-            msgs_offsets.append((msgs, offsets))
-        want = [sg.segsum_plain(m, o) for m, o in msgs_offsets]
-        scale = [sg.segsum_plain(m.abs(), o) for m, o in msgs_offsets]
+        per_call = {k: (v - before[k]) / 2 for k, v in sg.LAUNCHES.items()}
+        launches = launches_of(g)
+        want = [sg.segsum_gather_plain(t, src, o) for t, src, o in launches]
+        scale = [sg.segsum_gather_plain(t.abs(), src, o) for t, src, o in launches]
         if name == "multi_item":
-            want = [w.view(U, M, d).permute(1, 0, 2) for w in want]
-            scale = [s_.view(U, M, d).permute(1, 0, 2) for s_ in scale]
-            got_parts = [got]
-        elif name == "stacked_user":
-            got_parts = list(got)
-        else:
-            got_parts = [got]
+            want, scale = ([x[0].view(U, M, d).permute(1, 0, 2)] for x in (want, scale))
+        got_parts = list(got) if name == "stacked_user" else [got]
         torch.cuda.synchronize()
-        err = max(max_err(a, b) for a, b in zip(got_parts, want))
-        close = all(bool(((a - b).abs() <= rtol * s_ + atol).all()) for a, b, s_ in zip(got_parts, want, scale))
+        rtol, atol = TOL["segsum"]
+        close = all(bool(((a - b).abs() <= rtol * c + atol).all()) for a, b, c in zip(got_parts, want, scale))
         bitwise = torch.equal(got, again)
-        ok = close and bitwise and per_call == len(launches)
-        check(ok, f"segsum backward[{name}] vs plain: max_abs_err {err}, bitwise {bitwise}, "
-                  f"launches {per_call} (want {len(launches)})")
-        bound = [bound_ms(m.numel() * 4 + o.numel() * 8 + (o.numel() - 1) * m.shape[1] * 4,
-                          int(o[-1]) * m.shape[1], F32_FLOPS) for m, o in msgs_offsets]
+        parts = [_k4_case(t, src, o, zero_row=True) for t, src, o in launches]
+        ok = (close and bitwise and all(p["ok"] for p in parts)
+              and per_call == {"segsum": len(launches), "segsum_unfused": 0})
+        check(ok, f"segsum backward[{name}]: close {close}, bitwise {bitwise}, launches {per_call}, "
+                  f"parts {parts}")
         rec = {
-            "ok": ok, "z_shape": list(z_shape), "launches_per_backward": per_call,
-            "segments": [int(o.numel() - 1) for _, o in msgs_offsets],
-            "widths": [int(m.shape[1]) for m, _ in msgs_offsets],
-            "max_segment": max(int(o.diff().max()) for _, o in msgs_offsets),
-            "max_abs_err": err,
-            "max_err_over_abs_sum": max(float(((a - b).abs() / (s_ + 1e-30)).max())
-                                        for a, b, s_ in zip(got_parts, want, scale)),
+            "ok": ok, "z_shape": list(z_shape), "launches_per_backward": per_call["segsum"],
             "bitwise_across_launches": bitwise,
+            "max_abs_err": max(max_err(a, b) for a, b in zip(got_parts, want)),
             "backward_ms": time_ms(backward, 20),
-            "ms": sum(time_ms(lambda m=m, o=o: sg.segsum(m, o), 50) for m, o in msgs_offsets),
-            "plain_ms": sum(time_ms(lambda m=m, o=o: sg.segsum_plain(m, o), 10) for m, o in msgs_offsets),
-            "bound_ms": sum(b for b, _ in bound),
-            "bound_by": bound[0][1],
-            "library_ms": sum(time_ms(lambda m=m, o=o: torch.segment_reduce(m, "sum", offsets=o, axis=0), 20)
-                              for m, o in msgs_offsets),
+            "parts": parts,
+            **{key: sum(p[key] for p in parts) for key in ("ms", "unfused_ms", "plain_ms", "bound_ms",
+                                                          "gathered_bytes")},
+            "library_ms": (sum(p["library_ms"] for p in parts)
+                           if all(p["library_ms"] is not None for p in parts) else None),
+            "bound_by": parts[0]["bound_by"],
         }
+        rec["l2_rate_gb_s"] = rec["gathered_bytes"] / (rec["ms"] * 1e-3) / 1e9
         out[f"segsum_backward_{name}"] = rec
         print(f"[kernels] segsum_backward_{name}: {json.dumps(rec)}")
-        del z, g, y, got, again, msgs_offsets, want, scale
+        del z, g, y, got, again, want, scale
     return out
 
 
@@ -859,17 +932,18 @@ def joint_step_launches(dense: bool, n_modal: int, cl_method: int, knn: bool = F
     2 x 2, the modal CL 2 x 2 per modality (cl_method 0) or per pair of
     modalities (cl_method 1). The KNN ablation's modality graphs are sparse
     on both forms and propagate one by one (no stacking): K4 twice each way
-    a modality, K1 (dense) or K4 (sparse) for the 4 main-graph propagations."""
+    a modality, K1 (dense) or K4 (sparse) for the 4 main-graph propagations.
+    Every K4 launch is the fused entry's: the unfused one never launches."""
     pairs = n_modal * (n_modal - 1) // 2 if cl_method == 1 else n_modal
     gathers = 3 + 4 + 4 * pairs
     if knn:
         modal = 2 * 2 * n_modal
         if dense:
-            return {"spmm_dual": 2 * 4, "segsum": modal + gathers}
-        return {"spmm_dual": 0, "segsum": modal + 2 * 2 * 4 + gathers}
+            return {"spmm_dual": 2 * 4, "segsum": modal + gathers, "segsum_unfused": 0}
+        return {"spmm_dual": 0, "segsum": modal + 2 * 2 * 4 + gathers, "segsum_unfused": 0}
     if dense:
-        return {"spmm_dual": 2 * (n_modal + 4), "segsum": gathers}
-    return {"spmm_dual": 0, "segsum": 2 * (n_modal + 9) + gathers}
+        return {"spmm_dual": 2 * (n_modal + 4), "segsum": gathers, "segsum_unfused": 0}
+    return {"spmm_dual": 0, "segsum": 2 * (n_modal + 9) + gathers, "segsum_unfused": 0}
 
 
 def rebuild_runs_k2k3(cfg) -> bool:
@@ -986,8 +1060,8 @@ def drive_path(dev, cfg, host, label: str):
         # two per main-graph propagation, one stacked user direction, one
         # item direction per modality
         per_fwd, kernel, other = 2 * 2 + 1 + coach.n_modal, "segsum", "spmm_dual"
-    check(launches[kernel] >= per_fwd * n_fwd and launches[other] == 0,
-          f"{label} launches {launches}, want {kernel} >= {per_fwd * n_fwd} and no {other}")
+    check(launches[kernel] >= per_fwd * n_fwd and launches[other] == 0 and launches["segsum_unfused"] == 0,
+          f"{label} launches {launches}, want {kernel} >= {per_fwd * n_fwd}, no {other}, no unfused K4")
     if not coach.dense_graphs:
         # K4's longest segments: the largest item degree of the main graph
         # and of each rebuilt modality graph
@@ -1057,8 +1131,16 @@ def phase_profile(work, label: str, report_dir: str) -> dict:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     counts = {e.key: e.count for e in kernels}
     # the port's own kernels, whether or not they make the top rows
-    own = ("dual_kernel", "gemm_3xtf32", "splitk_sum", "segsum_kernel")
+    own = ("dual_kernel", "gemm_3xtf32", "splitk_sum", "segsum_kernel", "segsum_plan")
+
+    def share(*names):
+        return sum(v for k, v in dev_us.items() if any(name in k for name in names)) / 1e6 / busy
+
     rec = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+           # PyTorch's row gathers (index_select: vectorized_gather_kernel on this
+           # PyTorch, indexSelect* on older ones) and K4 (its plan and sums), shares of the busy time
+           "index_select_share": share("vectorized_gather_kernel", "indexSelect"),
+           "segsum_share": share("segsum_kernel", "segsum_plan"),
            "top_device_ms": [[k[:60], v / 1e3, counts[k]] for v, k in top],
            "port_kernels_ms": [[k[:60], v / 1e3, counts[k]] for k, v in dev_us.items()
                                if any(name in k for name in own)]}
@@ -1198,6 +1280,7 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
         got = e["joint_launches"]
         check(all(got[k] == v for k, v in want.items()),
               f"{label} joint launches {got}, want {want}")
+    check(launches["segsum_unfused"] == 0, f"{label}: the unfused K4 launched ({launches})")
     graphs = {key[0] + ("" if key[0] != "rebuild" else f"_{key[1]}"):
               {"replays": g.replays, "launches_a_replay": g.launches}
               for key, g in coach.graphs.graphs.items()}
@@ -1427,8 +1510,9 @@ def phase_path_k(dev, host) -> dict:
     knn_topk 10), one epoch and test_epoch: no rebuild phase and no rebuild
     graph, ``rebuild_graphs`` refuses, each joint step launches K1 for the
     main graph and K4 for the KNN graphs (``joint_step_launches``); then the
-    KNN graphs against the plain version on the card: K4's prototypes within
-    its rule, each user's top-k set equal outside similarity ties (1e-6)."""
+    KNN graphs against the plain version on the card: K4's prototypes (one
+    fused launch a modality, no unfused one) within its rule, each user's
+    top-k set equal outside similarity ties (1e-6)."""
     import torch
 
     from diffmm_tpu_torch.ops import knn
@@ -1446,15 +1530,18 @@ def phase_path_k(dev, host) -> dict:
     checks = []
     for m, (feats, adj) in enumerate(zip(coach.data.raw_feats, coach.modal_adjs)):
         feats = feats.to(torch.float32)
-        gathered = feats.index_select(0, cols.long().clamp_max(feats.shape[0] - 1))
-        got = sg.segsum(gathered, offsets)
-        want = sg.segsum_plain(gathered, offsets)
-        scale = sg.segsum_plain(gathered.abs(), offsets)
-        proto_ok = bool(((got - want).abs() <= rtol * scale + atol).all())
-        proto = want / torch.clamp_min(offsets.diff().to(torch.float32), 1.0)[:, None]
+        before = dict(sg.LAUNCHES)
+        got = knn.knn_prototypes(rows, cols, feats, U)
+        _, got_cols = knn.knn_edges(rows, cols, feats, U, topk)
+        launched = {k: v - before[k] for k, v in sg.LAUNCHES.items()}
+        want = sg.segsum_gather_plain(feats, cols.to(torch.int32), offsets)
+        scale = sg.segsum_gather_plain(feats.abs(), cols.to(torch.int32), offsets)
+        counts = torch.clamp_min(offsets.diff().to(torch.float32), 1.0)[:, None]
+        proto_ok = (bool(((got - want / counts).abs() <= (rtol * scale + atol) / counts).all())
+                    and launched == {"segsum": 2, "segsum_unfused": 0})
+        proto = want / counts
         sim = l2_normalize(proto, dim=1) @ l2_normalize(feats, dim=1).T
         plain_cols = torch.topk(sim, topk, dim=1).indices
-        _, got_cols = knn.knn_edges(rows, cols, feats, U, topk)
         got_cols = got_cols.view(U, topk).long()
         check(torch.equal(adj.ui_cols.view(U, topk).long(), got_cols), f"K modality {m}: graph != knn_edges")
         kth = sim.gather(1, plain_cols[:, -1:])
@@ -1463,7 +1550,8 @@ def phase_path_k(dev, host) -> dict:
         differ = got_in ^ want_in
         ties_only = bool(((sim - kth).abs()[differ] <= 1e-6).all())
         checks.append({"modality": m, "width": int(feats.shape[1]), "prototypes_ok": proto_ok,
-                       "prototype_max_abs_err": max_err(got, want), "edges_differing": int(differ.sum()),
+                       "prototype_launches": launched,
+                       "prototype_max_abs_err": max_err(got, want / counts), "edges_differing": int(differ.sum()),
                        "edges_equal_outside_ties": ties_only})
         check(proto_ok and ties_only, f"K KNN graph {m} vs plain: {checks[-1]}")
     rec["knn_checks"] = checks
@@ -1779,7 +1867,8 @@ def phase_path_h(dev, host) -> tuple[dict, object]:
     check(all(same.values()), f"H fused vs single epochs: {same}")
     n_joint = -(-host.nnz // fused.config.train.batch)
     want = {k: 2 * v * n_joint for k, v in joint_step_launches(True, fused.n_modal, 0).items()}
-    check(all(launches[k] >= v for k, v in want.items()), f"H launches {launches}, want at least {want}")
+    check(all(launches[k] >= v for k, v in want.items()) and launches["segsum_unfused"] == 0,
+          f"H launches {launches}, want at least {want} and no unfused K4")
     rec = {"bitwise": same, "best": best_f, "chunks": chunks, "single_losses": singles,
            "single_epochs_run_s": twin_s, "launches": launches,
            "graphs": {key[0]: {"replays": g.replays, "launches_a_replay": g.launches}
@@ -1892,7 +1981,12 @@ def main(argv=None) -> int:
                      "int4_store": kernels["spmm_dual_int4"],
                      "int4_backward": kernels["spmm_dual_int4_backward"]}
         elif name == "segsum":
-            extra = {"cases": {key: rec for key, rec in kernels.items()
+            # the fused entry on every path; its other cases in brief (in full in the report)
+            row["unfused_ms"] = k["unfused_ms"]
+            row["launches_unfused"] = {p: report[f"path_{p}"]["launches"]["segsum_unfused"]
+                                       for p in "ABCDEFHJK"}
+            extra = {"cases": {key: {f: rec[f] for f in K4_CASE_FIELDS if f in rec}
+                               for key, rec in kernels.items()
                                if key.startswith("segsum_") and key != "segsum_user"}}
         else:
             extra = {"yelp_shape": kernels[name + "_yelp"]}
@@ -1901,7 +1995,8 @@ def main(argv=None) -> int:
                                                 "prepare_ms")})
         cases = [k, *(extra["cases"].values() if name == "segsum" else extra.values())]
         row.update(extra)
-        row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0
+        row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0 and not any(
+            row.get("launches_unfused", {}).values())
         rows.append(row)
     ok = all(row["ok"] for row in rows)
     report["ok"] = ok

@@ -9,16 +9,17 @@ in an order that changes from run to run; here the backward is a sorted
 segment sum instead:
 
 * :func:`gather_plan` sorts the indices once (a stable ``torch.sort``) and
-  keeps the permutation and the CSR offsets of the sorted indices over the
-  table's n rows. Every gather by the same index vector shares one plan.
+  keeps the permutation (int32, as K4 takes its indices) and the CSR
+  offsets of the sorted indices over the table's n rows. Every gather by
+  the same index vector shares one plan.
 * :class:`Gather`'s forward is ``table.index_select(0, idx)``; its backward
-  puts the cotangent's rows in sorted order and sums each table row's
-  segment with one ``segsum`` launch (K4) into the whole (n, d) cotangent.
-  Rows no index names get zeros; a duplicate index sums its rows in the
-  order the stable sort gives them.
+  is one launch of the gather-fused ``segsum_gather`` (K4): each table
+  row's segment sums the cotangent's rows that the permutation names, into
+  the whole (n, d) cotangent. Rows no index names get zeros; a duplicate
+  index sums its rows in the order the stable sort gives them.
 
 No scatter and no atomics, so the card's gradient repeats bit for bit. On
-the CPU the backward runs ``segsum_plain``, as every K4 call does there.
+the CPU the backward runs the plain version, as every K4 call does there.
 """
 
 from __future__ import annotations
@@ -27,14 +28,14 @@ from typing import NamedTuple
 
 import torch
 
-from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum
+from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum_gather
 
 
 class GatherPlan(NamedTuple):
     """The backward's order for one index vector over a table of n rows.
 
     Attributes:
-      perm: (B,) int64 stable argsort of the indices.
+      perm: (B,) int32 stable argsort of the indices (made once a plan).
       offsets: (n + 1,) int64 CSR offsets of the sorted indices.
     """
 
@@ -45,7 +46,7 @@ class GatherPlan(NamedTuple):
 def gather_plan(idx: torch.Tensor, n: int) -> GatherPlan:
     """The :class:`GatherPlan` of ``idx`` (values in ``[0, n)``) over n rows."""
     sorted_idx, perm = torch.sort(idx, stable=True)
-    return GatherPlan(perm, segment_offsets(sorted_idx, n))
+    return GatherPlan(perm.to(torch.int32), segment_offsets(sorted_idx, n))
 
 
 class Gather(torch.autograd.Function):
@@ -61,7 +62,7 @@ class Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         perm, offsets = ctx.saved_tensors
-        return segsum(g.index_select(0, perm), offsets), None, None, None
+        return segsum_gather(g, perm, offsets), None, None, None
 
 
 def gather(table: torch.Tensor, idx: torch.Tensor, plan: GatherPlan | None = None) -> torch.Tensor:

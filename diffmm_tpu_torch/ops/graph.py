@@ -9,10 +9,11 @@ bipartite adjacency ``D^-1/2 (A + I) D^-1/2`` over the (user, item) nodes
   propagation directions go through the ``spmm_dual`` kernel (K1) on the
   card, with bf16 operands and f32 accumulation as in the JAX package; or
 * sparse (:class:`BiAdj`): the edges sorted user-major plus a permutation
-  to item-major order; each direction gathers one message per edge and
-  reduces them by ascending segment id through the ``segsum`` kernel (K4)
-  on the card, in f32 (or with bf16 messages, ``compute="bf16"``). Nothing
-  of size O(U·I) exists in this form.
+  to item-major order; each direction sums, per segment of ascending ids,
+  the rows its edges name, in one launch of the gather-fused ``segsum``
+  kernel (K4) on the card, in f32 (or from a bf16 table,
+  ``compute="bf16"``). Nothing of size O(U·I), and no per-edge message
+  tensor, exists in this form.
 
 Both forms differentiate through their kernels: K1's backward is
 :class:`~diffmm_tpu_torch.ops.kernels.spmm_dual.SpmmDual`, and the sparse
@@ -30,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum
+from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum_gather
 from diffmm_tpu_torch.ops.kernels.spmm_dual import SpmmDual, dense_storage
 
 
@@ -236,51 +237,38 @@ def build_bi_adj_device(
 
 
 def _cast(z: torch.Tensor, compute: str) -> torch.Tensor:
-    """The messages' type: ``compute="bf16"`` rounds z before the gather
-    (JAX ``_get_propagator``: half the (nnz, d) transient, f32 sums)."""
+    """The gathered rows' type: ``compute="bf16"`` rounds the table once
+    before the gather (JAX ``_get_propagator``: bf16 messages, f32 sums)."""
     return z.to(torch.bfloat16) if compute == "bf16" else z
-
-
-def _gather(z: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``z[src]`` per edge. The pads' source index (one past the last row)
-    is clamped: out of range it would fault on the card, where the JAX
-    gather fills NaN; the reduction never reads the pads."""
-    return z.index_select(0, src.clamp_max(z.shape[0] - 1))
-
-
-def _gather_cotangent(g: torch.Tensor, src: torch.Tensor, compute: str) -> torch.Tensor:
-    """A backward's messages ``cast(g)[src]`` per edge, where ``src`` is one
-    past the last row of g for an edge that is a pad in the forward's
-    segments: a zero row there, so such an edge adds nothing (the JAX
-    backward masks ``src_rows < n_out``). Edges that are pads in the
-    backward's own segments lie past its offsets and are never read."""
-    g = _cast(g, compute)
-    return torch.cat([g, g.new_zeros((1, g.shape[1]))]).index_select(0, src)
 
 
 class Propagate(torch.autograd.Function):
     """One direction of the sparse form, ``y[r] = sum_{e in segment r}
-    z[src[e]]`` over the CSR ``offsets``, reduced by K4 (JAX
-    ``_get_propagator``, ``graph.py:339-392``).
+    z[src[e]]`` over the CSR ``offsets``: one K4 launch that gathers the
+    rows itself (JAX ``_get_propagator``, ``graph.py:339-392``).
 
     ``Propagate.apply(z, src, offsets, bwd_src, bwd_offsets, compute)``:
     the backward is the same sorted reduction in the opposite order, one K4
-    launch: the cotangent gathered by ``bwd_src`` (the forward's segment of
-    each edge, in the other direction's edge order) and reduced over
-    ``bwd_offsets``. No scatter and no atomics in either pass.
-    ``compute="bf16"`` rounds z, and in the backward the cotangent, to bf16
-    before the gather, as the JAX code does."""
+    launch: the cotangent's rows named by ``bwd_src`` (the forward's segment
+    of each edge, in the other direction's edge order) reduced over
+    ``bwd_offsets``. An edge that is a pad in the forward's segments names
+    the row one past the cotangent's last, which K4 reads as zeros (the JAX
+    backward masks ``src_rows < n_out``); the pads of the forward's own
+    order (source index one past z's rows) lie past ``offsets[n]`` and are
+    never read. No scatter and no atomics in either pass. ``compute="bf16"``
+    rounds z, and in the backward the cotangent, to bf16 before the
+    gather, as the JAX code does."""
 
     @staticmethod
     def forward(ctx, z, src, offsets, bwd_src, bwd_offsets, compute):
         ctx.save_for_backward(bwd_src, bwd_offsets)
         ctx.compute = compute
-        return segsum(_gather(_cast(z, compute), src), offsets)
+        return segsum_gather(_cast(z, compute), src, offsets)
 
     @staticmethod
     def backward(ctx, g):
         bwd_src, bwd_offsets = ctx.saved_tensors
-        dz = segsum(_gather_cotangent(g, bwd_src, ctx.compute), bwd_offsets)
+        dz = segsum_gather(_cast(g, ctx.compute), bwd_src, bwd_offsets)
         return dz, None, None, None, None, None
 
 
@@ -289,24 +277,22 @@ class StackedUserPropagate(torch.autograd.Function):
     (JAX ``_get_stacked_user_prop``, ``graph.py:404-463``).
 
     ``StackedUserPropagate.apply(z, adjs, compute)`` with z (M, I, d) ->
-    (M, U, d): one K4 launch at width M·d over the shared user-major
-    layout. The backward reduces by each modality's own item-major layout,
+    (M, U, d): one K4 launch over the shared user-major offsets that
+    gathers each modality's rows by its own columns into an (U, M·d)
+    output. The backward reduces by each modality's own item-major layout,
     one K4 launch a modality."""
 
     @staticmethod
     def forward(ctx, z, adjs, compute):
         ctx.adjs, ctx.compute = adjs, compute
         M, d, U = z.shape[0], z.shape[2], adjs[0].user_num
-        msgs = torch.cat([_gather(_cast(z[m], compute), a.ui_cols) for m, a in enumerate(adjs)], dim=1)
-        wide = segsum(msgs, adjs[0].ui_offsets)  # (U, M * d)
+        wide = segsum_gather(_cast(z, compute), [a.ui_cols for a in adjs], adjs[0].ui_offsets)
         return wide.view(U, M, d).permute(1, 0, 2)
 
     @staticmethod
     def backward(ctx, g):
-        dz = torch.stack([
-            segsum(_gather_cotangent(g[m], a.iu_cols, ctx.compute), a.iu_offsets)
-            for m, a in enumerate(ctx.adjs)
-        ])
+        g = _cast(g, ctx.compute)
+        dz = torch.stack([segsum_gather(g[m], a.iu_cols, a.iu_offsets) for m, a in enumerate(ctx.adjs)])
         return dz, None, None
 
 
@@ -317,23 +303,19 @@ class MultiItemPropagate(torch.autograd.Function):
     ``MultiItemPropagate.apply(z, adjs, compute)`` with z (M, U, d) ->
     (M, I, d): one K4 launch a modality, each over its own item-major
     layout. The backward reduces by the shared user-major layout: one K4
-    launch at width M·d."""
+    launch over all M cotangents at once."""
 
     @staticmethod
     def forward(ctx, z, adjs, compute):
         ctx.adjs, ctx.compute = adjs, compute
-        return torch.stack([
-            segsum(_gather(_cast(z[m], compute), a.iu_cols), a.iu_offsets)
-            for m, a in enumerate(adjs)
-        ])
+        z = _cast(z, compute)
+        return torch.stack([segsum_gather(z[m], a.iu_cols, a.iu_offsets) for m, a in enumerate(adjs)])
 
     @staticmethod
     def backward(ctx, g):
         adjs = ctx.adjs
         M, d, U = g.shape[0], g.shape[2], adjs[0].user_num
-        msgs = torch.cat([_gather_cotangent(g[m], a.ui_cols, ctx.compute)
-                          for m, a in enumerate(adjs)], dim=1)
-        wide = segsum(msgs, adjs[0].ui_offsets)  # (U, M * d)
+        wide = segsum_gather(_cast(g, ctx.compute), [a.ui_cols for a in adjs], adjs[0].ui_offsets)
         return wide.view(U, M, d).permute(1, 0, 2), None, None
 
 

@@ -9,8 +9,10 @@ package with the same name:
 * ``denoise_mlp`` — K2 and K3, the single-hidden-layer denoiser forward
   (replaces ``ops/pallas/denoise_mlp.py::_layer1_kernel`` and
   ``_layer2_kernel``).
-* ``segsum``      — K4, the sorted segment sum of the sparse graph form over
-  CSR offsets (replaces ``ops/pallas/segsum.py::_segsum_kernel``).
+* ``segsum``      — K4, the sparse graph form's sorted segment sum over CSR
+  offsets with the row gather in front of it fused in (``segsum_gather``:
+  the rows each edge names, read from L2 inside the kernel; replaces
+  ``ops/pallas/segsum.py::_segsum_kernel`` and the ``take`` before it).
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``, at first use, into

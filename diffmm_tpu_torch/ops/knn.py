@@ -7,10 +7,10 @@ the modality features of the user's train items. Enabled with
 ``hyper.use_knn_adj``; the graphs depend only on the features and the
 train edges, so a Coach builds them once a run.
 
-* Prototypes: the f32 features gathered by ``train_cols`` (one row per train
-  edge), summed per user by K4 (``ops/kernels/segsum.py``) over the train
-  rows' CSR offsets; the sentinel pads past ``offsets[U]`` are never read,
-  and the counts are the offsets' spans.
+* Prototypes: the f32 feature rows that ``train_cols`` names, summed per
+  user by one launch of the gather-fused K4 (``ops/kernels/segsum.py``)
+  over the train rows' CSR offsets; the sentinel pads past ``offsets[U]``
+  are never read, and the counts are the offsets' spans.
 * Cosine similarity: both sides l2-normalised, then one f32
   ``torch.matmul`` (TF32 off), a plain large product that the JAX package
   also leaves to its compiler.
@@ -19,9 +19,9 @@ train edges, so a Coach builds them once a run.
   builds ``BiAdj`` too): on the dense form a joint step then mixes K1 on the
   user-item block with K4 on these graphs.
 
-At tiktok's shape the transients are the gathered features, (59,541, 768)
-f32 = 183 MB, and the similarities, (9,308, 6,710) f32 = 250 MB, once a
-run, outside every captured graph.
+At tiktok's shape the transient is the similarities, (9,308, 6,710) f32 =
+250 MB, once a run, outside every captured graph; no per-edge copy of the
+features exists on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from diffmm_tpu_torch.ops.graph import BiAdj, build_bi_adj_device
-from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum
+from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum_gather
 from diffmm_tpu_torch.ops.losses import l2_normalize
 
 
@@ -39,10 +39,9 @@ def knn_prototypes(train_rows: torch.Tensor, train_cols: torch.Tensor, feats: to
     ascending train rows' offsets (sentinel pads ``row == user_num`` at the
     tail drop out); a user without edges gets zeros."""
     offsets = segment_offsets(train_rows, user_num)
-    # a pad's item index is one past the catalog: clamped, its row is never read
-    gathered = feats.index_select(0, train_cols.long().clamp_max(feats.shape[0] - 1))
     counts = offsets.diff().to(torch.float32)
-    return segsum(gathered, offsets) / torch.clamp_min(counts, 1.0)[:, None]
+    sums = segsum_gather(feats, train_cols.to(torch.int32), offsets)
+    return sums / torch.clamp_min(counts, 1.0)[:, None]
 
 
 def knn_edges(train_rows: torch.Tensor, train_cols: torch.Tensor, item_feats: torch.Tensor,

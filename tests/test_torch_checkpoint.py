@@ -26,6 +26,7 @@ from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
 from diffmm_tpu_torch.train.coach import Coach
 from diffmm_tpu_torch.train.optim import tree_leaves
 from diffmm_tpu_torch.utils import checkpoint as tck
+from diffmm_tpu_torch.utils.logging import Log
 
 
 class _Lines:
@@ -220,6 +221,10 @@ def _write_conf(tmp_path):
 
 def test_cli_checkpoint_dir_saves_and_resumes(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # the run's log directory
+    # the log file handler is shared by the process and made by its first
+    # Log: without this, a test that logged earlier in the same worker
+    # process would hold it in its own directory
+    monkeypatch.setattr(Log, "_shared_file_handler", None)
     conf, ck = _write_conf(tmp_path), str(tmp_path / "ck")
     args = ["-c", conf, "--device", "cpu", "--checkpoint-dir", ck, "--checkpoint-every", "1"]
     assert cli.main([*args, "--epochs", "2"]) == 0

@@ -227,12 +227,12 @@ def test_segsum_kernel_matches_plain(cuda, dtype, shape):
     msgs = torch.randn((nnz, d), generator=gen, device=cuda).to(dtype)
     msgs[-20:] = float("nan")  # the pads are never read
     offsets = segment_offsets(ids, n)
-    before = LAUNCHES["segsum"]
+    before = LAUNCHES["segsum_unfused"]
     got = segsum(msgs, offsets)
     again = segsum(msgs, offsets)
     want = segsum_plain(msgs, offsets)
     torch.cuda.synchronize()
-    assert LAUNCHES["segsum"] == before + 2
+    assert LAUNCHES["segsum_unfused"] == before + 2  # the unfused entry counts apart
     assert torch.equal(got, again)  # no atomics: the same bits every run
     assert segsum_close(got, want, msgs, offsets), float((got - want).abs().max())
     empty = offsets.diff() == 0
@@ -299,6 +299,149 @@ def test_segsum_cuts_offsets_to_the_messages(cuda):
     want = torch.stack([msgs[0:2].sum(0), torch.zeros(40, device=cuda), msgs[2:5].sum(0), msgs[5:6].sum(0)])
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(segsum_plain(msgs, offsets), want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- K4 fused
+# segsum_gather: the rows each edge names, summed per segment in one launch;
+# at F's shapes (yelp, 307,200 edges, d 64) against its plain version within
+# K4's rule, bitwise the unfused route it replaces (index_select, then the
+# unfused K4 on the messages) and bitwise across two calls.
+
+
+def _unfused_route(tables, srcs, offsets):
+    """index_select of each modality's rows (a zero row for an index past
+    the table), side by side, then K4 on the (nnz, M·d) messages."""
+    from diffmm_tpu_torch.ops.kernels.segsum import segsum
+
+    R, d = tables.shape[1:]
+    msgs = [torch.cat([t, t.new_zeros((1, d))]).index_select(0, s.clamp(0, R)) for t, s in zip(tables, srcs)]
+    return segsum(torch.cat(msgs, dim=1), offsets)
+
+
+def _fused_case(cuda, case, dtype, gen):
+    """(table, src, offsets) of one K4 case at F's shapes: the user and item
+    directions, a rebuilt graph's item hub, two modalities stacked, and a
+    backward's cotangent whose indices past the table read zero rows."""
+    from chip_smoke import hub_segment_ids, sorted_segment_ids
+    from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets
+
+    U, I, nnz = 38403, 20000, 307200
+    n, R, M = {"user": (U, I, 1), "item": (I, U, 1), "item_hub": (I, U, 1), "stacked": (U, I, 2),
+               "zero_rows": (I, U, 3)}[case]
+    ids = (hub_segment_ids(gen, n, nnz, 20, 38389, cuda) if case == "item_hub"
+           else sorted_segment_ids(gen, n, nnz, 20, 2.0 if case == "item" else 1.0, cuda))
+    offsets = segment_offsets(ids, n)
+    srcs = [torch.randint(0, R, (nnz,), generator=gen, device=cuda).to(torch.int32) for _ in range(M)]
+    if case == "zero_rows":  # a tenth of the edges name the row past the table, or further
+        for s in srcs:
+            s[::10] = R + torch.randint(0, 3, (s[::10].shape[0],), generator=gen, device=cuda).to(torch.int32)
+    for s in srcs:
+        s[-20:] = R  # the pads
+    tables = torch.randn((M, R, 64), generator=gen, device=cuda).to(dtype)
+    return tables, srcs, offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["user", "item", "item_hub", "stacked", "zero_rows"])
+def test_segsum_gather_matches_plain_and_the_unfused_route(cuda, case, dtype):
+    from diffmm_tpu_torch.ops.kernels.segsum import LAUNCHES, segsum_gather, segsum_gather_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    tables, srcs, offsets = _fused_case(cuda, case, dtype, gen)
+    table, src = (tables[0], srcs[0]) if len(srcs) == 1 else (tables, srcs)
+    before = dict(LAUNCHES)
+    got = segsum_gather(table, src, offsets)
+    again = segsum_gather(table, src, offsets)
+    assert {k: v - before[k] for k, v in LAUNCHES.items()} == {"segsum": 2, "segsum_unfused": 0}
+    want = segsum_gather_plain(table, src, offsets)
+    scale = segsum_gather_plain(table.abs(), src, offsets)
+    unfused = _unfused_route(tables, srcs, offsets)
+    torch.cuda.synchronize()
+    assert got.shape == (offsets.numel() - 1, len(srcs) * 64) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-6 * scale + 1e-6).all()), float((got - want).abs().max())
+    assert torch.equal(got, again)
+    assert torch.equal(got, unfused)
+    assert not got[offsets.diff() == 0].any()
+
+
+# widths of one to eight columns a lane, a table whose address allows only
+# one-element loads, and ragged widths
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,M,shift", [(8, 1, 0), (16, 3, 0), (64, 4, 0), (64, 1, 1), (130, 2, 0),
+                                       (257, 1, 0), (300, 2, 0), (4096, 1, 0)])
+def test_segsum_gather_widths(cuda, dtype, d, M, shift):
+    from chip_smoke import sorted_segment_ids
+    from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum_gather, segsum_gather_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    n, R, nnz = 333, 517, 4000
+    offsets = segment_offsets(sorted_segment_ids(gen, n, nnz, 7, 2.0, cuda), n)
+    srcs = [torch.randint(0, R + 3, (nnz,), generator=gen, device=cuda).to(torch.int32) for _ in range(M)]
+    flat = torch.randn((M * R * d + shift,), generator=gen, device=cuda).to(dtype)
+    tables = flat[shift:].view(M, R, d)
+    table, src = (tables[0], srcs[0]) if M == 1 else (tables, srcs)
+    got = segsum_gather(table, src, offsets)
+    again = segsum_gather(table, src, offsets)
+    want = segsum_gather_plain(table, src, offsets)
+    scale = segsum_gather_plain(table.abs(), src, offsets)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-6 * scale + 1e-6).all())
+    assert torch.equal(got, again)
+    assert torch.equal(got, _unfused_route(tables, srcs, offsets))
+
+
+def test_segsum_gather_refuses_what_the_kernel_does_not_take(cuda):
+    from diffmm_tpu_torch.ops.kernels.segsum import MAX_MODAL, segsum_gather
+
+    table = torch.zeros((4, 8), device=cuda)
+    offsets = torch.tensor([0, 3, 6], device=cuda)
+    src = torch.zeros(6, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        segsum_gather(table, src.long(), offsets)
+    with pytest.raises(ValueError, match="one device"):
+        segsum_gather(table.cpu(), src, offsets)
+    with pytest.raises(ValueError, match="one device"):
+        segsum_gather(table, src, offsets.cpu())
+    with pytest.raises(ValueError, match="offsets"):
+        segsum_gather(table, src, offsets.to(torch.int32))
+    M = MAX_MODAL + 1
+    with pytest.raises(ValueError, match=f"1 to {MAX_MODAL}"):
+        segsum_gather(torch.zeros((M, 4, 8), device=cuda), [src] * M, offsets)
+
+
+def test_sparse_form_gathers_no_messages_on_the_card(cuda, monkeypatch):
+    """Forward and backward of both sparse propagations (and a loss gather's
+    backward) on the card: K4 launches only through the fused entry, and no
+    index_select of per-edge messages runs."""
+    from diffmm_tpu_torch.ops import gather as og
+    from diffmm_tpu_torch.ops.graph import spmm_bi, spmm_bi_modal_stacked
+    from diffmm_tpu_torch.ops.kernels.segsum import LAUNCHES
+
+    main, modal = _sparse_graphs(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    leaves = [torch.randn(s, generator=gen, device=cuda).requires_grad_()
+              for s in ((500, 64), (300, 64), (300, 64), (300, 64))]
+    idx = torch.randint(0, 500, (64,), generator=gen, device=cuda).to(torch.int32)
+    plan = og.gather_plan(idx, 500)
+    selected = []
+    real = torch.Tensor.index_select
+
+    def spy(self, dim, index):
+        selected.append(tuple(self.shape))
+        return real(self, dim, index)
+
+    before = dict(LAUNCHES)
+    monkeypatch.setattr(torch.Tensor, "index_select", spy)
+    outs = (*spmm_bi(main, leaves[0], leaves[1]), *spmm_bi_modal_stacked(modal, leaves[0], leaves[2:]))
+    loss = sum((y * y).sum() for y in outs)
+    torch.autograd.backward(loss)
+    monkeypatch.undo()
+    (g,) = torch.autograd.grad(og.gather(leaves[0], idx, plan).sum(), leaves[0])
+    torch.cuda.synchronize()
+    assert not selected, selected
+    # 2 + 1 stacked + 2 item directions forward, 2 + 2 + 1 backward, 1 gather backward
+    assert {k: v - before[k] for k, v in LAUNCHES.items()} == {"segsum": 11, "segsum_unfused": 0}
+    assert torch.isfinite(g).all()
 
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
@@ -528,8 +671,9 @@ def test_joint_block_repeats_bitwise(cuda, form):
         runs.append([metrics, *_state(coach)])
         launched = launch_counts()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
-    # 19 K4 launches of the loss gathers (M = 3), and the propagations'
-    want = {"segsum": 19 + (0 if form == "dense" else 2 * 12), "spmm_dual": 2 * 7 if form == "dense" else 0}
+    # 19 K4 launches of the loss gathers (M = 3), and the propagations', all fused
+    want = {"segsum": 19 + (0 if form == "dense" else 2 * 12), "spmm_dual": 2 * 7 if form == "dense" else 0,
+            "segsum_unfused": 0}
     assert {k: launched[k] - before[k] for k in want} == want
 
 
