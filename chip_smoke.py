@@ -95,6 +95,28 @@ exit, no result line):
     learning rate, replayed from its graph and run eagerly, and one more
     joint phase of F replayed; each with its idle share and the shares of
     PyTorch's ``index_select`` and of K4 in its device time.
+21. path N (the mesh, in one spawned NCCL rank): E's and F's data and
+    settings, two epochs, each with ``test_epoch``, on a 1x1 mesh, the steps
+    captured with their all-reduces inside, bitwise the Coach without a
+    mesh (losses, metrics, parameters, moments, edge buffers, generator),
+    its kernel counters set to 0 just before and read just after; K4's
+    mesh form (``parallel/segsum.py``) at F's shapes bitwise the whole
+    ``segsum_gather``, timed per rank, with its all-reduce, bound and
+    library; ``recommend(mesh)`` at model 1 bitwise the plain call; F's
+    blocks of path O; the gradient all-reduce's time a step.
+22. path O (two spawned gloo ranks on the one card, eager steps; a
+    correctness path: its times are not speed figures): E's settings, one
+    epoch and ``test_epoch``, twice (the ranks and the runs bitwise equal,
+    the difference from N recorded); E's and F's settings, one
+    diffusion_block and three joint_blocks from one state and one set of
+    draws, twice: the ranks' states bitwise equal after every step, the
+    runs bitwise equal, and within rel 2e-3 / abs 1e-5 of path N's same
+    steps; K4's mesh form at F's user,
+    item, item-hub (the hub cut by the rank boundary) and stacked shapes
+    and a Propagate's backward within K4's rule of the whole call;
+    ``recommend`` over E's index at model 2 (ids equal, scores within
+    1e-5) and 20 requests to the two-shard HTTP server against direct
+    calls; each rank's seconds and peak memory.
 
 Every path's K4 launches are the fused entry's: each path checks that the
 unfused entry launched no time.
@@ -1182,7 +1204,7 @@ def phase_path_b(dev) -> dict:
     return rec
 
 
-def phase_path_c(dev) -> tuple[dict, object, object]:
+def _yelp_shape():
     from diffmm_tpu_torch.config import load_config
     from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
 
@@ -1194,6 +1216,11 @@ def phase_path_c(dev) -> tuple[dict, object, object]:
         modalities=["image", "text"], feat_dims=YELP["feat_dims"], seed=cfg.base.seed,
     )
     print(f"[path C] synthetic data in {time.perf_counter() - t0:.1f} s")
+    return cfg, host
+
+
+def phase_path_c(dev) -> tuple[dict, object, object]:
+    cfg, host = _yelp_shape()
     rec, coach = drive_path(dev, cfg, host, "C")
     check(rec["graph_form"] == "sparse" and rec["train_store"] == "csr", f"C form {rec}")
     blocks = -(-host.user_num // cfg.train.batch)  # 38 at 1,024 users a block
@@ -1908,6 +1935,462 @@ def phase_resume(dev, host, twin, want_loss: dict, report_dir: str) -> dict:
     return rec
 
 
+# ------------------------------------------------------- N, O: the mesh
+# Both run in spawned ranks (diffmm_tpu_torch/parallel/launch.py), so that no
+# process group outlives its phase in this process; a rank that fails fails
+# the run. N: NCCL at world size 1 (the card's own collectives, captured in
+# the steps' graphs). O: two gloo ranks sharing the one card, eager: a
+# correctness path, and none of its times is a speed figure (the ranks
+# share the card and gloo copies through the host). Path O's sizes, cut from
+# F's full epoch: three joint_blocks and one diffusion_block (a full F epoch
+# through gloo would move tens of GB: 22 (N, 64) f32 all-reduces a joint
+# step, over 300 steps). The function is held against N step by step, from
+# one state and one set of draws (E's and F's blocks): a whole epoch from a
+# fresh Adam state drifts further than the JAX mesh test's tolerance on the
+# card (f32 products over a rank's 512 rows round otherwise than over 1,024,
+# and Adam's first steps, about lr·sign(g), turn a rounding into an lr-sized
+# step: measured on E's diffusion steps, 3,887 parameters off by more than
+# 1e-5 after one step, 203,540 after three, the losses within 1e-6), so E's
+# epoch is held rank against rank and run against run, bitwise, and its
+# difference from N is recorded.
+MESH_TOL = {"rel": 2e-3, "abs": 1e-5}  # tests/test_parallel.py:76-79
+
+
+def _digest(tensors) -> str:
+    """A hash of the tensors' bytes (for rank-to-rank and run-to-run
+    bitwise checks without moving the tensors)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _close(a: float, b: float) -> bool:
+    return math.isclose(a, b, rel_tol=MESH_TOL["rel"], abs_tol=MESH_TOL["abs"])
+
+
+def _blocks(coach, shard, n_joint: int = 3) -> dict:
+    """One diffusion_block, then ``n_joint`` joint_blocks, of a fresh
+    Coach (E's or F's) with the train graph as each modality's graph, from
+    one set of draws made on the card from seed 11 (users, timesteps, noise,
+    the interaction blocks, the CL uniforms): the losses, the joint metrics
+    summed over the ranks, and the state's digest after each step."""
+    import torch
+
+    from diffmm_tpu_torch.models.gcn import project_features
+    from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
+    from diffmm_tpu_torch.train import steps
+
+    dev, host, cfg = coach.device, coach.host, coach.config
+    B, M, d = cfg.train.batch, coach.n_modal, cfg.base.latdim
+    coach.set_edge_buffers([coach.data.train_cols.clone() for _ in range(M)])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    users = torch.randperm(host.user_num, generator=gen, device=dev)[:B].to(torch.int32)
+    t = torch.randint(0, cfg.hyper.steps, (M, B), generator=gen, device=dev)
+    noise = torch.randn((M, B, host.item_num), generator=gen, device=dev)
+    rec = {"digests": [], "step_s": [], "joint_metrics": []}
+    t0 = time.perf_counter()
+    feats = project_features(coach.gcn_params, coach.data.raw_feats)
+    losses = steps.diffusion_block(coach.schedule, coach.dn_params, coach.dn_opt_states, feats,
+                                   coach.gcn_params["i_embs"], coach.data.train_store, users,
+                                   torch.ones(B, device=dev), 1e-3, coach.hp(), host.item_num, t=t,
+                                   noise=noise, shard=shard)
+    rec["diffusion_losses"] = losses.tolist()
+    rec["step_s"].append(time.perf_counter() - t0)
+    rec["digests"].append(_digest(_state(coach)))
+    del t, noise
+    for _ in range(n_joint):
+        pick = torch.randint(0, host.nnz, (B,), generator=gen, device=dev)
+        block = (coach.data.train_rows[pick], coach.data.train_cols[pick],
+                 torch.randint(0, host.item_num, (B,), generator=gen, device=dev).to(torch.int32))
+        cl = [torch.rand((host.user_num if j % 2 == 0 else host.item_num, d), generator=gen, device=dev)
+              for j in range(6)]
+        t0 = time.perf_counter()
+        metrics = steps.joint_block(coach.gcn_params, coach.gcn_opt_state, coach.data.adj, coach.modal_adjs,
+                                    coach.data.raw_feats, *block, 1e-3, coach.hp(), cfg.base.cl_method,
+                                    cfg.train.segsum_compute, cl_noise=cl, shard=shard)
+        if shard is not None and shard.count > 1:
+            metrics = all_reduce_sum_(metrics.contiguous(), shard.group)
+        rec["joint_metrics"].append(metrics.tolist())
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["digests"].append(_digest(_state(coach)))
+    return rec
+
+
+def _k4_bound(tables, srcs, offsets) -> tuple[float, str, int]:
+    """K4's bound over a call's edges (as :func:`_k4_case` counts it): the
+    table rows the real edges name, their indices, the offsets and the
+    output, each once, and one add per gathered element."""
+    import torch
+
+    M, R, d = tables.shape
+    n, real = offsets.numel() - 1, int(offsets[-1])
+    named = sum(int(torch.unique(s[:real][(s[:real] >= 0) & (s[:real] < R)]).numel()) for s in srcs)
+    n_bytes = named * d * tables.element_size() + 4 * real * M + 8 * (n + 1) + 4 * n * M * d
+    b, by = bound_ms(n_bytes, real * M * d, F32_FLOPS)
+    return b, by, n_bytes
+
+
+def _k4_mesh_cases(coach) -> dict:
+    """Path N: K4's mesh form at F's shapes (the user and item directions of
+    the train graph, the stacked user direction of the rebuilt graphs, the
+    item direction of the first), at world size 1 under NCCL: bitwise the
+    whole ``segsum_gather``; the time per rank (the slice's launch), the
+    all-reduce's, the form's; the bound over the rank's slice; the library
+    (``torch.sparse.mm`` over the same slice) plus the same all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+    from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
+    from diffmm_tpu_torch.parallel.segsum import local_offsets, sharded_segsum_gather, slice_segsum_gather
+
+    dev, world = coach.device, dist.group.WORLD
+    adj, modal = coach.data.adj, coach.modal_adjs
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for case, n_rows, src, offsets in (
+            ("user", adj.item_num, adj.ui_cols, adj.ui_offsets),
+            ("item", adj.user_num, adj.iu_cols, adj.iu_offsets),
+            ("stacked", adj.item_num, [m.ui_cols for m in modal], modal[0].ui_offsets),
+            ("modal_item", adj.user_num, modal[0].iu_cols, modal[0].iu_offsets)):
+        srcs = [src] if isinstance(src, torch.Tensor) else list(src)
+        tables = torch.randn((len(srcs), n_rows, 64), generator=gen, device=dev)
+        table, arg = (tables[0], srcs[0]) if len(srcs) == 1 else (tables, srcs)
+        nnz = srcs[0].numel()
+        lo, hi = coach.edge_shard.span(nnz)
+        before = dict(sg.LAUNCHES)
+        got = sharded_segsum_gather(table, arg, offsets, lo, hi, world)
+        launches = sg.LAUNCHES["segsum"] - before["segsum"]
+        whole = sg.segsum_gather(table, arg, offsets)
+        plain = sg.segsum_gather_plain(table, arg, offsets)
+        frame = torch.zeros_like(got)
+        local = local_offsets(offsets, lo, hi)
+        b, by, n_bytes = _k4_bound(tables, [s[lo:hi] for s in srcs], local)
+        allreduce_ms = time_ms(lambda: all_reduce_sum_(frame, world), 50)
+        lib_ms, lib_refused = _library_ms(tables, [s[lo:hi] for s in srcs], local, 10)
+        rec = {
+            "shape": [offsets.numel() - 1, n_rows, nnz, len(srcs), 64], "slice": [lo, hi],
+            "bitwise_whole": torch.equal(got, whole), "launches_per_call": launches,
+            "max_abs_err": max_err(got, plain),
+            "ms": time_ms(lambda: sharded_segsum_gather(table, arg, offsets, lo, hi, world), 50),
+            "rank_ms": time_ms(lambda: slice_segsum_gather(table, arg, offsets, lo, hi), 50),
+            "allreduce_ms": allreduce_ms, "allreduce_bytes": frame.numel() * 4,
+            "plain_ms": time_ms(lambda: sg.segsum_gather_plain(table, arg, offsets), 5),
+            "bound_ms": b, "bound_by": by, "bound_bytes": n_bytes,
+            "library_ms": None if lib_ms is None else lib_ms + allreduce_ms, "library_refused": lib_refused,
+        }
+        rec["ok"] = rec["bitwise_whole"] and launches == 1
+        check(rec["ok"], f"N K4 mesh form {case}: {rec}")
+        out[case] = rec
+        print(f"[path N] K4 mesh form {case}: {json.dumps(rec)}")
+    return out
+
+
+def mesh_path_n(report_dir: str) -> dict:
+    """Path N, in one NCCL rank: E's and F's data and settings, two epochs,
+    each with ``test_epoch``, on a 1x1 mesh (the steps captured with their
+    collectives) against the same on a Coach without a mesh: losses,
+    metrics, parameters, moments, edge buffers and generator bitwise; the
+    kernel counters set to 0 just before the mesh Coach's epoch and eval
+    and read just after. K4's mesh form at F's shapes; ``recommend(mesh)``
+    at model 1 bitwise the plain call; F's blocks of path O at world size 1;
+    the gradient all-reduce's time a step."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.eval.serving import build_index, recommend
+    from diffmm_tpu_torch.parallel import make_mesh
+    from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(1, model_parallel=1)
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    for label, setup in (("E", _tiktok_shape), ("F", _yelp_shape)):
+        cfg, host = setup()
+        runs = {}
+        for kind in ("plain", "mesh"):
+            coach = Coach(copy.deepcopy(cfg), host, device=dev, mesh=None if kind == "plain" else mesh)
+            torch.cuda.synchronize()
+            for counts in _counters():
+                for k in counts:
+                    counts[k] = 0
+            losses, metrics, walls = [], [], []
+            for epoch in range(2):  # the first epoch captures; the second is steady
+                coach.timer.reset()
+                t0 = time.perf_counter()
+                losses.append(coach.train_epoch(epoch, fence=True))
+                walls.append(time.perf_counter() - t0)
+                metrics.append(coach.test_epoch())
+            torch.cuda.synchronize()
+            launches = {k: v for counts in _counters() for k, v in counts.items()}
+            runs[kind] = {"losses": losses, "metrics": metrics, "state": _state(coach), "epoch_s": walls,
+                          "phases_s": dict(coach.timer.totals), "launches": launches, "coach": coach}
+        p, m = runs["plain"], runs["mesh"]
+        same = p["losses"] == m["losses"] and p["metrics"] == m["metrics"] and _bitwise(p["state"], m["state"])
+        check(same, f"N {label}: the 1x1 mesh Coach differs from the plain one: {m['losses']} {p['losses']}")
+        # path O's epoch is one from a fresh Coach: its losses and metrics
+        # are set beside the first epoch's
+        m["losses"], m["metrics"] = m["losses"][0], m["metrics"][0]
+        coach = m["coach"]
+        replays = {key[0]: g.replays for key, g in coach.graphs.graphs.items()}
+        check(coach.capture_steps and replays.get("joint", 0) > 0, f"N {label}: steps not captured {replays}")
+        want = ("spmm_dual",) if label == "E" else ("segsum",)
+        check(all(m["launches"][k] > 0 for k in (*want, "denoise_layer1", "denoise_layer2")),
+              f"N {label} launches {m['launches']}")
+        n_grad = sum(t.numel() for t in tree_leaves(coach.gcn_params))
+        buf = torch.zeros(n_grad, device=dev)
+        rec[label] = {
+            "bitwise_plain": same, "losses": m["losses"], "metrics": m["metrics"], "epoch_s": m["epoch_s"],
+            "phases_s": m["phases_s"], "plain_epoch_s": p["epoch_s"], "plain_phases_s": p["phases_s"],
+            "launches": m["launches"], "graph_replays": replays,
+            "grad_all_reduce_ms": time_ms(lambda: all_reduce_sum_(buf, dist.group.WORLD), 50),
+            "grad_all_reduce_bytes": 4 * n_grad,
+        }
+        if label == "E":
+            index = build_index(coach)
+            users = torch.arange(0, host.user_num, 97, device=dev)[:64]
+            a, b = recommend(index, users, 20, True, mesh), recommend(index, users, 20, True)
+            rec["recommend_model1_bitwise"] = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            check(rec["recommend_model1_bitwise"], "N: recommend(mesh) at model 1 differs from the plain call")
+        else:
+            rec["k4_mesh"] = _k4_mesh_cases(coach)
+        del runs, coach
+        gc.collect()
+        fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
+        rec[f"{label}_blocks"] = _blocks(fresh, fresh.data_shard)
+        del fresh
+        print(f"[path N] {label}: {json.dumps({k: v for k, v in rec[label].items()})}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _hub_cut_ids(gen, n: int, nnz: int, pads: int, hub: int, device):
+    """F's rebuilt item layout with its hub (``hub`` edges) on the middle id,
+    so that the hub's edges straddle the middle edge: two ranks cut it."""
+    import torch
+
+    hub_id = n // 2
+    others = torch.randint(0, n - 1, (nnz - pads - hub,), generator=gen, device=device)
+    others = others + (others >= hub_id).long()
+    ids = torch.sort(torch.cat([others, torch.full((hub,), hub_id, device=device)]).to(torch.int32)).values
+    return torch.cat([ids, torch.full((pads,), n, dtype=torch.int32, device=device)])
+
+
+def _k4_mesh_checks(coach) -> dict:
+    """Path O: K4's mesh form on two ranks at F's user, item, item-hub (the
+    hub cut by the rank boundary) and stacked shapes, against the whole
+    ``segsum_gather`` on the rank within K4's rule; and the backward of a
+    ``Propagate`` on the mesh (this rank's rows of the loss, the input
+    gradient summed over the ranks) against the whole one, within K4's
+    rule on the backward's terms."""
+    import torch
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.ops.graph import Propagate
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+    from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
+    from diffmm_tpu_torch.parallel.segsum import sharded_segsum_gather
+
+    dev, world, shard = coach.device, dist.group.WORLD, coach.edge_shard
+    adj, modal = coach.data.adj, coach.modal_adjs
+    U, I, nnz = adj.user_num, adj.item_num, adj.ui_cols.numel()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rtol, atol = TOL["segsum"]
+    hub_ids = _hub_cut_ids(gen, I, nnz, nnz - int(adj.ui_offsets[-1]), YELP["hub"], dev)
+    hub_src = torch.randint(0, U, (nnz,), generator=gen, device=dev).to(torch.int32)
+    hub_off = sg.segment_offsets(hub_ids, I)
+    hub_src[int(hub_off[-1]):] = U
+    lo, hi = shard.span(nnz)
+    out = {"hub_cut": bool(hub_ids[lo - 1] == hub_ids[lo] == I // 2) if lo > 0 else
+           bool(hub_ids[hi - 1] == hub_ids[hi] == I // 2)}
+    for case, n_rows, src, offsets in (
+            ("user", I, adj.ui_cols, adj.ui_offsets), ("item", U, adj.iu_cols, adj.iu_offsets),
+            ("item_hub", U, hub_src, hub_off), ("stacked", I, [m.ui_cols for m in modal], modal[0].ui_offsets)):
+        srcs = [src] if isinstance(src, torch.Tensor) else list(src)
+        tables = torch.randn((len(srcs), n_rows, 64), generator=gen, device=dev)
+        table, arg = (tables[0], srcs[0]) if len(srcs) == 1 else (tables, srcs)
+        got = sharded_segsum_gather(table, arg, offsets, lo, hi, world)
+        want = sg.segsum_gather(table, arg, offsets)
+        scale = sg.segsum_gather(table.abs(), arg, offsets)
+        out[case] = {"ok": bool(((got - want).abs() <= rtol * scale + atol).all()),
+                     "max_abs_err": max_err(got, want)}
+    # the backward: y = Propagate(z) over the user direction, the loss's rows
+    # split over the ranks' data spans
+    z = torch.randn((I, 64), generator=gen, device=dev)
+    w = torch.randn((U, 64), generator=gen, device=dev)
+    grads = []
+    for sh in (shard, None):
+        zz = z.clone().requires_grad_()
+        y = Propagate.apply(zz, adj.ui_cols, adj.ui_offsets, adj.iu_cols, adj.iu_offsets, "f32", sh)
+        r_lo, r_hi = coach.data_shard.span(U) if sh is not None else (0, U)
+        (w[r_lo:r_hi] * y[r_lo:r_hi]).sum().backward()
+        grads.append(zz.grad if sh is None else all_reduce_sum_(zz.grad.clone(), world))
+    scale = sg.segsum_gather(w.abs(), adj.iu_cols, adj.iu_offsets)
+    out["propagate_backward"] = {"ok": bool(((grads[0] - grads[1]).abs() <= rtol * scale + atol).all()),
+                                 "max_abs_err": max_err(grads[0], grads[1])}
+    check(all(v["ok"] for k, v in out.items() if k != "hub_cut") and out["hub_cut"], f"O K4 mesh form: {out}")
+    return out
+
+
+def _mesh_http(placed, whole, mesh) -> dict:
+    """Path O: rank 0 serves ``placed`` over HTTP in two catalog shards
+    (``eval/serve_http.py``) and sends 20 requests, each against a direct
+    ``recommend`` on the whole index; rank 1 follows."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.eval.serve_http import ShardedRecommender, follow, make_server
+    from diffmm_tpu_torch.eval.serving import recommend
+
+    if dist.get_rank() != 0:
+        return {"served": follow(placed, mesh)}
+    recommender = ShardedRecommender(placed, mesh)
+    server = make_server(placed, "127.0.0.1", 0, recommender=recommender)
+    thread = threading.Thread(target=server.serve_forever)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rec = {"ids_equal": True, "max_score_diff": 0.0, "latency_ms": []}
+    try:
+        for j in range(20):
+            user, k, mask = (997 * j) % placed.u_final.shape[0], 1 + (j * 7) % 50, j % 4 != 0
+            t0 = time.perf_counter()
+            code, body = _http_get(f"{base}/recommend?user={user}&k={k}&mask_seen={int(mask)}")
+            rec["latency_ms"].append((time.perf_counter() - t0) * 1e3)
+            ids, scores = recommend(whole, torch.tensor([user], device=whole.u_final.device), k, mask)
+            rec["ids_equal"] &= code == 200 and body["items"] == ids[0].tolist()
+            rec["max_score_diff"] = max(rec["max_score_diff"],
+                                        max(abs(a - b) for a, b in zip(body["scores"], scores[0].tolist())))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        recommender.stop()
+    return rec
+
+
+def mesh_path_o(report_dir: str) -> dict:
+    """Path O, in each of two gloo ranks on the one card: E's settings, one
+    epoch and ``test_epoch`` on a 2x1 mesh (eager steps), twice from fresh
+    Coaches; ``recommend`` over E's index at model 2 against the replicated
+    call and 20 requests to the two-shard HTTP server; E's and F's blocks
+    (:func:`_blocks`) twice each; K4's mesh form and a Propagate's backward
+    at F's shapes. Returns digests, losses, metrics, seconds and the rank's
+    peak memory."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.eval.serving import build_index, place_index, recommend
+    from diffmm_tpu_torch.parallel import make_mesh
+    from diffmm_tpu_torch.train.coach import Coach
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(2, model_parallel=1)
+    rec = {"rank": dist.get_rank(), "backend": dist.get_backend(), "E": [], "E_blocks": [], "F_blocks": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_start = time.perf_counter()
+    cfg, host = _tiktok_shape()
+    for _ in range(2):
+        coach = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
+        check(not coach.capture_steps, "O: a gloo Coach must run its steps eagerly")
+        t0 = time.perf_counter()
+        losses = coach.train_epoch(0, fence=True)
+        wall = time.perf_counter() - t0
+        metrics = coach.test_epoch()
+        rec["E"].append({"losses": losses, "metrics": metrics, "digest": _digest(_state(coach)),
+                         "epoch_s": wall, "phases_s": dict(coach.timer.totals)})
+    index = build_index(coach)
+    mesh2 = make_mesh(2, model_parallel=2)
+    placed = place_index(index, mesh2)
+    users = torch.arange(0, host.user_num, 97, device=dev)[:64]
+    (ids_a, sc_a), (ids_b, sc_b) = recommend(placed, users, 20, True, mesh2), recommend(index, users, 20, True)
+    rec["recommend_model2"] = {"ids_equal": torch.equal(ids_a, ids_b),
+                               "max_score_diff": float((sc_a - sc_b).abs().max()),
+                               "placed_rows": placed.i_final.shape[0]}
+    rec["http"] = _mesh_http(placed, index, mesh2)
+    del coach, index, placed
+    gc.collect()
+    for _ in range(2):
+        fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
+        rec["E_blocks"].append(_blocks(fresh, fresh.data_shard))
+    del fresh
+    gc.collect()
+    cfg, host = _yelp_shape()
+    for _ in range(2):
+        fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
+        rec["F_blocks"].append(_blocks(fresh, fresh.data_shard))
+    rec["k4"] = _k4_mesh_checks(fresh)
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return rec
+
+
+def phase_mesh(report_dir: str) -> tuple[dict, dict]:
+    """Paths N and O in their ranks, and the checks across them: O's ranks
+    bitwise equal to each other after every step and from run to run, O
+    within rel 2e-3 / abs 1e-5 of N (the JAX mesh test's tolerance)."""
+    from diffmm_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    (n,) = run_ranks(mesh_path_n, 1, (report_dir,), backend="nccl", timeout=900)
+    n["seconds"] = time.perf_counter() - t0
+    print(f"[path N] {n['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    o = run_ranks(mesh_path_o, 2, (report_dir,), backend="gloo", timeout=1200)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(report_dir, "mesh_paths.json"), "w") as fh:
+        json.dump({"N": n, "O": o}, fh, indent=1)
+    r0, r1 = o
+    for run in range(2):
+        check(r0["E"][run]["digest"] == r1["E"][run]["digest"], f"O: ranks' E state differs (run {run})")
+        for label in ("E", "F"):
+            check(r0[f"{label}_blocks"][run]["digests"] == r1[f"{label}_blocks"][run]["digests"],
+                  f"O: ranks' {label} state differs after a step (run {run})")
+    check(r0["E"][0]["digest"] == r0["E"][1]["digest"] and r0["E"][0]["losses"] == r0["E"][1]["losses"]
+          and r0["E"][0]["metrics"] == r0["E"][1]["metrics"], "O: two runs of E differ")
+    for label in ("E", "F"):
+        check(r0[f"{label}_blocks"][0]["digests"] == r0[f"{label}_blocks"][1]["digests"],
+              f"O: two runs of {label}'s blocks differ")
+    for kind in ("losses", "metrics"):
+        for k, v in r0["E"][0][kind].items():
+            check(math.isfinite(v), f"O E {kind} {k}={v}")
+    agree = {}
+    for label in ("E", "F"):
+        want, got = n[f"{label}_blocks"], r0[f"{label}_blocks"][0]
+        agree[f"{label}_diffusion_losses"] = all(_close(a, b) for a, b in zip(got["diffusion_losses"],
+                                                                              want["diffusion_losses"]))
+        agree[f"{label}_joint_metrics"] = all(_close(a, b) for ga, wa in zip(got["joint_metrics"],
+                                                                              want["joint_metrics"])
+                                              for a, b in zip(ga, wa))
+    check(all(agree.values()), f"O against N: {agree}")
+    # E's whole epoch from a fresh state, recorded beside N's (see the note
+    # above path N): relative differences of its losses and metrics
+    epoch_vs_n = {kind: {k: abs(r0["E"][0][kind][k] - v) / max(abs(v), 1e-12) for k, v in n["E"][kind].items()}
+                  for kind in ("losses", "metrics")}
+    check(r0["recommend_model2"]["ids_equal"] and r0["recommend_model2"]["max_score_diff"] <= 1e-5,
+          f"O recommend at model 2: {r0['recommend_model2']}")
+    check(r0["http"]["ids_equal"] and r0["http"]["max_score_diff"] <= 1e-5 and r1["http"] == {"served": 20},
+          f"O HTTP: {r0['http']} {r1['http']}")
+    rec = {"ranks": o, "agree_with_N": agree, "E_epoch_rel_diff_vs_N": epoch_vs_n, "seconds": seconds,
+           "peak_mem_bytes": [r["peak_mem_bytes"] for r in o]}
+    print(f"[path O] {json.dumps({k: v for k, v in rec.items() if k != 'ranks'})}")
+    return n, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--report-dir", default=os.path.join(REPO, "smoke_report"),
@@ -1961,6 +2444,8 @@ def main(argv=None) -> int:
                                                     "E_joint_eager", args.report_dir)
     report["profile_F_joint"] = phase_profile(_joint_phase_work(coach_f, 0), "F_joint", args.report_dir)
     del coach_f
+    gc.collect()
+    report["path_N"], report["path_O"] = phase_mesh(args.report_dir)
 
     # each kernel's launches come from this slice's path that runs it: K1-K3
     # from E (dense-form training), K4 from F (sparse-form training); the
@@ -1974,6 +2459,7 @@ def main(argv=None) -> int:
         row = {"name": name, "route": "cuda", "source": meta["source"],
                "replaces": meta["replaces"], "launches": launches,
                **{f"launches_{p}": report[f"path_{p}"]["launches"][name] for p in others},
+               "launches_N": report["path_N"]["F" if name == "segsum" else "E"]["launches"][name],
                **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}
         if name == "spmm_dual":
@@ -1988,6 +2474,14 @@ def main(argv=None) -> int:
             extra = {"cases": {key: {f: rec[f] for f in K4_CASE_FIELDS if f in rec}
                                for key, rec in kernels.items()
                                if key.startswith("segsum_") and key != "segsum_user"}}
+            # the mesh forms (sharded_sorted_segment_sum, sharded_ranked_segment_sum):
+            # one launch over a rank's edge slice and an all-reduce
+            row["mesh_form"] = {"replaces": ["diffmm_tpu/ops/pallas/segsum.py:455",
+                                             "diffmm_tpu/ops/pallas/segsum.py:708"],
+                                "source": "diffmm_tpu_torch/parallel/segsum.py",
+                                "launches_N": row["launches_N"],
+                                "world_1_nccl": report["path_N"]["k4_mesh"],
+                                "world_2_gloo_checks": report["path_O"]["ranks"][0]["k4"]}
         else:
             extra = {"yelp_shape": kernels[name + "_yelp"]}
             row.update({key: k[key] for key in ("bound_design_ms", "bound_design", "bound_f32_fma_ms",

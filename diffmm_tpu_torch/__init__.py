@@ -20,4 +20,12 @@ O(nnz) edges), through ``python -m diffmm_tpu_torch`` (``cli.py``) or the
 Its hand-written Hopper kernels are in ``csrc/`` and are wrapped by
 ``ops/kernels/``; the propagations' backwards launch them too. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+On several cards (``parallel/``, ``--mesh``/``--distributed``) it runs one
+process per card over a ``(data, model)`` mesh (:func:`make_mesh`), as the
+JAX package's mesh does.
 """
+
+from diffmm_tpu_torch.parallel.mesh import make_mesh
+
+__all__ = ["make_mesh"]

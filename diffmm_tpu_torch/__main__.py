@@ -1,4 +1,9 @@
 from diffmm_tpu_torch.cli import main
+from diffmm_tpu_torch.parallel.mesh import shutdown_distributed
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    try:
+        code = main()
+    finally:
+        shutdown_distributed()
+    raise SystemExit(code)

@@ -1,10 +1,13 @@
 """Full-catalog ranking evaluation: Recall@K / NDCG@K / Precision@K.
 
-Counterpart of ``diffmm_tpu/eval/ranking.py`` on one device: masked scoring
-and top-k (reference `Main.py:403-411`), and the vectorised metric sums
-(reference `Main.py:422-448`). ``u @ i_final.T`` stays ``torch.matmul``: the
-JAX package computes it outside any Pallas kernel too. The distributed
-top-k of a mesh comes with the multi-device slice.
+Counterpart of ``diffmm_tpu/eval/ranking.py``: masked scoring and top-k
+(reference `Main.py:403-411`), and the vectorised metric sums (reference
+`Main.py:422-448`). ``u @ i_final.T`` stays ``torch.matmul``: the JAX
+package computes it outside any Pallas kernel too. On a mesh with a model
+axis, :func:`make_score_topk` is the JAX package's exact distributed top-k
+over catalog shards (``ranking.py:54-120``); the data axis splits the eval
+blocks' users in the Coach (``Coach._eval_sums``), which adds the metric
+sums over it.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from diffmm_tpu_torch.data.membership import gather_rows
+from diffmm_tpu_torch.data.membership import TrainCSR, gather_item_lists, gather_rows
+from diffmm_tpu_torch.parallel.collectives import placed_all_reduce
 
 
 class EvalBatchSums(NamedTuple):
@@ -36,6 +40,56 @@ def _plain_score_topk(u, i_final, train_store, users, topk):
     mask = gather_rows(train_store, users, i_final.shape[0])
     scores = (u @ i_final.T) * (1.0 - mask) - mask * 1e8
     return torch.topk(scores, topk, dim=1).indices
+
+
+def make_score_topk(topk: int, mesh=None):
+    """``(u, i_final, train_store, users) -> (B, topk)`` global item ids.
+
+    Without a mesh, or with a model axis of 1, the replicated full-catalog
+    scoring. On a model axis of m ranks each scores the block's users
+    against its own catalog shard only, ``(B, I/m)`` with its part of the
+    mask, takes a local top-k, offsets its ids to global ones, and a placed
+    all-reduce over the model axis brings every shard's k candidates
+    together, ``(B, m·k)`` values and ids, for one final top-k: the top-k
+    of the union of the shards' top-ks is the global top-k, so the ids are
+    the replicated call's (ties at the -1e8 mask floor may order
+    differently; masked items are train items, never test items).
+
+    A dense store's columns are sliced; a CSR store's seen lists are
+    gathered whole and each rank keeps the items of its range (JAX
+    ``local_mask_csr``). ``i_final`` is the whole (I, d) table. A catalog
+    the axis does not divide, or shards thinner than k, take the replicated
+    branch, as in the JAX package (``ranking.py:83-86``)."""
+    from diffmm_tpu_torch.parallel.mesh import MODEL_AXIS, axis_index, axis_size
+
+    m = 1 if mesh is None else axis_size(mesh, MODEL_AXIS)
+    if m == 1:
+        return lambda u, i_final, train_store, users: _plain_score_topk(u, i_final, train_store, users, topk)
+    r, group = axis_index(mesh, MODEL_AXIS), mesh.get_group(MODEL_AXIS)
+
+    def sharded(u, i_final, train_store, users):
+        item_num = i_final.shape[0]
+        if item_num % m or topk > item_num // m:
+            return _plain_score_topk(u, i_final, train_store, users, topk)
+        width = item_num // m
+        off = r * width
+        b = users.shape[0]
+        if isinstance(train_store, TrainCSR):
+            seen, valid = gather_item_lists(train_store, users)
+            loc = seen.long() - off
+            loc = torch.where(valid & (loc >= 0) & (loc < width), loc, width)  # out of range: dropped
+            mask = torch.zeros((b, width + 1), dtype=torch.float32, device=u.device)
+            mask = mask.scatter_(1, loc, 1.0)[:, :width]
+        else:
+            mask = train_store.index_select(0, users.long())[:, off:off + width].to(torch.float32)
+        s = (u @ i_final[off:off + width].T) * (1.0 - mask) - mask * 1e8
+        vals, idx = torch.topk(s, topk, dim=1)
+        vals_all = placed_all_reduce(vals, r * topk, m * topk, group, dim=1)
+        ids_all = placed_all_reduce(idx + off, r * topk, m * topk, group, dim=1)
+        sel = torch.topk(vals_all, topk, dim=1).indices
+        return torch.gather(ids_all, 1, sel)
+
+    return sharded
 
 
 def _metric_sums(

@@ -13,7 +13,10 @@ bipartite adjacency ``D^-1/2 (A + I) D^-1/2`` over the (user, item) nodes
   the rows its edges name, in one launch of the gather-fused ``segsum``
   kernel (K4) on the card, in f32 (or from a bf16 table,
   ``compute="bf16"``). Nothing of size O(U·I), and no per-edge message
-  tensor, exists in this form.
+  tensor, exists in this form. On a mesh (``BiAdj.shard``) each rank sums
+  its own range of the edges in either order and the ranks' partials are
+  added (K4's mesh forms, ``parallel/segsum.py``; the JAX package's
+  ``sharded_sorted_segment_sum`` and ``sharded_ranked_segment_sum``).
 
 Both forms differentiate through their kernels: K1's backward is
 :class:`~diffmm_tpu_torch.ops.kernels.spmm_dual.SpmmDual`, and the sparse
@@ -32,7 +35,9 @@ import numpy as np
 import torch
 
 from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum_gather
-from diffmm_tpu_torch.ops.kernels.spmm_dual import SpmmDual, dense_storage
+from diffmm_tpu_torch.ops.kernels.spmm_dual import SpmmDual, dense_storage, spmm_dual
+from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
+from diffmm_tpu_torch.parallel.segsum import slice_segsum_gather
 
 
 class DenseBiAdj(NamedTuple):
@@ -45,11 +50,16 @@ class DenseBiAdj(NamedTuple):
         nibble order).
       s_user: (U,) f32 ``(deg_u + 1)^-1/2``.
       s_item: (I,) f32 ``(deg_i + 1)^-1/2``.
+      shard: None on one device; on a mesh's data axis, this rank's
+        :class:`~diffmm_tpu_torch.parallel.sharding.Shard`: the blocks stay
+        whole on every rank, and the backward keeps the rank's rows of the
+        gradients (:class:`MeshSpmmDual`).
     """
 
     mat: torch.Tensor
     s_user: torch.Tensor
     s_item: torch.Tensor
+    shard: object = None
 
     @property
     def user_num(self) -> int:
@@ -77,6 +87,12 @@ class BiAdj(NamedTuple):
       iu_cols: (nnz,) int32 ``ui_rows[iu_perm]``, the user per item-major edge.
       ui_offsets: (U + 1,) int64 CSR offsets of ``ui_rows``.
       iu_offsets: (I + 1,) int64 CSR offsets of ``iu_rows``.
+      shard: None on one device; on a mesh, this rank's
+        :class:`~diffmm_tpu_torch.parallel.sharding.Shard` of the edges
+        (``parallel/sharding.py::edge_shard``): its ``span(nnz)`` is the
+        range of positions the rank sums, in the user-major order and in
+        the item-major order alike (the JAX package shards ``ui_rows``,
+        ``ui_cols`` and ``iu_perm`` over the same axes).
 
     The item-major pair and both offsets are fixed per build, so they are
     made once there (the JAX package recomputes the pair per call inside its
@@ -93,6 +109,7 @@ class BiAdj(NamedTuple):
     iu_cols: torch.Tensor
     ui_offsets: torch.Tensor
     iu_offsets: torch.Tensor
+    shard: object = None
 
     @property
     def user_num(self) -> int:
@@ -223,15 +240,15 @@ def build_bi_adj_device(
     degrees and out of every reduction. With ``out`` (of the same shapes),
     the fields are copied into its tensors in place, which a captured graph
     then reads; a field that is the same tensor (the shared train rows) is
-    left as it is. Every size here is the edge count's, so nothing waits
-    for the card."""
+    left as it is, and so is ``out``'s edge shard. Every size here is the
+    edge count's, so nothing waits for the card."""
     ui_cols = ui_cols.to(torch.int32)
     iu_perm = torch.argsort(ui_cols, stable=True).to(torch.int32)
     adj = assemble_bi_adj(ui_rows.to(torch.int32), ui_cols, iu_perm, user_num, item_num)
     if out is None:
         return adj
     for dst, src in zip(out, adj):
-        if dst is not src:
+        if isinstance(dst, torch.Tensor) and dst is not src:
             dst.copy_(src)
     return out
 
@@ -242,34 +259,71 @@ def _cast(z: torch.Tensor, compute: str) -> torch.Tensor:
     return z.to(torch.bfloat16) if compute == "bf16" else z
 
 
+def _sum(table: torch.Tensor, src, offsets: torch.Tensor, shard) -> torch.Tensor:
+    """One direction's K4 launch: the whole sum on one device; on a mesh the
+    rank's edge range, summed over the ranks (K4's mesh form, with the
+    all-reduce in place on the launch's own output)."""
+    if shard is None:
+        return segsum_gather(table, src, offsets)
+    nnz = (src if isinstance(src, torch.Tensor) else src[0]).shape[0]
+    lo, hi = shard.span(nnz)
+    return all_reduce_sum_(slice_segsum_gather(table, src, offsets, lo, hi), shard.group)
+
+
+def _partial(table: torch.Tensor, src, offsets: torch.Tensor, shard) -> torch.Tensor:
+    """A backward's K4 launch: the whole sum on one device; on a mesh the
+    rank's edge range only (its part of the parameters' gradient, which the
+    step's gradient all-reduce adds up)."""
+    if shard is None:
+        return segsum_gather(table, src, offsets)
+    nnz = (src if isinstance(src, torch.Tensor) else src[0]).shape[0]
+    lo, hi = shard.span(nnz)
+    return slice_segsum_gather(table, src, offsets, lo, hi)
+
+
+def _total(g: torch.Tensor, shard) -> torch.Tensor:
+    """The cotangent a backward reduces: its own on one device; on a mesh
+    the sum of every rank's (each rank's loss covers its own rows, and the
+    edge range's transpose must see the whole cotangent)."""
+    if shard is None:
+        return g
+    return all_reduce_sum_(g.contiguous().clone(), shard.group)
+
+
 class Propagate(torch.autograd.Function):
     """One direction of the sparse form, ``y[r] = sum_{e in segment r}
     z[src[e]]`` over the CSR ``offsets``: one K4 launch that gathers the
     rows itself (JAX ``_get_propagator``, ``graph.py:339-392``).
 
-    ``Propagate.apply(z, src, offsets, bwd_src, bwd_offsets, compute)``:
-    the backward is the same sorted reduction in the opposite order, one K4
-    launch: the cotangent's rows named by ``bwd_src`` (the forward's segment
-    of each edge, in the other direction's edge order) reduced over
-    ``bwd_offsets``. An edge that is a pad in the forward's segments names
-    the row one past the cotangent's last, which K4 reads as zeros (the JAX
-    backward masks ``src_rows < n_out``); the pads of the forward's own
-    order (source index one past z's rows) lie past ``offsets[n]`` and are
-    never read. No scatter and no atomics in either pass. ``compute="bf16"``
-    rounds z, and in the backward the cotangent, to bf16 before the
-    gather, as the JAX code does."""
+    ``Propagate.apply(z, src, offsets, bwd_src, bwd_offsets, compute,
+    shard)``: the backward is the same sorted reduction in the opposite
+    order, one K4 launch: the cotangent's rows named by ``bwd_src`` (the
+    forward's segment of each edge, in the other direction's edge order)
+    reduced over ``bwd_offsets``. An edge that is a pad in the forward's
+    segments names the row one past the cotangent's last, which K4 reads as
+    zeros (the JAX backward masks ``src_rows < n_out``); the pads of the
+    forward's own order (source index one past z's rows) lie past
+    ``offsets[n]`` and are never read. No scatter and no atomics in either
+    pass. ``compute="bf16"`` rounds z, and in the backward the cotangent,
+    to bf16 before the gather, as the JAX code does.
+
+    ``shard`` (the adjacency's, None on one device): the forward sums the
+    rank's edge range and all-reduces the partials; the backward first
+    all-reduces the cotangent, then sums the rank's range of the opposite
+    order, so that every edge's term enters the gradient sum of the ranks
+    exactly once (the JAX mesh forms' VJP, ``graph.py:339-520``)."""
 
     @staticmethod
-    def forward(ctx, z, src, offsets, bwd_src, bwd_offsets, compute):
+    def forward(ctx, z, src, offsets, bwd_src, bwd_offsets, compute, shard=None):
         ctx.save_for_backward(bwd_src, bwd_offsets)
-        ctx.compute = compute
-        return segsum_gather(_cast(z, compute), src, offsets)
+        ctx.compute, ctx.shard = compute, shard
+        return _sum(_cast(z, compute), src, offsets, shard)
 
     @staticmethod
     def backward(ctx, g):
         bwd_src, bwd_offsets = ctx.saved_tensors
-        dz = segsum_gather(_cast(g, ctx.compute), bwd_src, bwd_offsets)
-        return dz, None, None, None, None, None
+        dz = _partial(_cast(_total(g, ctx.shard), ctx.compute), bwd_src, bwd_offsets, ctx.shard)
+        return dz, None, None, None, None, None, None
 
 
 class StackedUserPropagate(torch.autograd.Function):
@@ -280,19 +334,22 @@ class StackedUserPropagate(torch.autograd.Function):
     (M, U, d): one K4 launch over the shared user-major offsets that
     gathers each modality's rows by its own columns into an (U, M·d)
     output. The backward reduces by each modality's own item-major layout,
-    one K4 launch a modality."""
+    one K4 launch a modality. On a mesh (the adjacencies' ``shard``), both
+    passes take the rank's edge range as :class:`Propagate` does, the
+    forward with one all-reduce of the (U, M·d) partial."""
 
     @staticmethod
     def forward(ctx, z, adjs, compute):
         ctx.adjs, ctx.compute = adjs, compute
         M, d, U = z.shape[0], z.shape[2], adjs[0].user_num
-        wide = segsum_gather(_cast(z, compute), [a.ui_cols for a in adjs], adjs[0].ui_offsets)
+        wide = _sum(_cast(z, compute), [a.ui_cols for a in adjs], adjs[0].ui_offsets, adjs[0].shard)
         return wide.view(U, M, d).permute(1, 0, 2)
 
     @staticmethod
     def backward(ctx, g):
-        g = _cast(g, ctx.compute)
-        dz = torch.stack([segsum_gather(g[m], a.iu_cols, a.iu_offsets) for m, a in enumerate(ctx.adjs)])
+        shard = ctx.adjs[0].shard
+        g = _cast(_total(g, shard), ctx.compute)
+        dz = torch.stack([_partial(g[m], a.iu_cols, a.iu_offsets, shard) for m, a in enumerate(ctx.adjs)])
         return dz, None, None
 
 
@@ -303,20 +360,52 @@ class MultiItemPropagate(torch.autograd.Function):
     ``MultiItemPropagate.apply(z, adjs, compute)`` with z (M, U, d) ->
     (M, I, d): one K4 launch a modality, each over its own item-major
     layout. The backward reduces by the shared user-major layout: one K4
-    launch over all M cotangents at once."""
+    launch over all M cotangents at once. On a mesh, the rank's edge range
+    in both passes, as :class:`Propagate`."""
 
     @staticmethod
     def forward(ctx, z, adjs, compute):
         ctx.adjs, ctx.compute = adjs, compute
         z = _cast(z, compute)
-        return torch.stack([segsum_gather(z[m], a.iu_cols, a.iu_offsets) for m, a in enumerate(adjs)])
+        return torch.stack([_sum(z[m], a.iu_cols, a.iu_offsets, a.shard) for m, a in enumerate(adjs)])
 
     @staticmethod
     def backward(ctx, g):
         adjs = ctx.adjs
         M, d, U = g.shape[0], g.shape[2], adjs[0].user_num
-        wide = segsum_gather(_cast(g, ctx.compute), [a.ui_cols for a in adjs], adjs[0].ui_offsets)
+        g = _cast(_total(g, adjs[0].shard), ctx.compute)
+        wide = _partial(g, [a.ui_cols for a in adjs], adjs[0].ui_offsets, adjs[0].shard)
         return wide.view(U, M, d).permute(1, 0, 2), None, None
+
+
+class MeshSpmmDual(torch.autograd.Function):
+    """K1 on a mesh's data axis: ``MeshSpmmDual.apply(mat, z_u, z_i,
+    shard)``. The forward is the one-device call, the same on every rank
+    (the blocks are replicated). The backward first sums the two cotangents
+    over the ranks (one all-reduce; each rank's is its own share of the
+    loss's), launches K1 on the totals, so that the bf16 rounding of K1's
+    operands falls on the whole cotangent as on one device, and keeps the
+    rank's rows of each gradient (zeros elsewhere): the step's gradient
+    all-reduce then adds every row once."""
+
+    @staticmethod
+    def forward(ctx, mat, z_u, z_i, shard):
+        ctx.save_for_backward(mat)
+        ctx.shard = shard
+        return spmm_dual(mat, z_u, z_i)
+
+    @staticmethod
+    def backward(ctx, g_u, g_i):
+        (mat,) = ctx.saved_tensors
+        shard = ctx.shard
+        total = all_reduce_sum_(torch.cat([g_u.reshape(-1), g_i.reshape(-1)]), shard.group)
+        dz_u, dz_i = spmm_dual(mat, *(t.view(g.shape) for t, g in zip(total.split([g_u.numel(), g_i.numel()]),
+                                                                        (g_u, g_i))))
+        for dz in (dz_u, dz_i):
+            lo, hi = shard.span(dz.shape[0])
+            dz[:lo] = 0.0
+            dz[hi:] = 0.0
+        return None, dz_u, dz_i, None
 
 
 def spmm_bi(adj, x_user: torch.Tensor, x_item: torch.Tensor, compute: str = "f32"):
@@ -324,15 +413,21 @@ def spmm_bi(adj, x_user: torch.Tensor, x_item: torch.Tensor, compute: str = "f32
     pair (reference `Model.py:90`), dispatched on the adjacency's form:
     K1 on a :class:`DenseBiAdj`, K4 in both directions on a
     :class:`BiAdj`, forward and backward (:class:`SpmmDual`,
+    :class:`Propagate`; on a mesh :class:`MeshSpmmDual` and the mesh form of
     :class:`Propagate`). ``compute`` sets the sparse form's message type
     (the dense form always rounds z to bf16). Returns ``(y_user, y_item)``."""
     z_u = x_user * adj.s_user[:, None]
     z_i = x_item * adj.s_item[:, None]
     if isinstance(adj, DenseBiAdj):
-        m_u, m_i = SpmmDual.apply(adj.mat, z_u, z_i)
+        if adj.shard is None:
+            m_u, m_i = SpmmDual.apply(adj.mat, z_u, z_i)
+        else:
+            m_u, m_i = MeshSpmmDual.apply(adj.mat, z_u, z_i, adj.shard)
     else:
-        m_u = Propagate.apply(z_i, adj.ui_cols, adj.ui_offsets, adj.iu_cols, adj.iu_offsets, compute)
-        m_i = Propagate.apply(z_u, adj.iu_cols, adj.iu_offsets, adj.ui_cols, adj.ui_offsets, compute)
+        m_u = Propagate.apply(z_i, adj.ui_cols, adj.ui_offsets, adj.iu_cols, adj.iu_offsets, compute,
+                              adj.shard)
+        m_i = Propagate.apply(z_u, adj.iu_cols, adj.iu_offsets, adj.ui_cols, adj.ui_offsets, compute,
+                              adj.shard)
     y_u = adj.s_user[:, None] * (m_u + z_u)
     y_i = adj.s_item[:, None] * (m_i + z_i)
     return y_u, y_i

@@ -1,4 +1,4 @@
-"""Coach: runs training and eval on one device.
+"""Coach: runs training and eval on one device or on a mesh.
 
 Counterpart of ``diffmm_tpu/train/coach.py``: the graph-form choice
 (``choose_graph_form`` with ``dense_graph_budget_bytes`` and
@@ -35,7 +35,21 @@ denoisers and their Adam moments in bf16 (``train/optim.py``);
 forward (``train/steps.py::rebuild_forward``); ``train.dense_store="int4"``
 packs the dense blocks two cells a byte, which K1 reads;
 ``train.donate_buffers`` is accepted and changes nothing (the port updates
-its state in place already). Left to ROADMAP.md A7: the mesh.
+its state in place already).
+
+On a mesh (``mesh=``, a ``(data, model)`` DeviceMesh of
+``parallel/mesh.py`` with a model axis of 1; above 1 is ROADMAP.md A7b and
+refuses) every rank holds the whole state, replicated, and the Coach
+computes the JAX mesh Coach's function, which is the one-device function
+(JAX ``coach.py:206-221, 303-306, 442-460``): each rank takes its rows of
+every diffusion, rebuild, joint and eval block (the batch sizes must divide
+over the data axis), sums its range of the sparse form's edges (K4's mesh
+forms), and the steps' collectives make the rest global
+(``train/steps.py``). The steps are captured CUDA graphs under NCCL, with
+their collectives inside; under gloo (named for CPU ranks and for ranks
+that share a card) they run eagerly, decided from the backend here and
+said in the log. Rank 0 alone logs and writes checkpoints, and every rank
+waits for its write; every rank restores the same file.
 
 Random draws come from one ``torch.Generator`` on the Coach's device
 (parameter init, negatives, diffusion timesteps and noise, the rebuild's
@@ -52,6 +66,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffmm_tpu_torch.config import Config, check_slice_support
 from diffmm_tpu_torch.convert import tree_to
@@ -61,8 +76,18 @@ from diffmm_tpu_torch.diffusion.schedule import make_schedule
 from diffmm_tpu_torch.eval.ranking import dcg_table, eval_epoch
 from diffmm_tpu_torch.models.denoise import init_denoise_params
 from diffmm_tpu_torch.models.gcn import init_gcn_params
-from diffmm_tpu_torch.ops.graph import build_bi_adj_device, build_dense_bi_adj_device
+from diffmm_tpu_torch.ops.graph import BiAdj, build_bi_adj_device, build_dense_bi_adj_device
 from diffmm_tpu_torch.ops.topk import make_csr_gather_layout, plan_rebuild_buckets
+from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
+from diffmm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
+from diffmm_tpu_torch.parallel.sharding import (
+    check_batch_divisibility,
+    data_shard,
+    denoise_param_shardings,
+    edge_shard,
+    gcn_param_shardings,
+    shard_device_data,
+)
 from diffmm_tpu_torch.train import steps
 from diffmm_tpu_torch.train.graphs import GraphCache
 from diffmm_tpu_torch.train.optim import (
@@ -79,7 +104,7 @@ from diffmm_tpu_torch.utils.checkpoint import (
     rng_state_to_json,
 )
 from diffmm_tpu_torch.utils.device import resolve_device
-from diffmm_tpu_torch.utils.logging import Log
+from diffmm_tpu_torch.utils.logging import Log, NullLog
 from diffmm_tpu_torch.utils.profiling import PhaseTimer
 
 # Blocks budget where the device reports no memory size (the CPU), as in
@@ -148,8 +173,9 @@ def _pad_blocks(n: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
 
 class Coach:
     """Training, rebuild, forward, eval and serving state for one dataset
-    on one device (``cuda`` unless ``device="cpu"``). ``checkpoint_dir``
-    turns on checkpoints (:class:`~diffmm_tpu_torch.utils.checkpoint.CheckpointManager`):
+    on one device (``cuda`` unless ``device="cpu"``), or on this rank's
+    device of ``mesh``. ``checkpoint_dir`` turns on checkpoints
+    (:class:`~diffmm_tpu_torch.utils.checkpoint.CheckpointManager`):
     ``run`` resumes from the latest one and saves every ``checkpoint_every``
     epochs and after the last."""
 
@@ -161,12 +187,25 @@ class Coach:
         log: Log | None = None,
         checkpoint_dir: str | None = None,
         checkpoint_every: int = 10,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         check_slice_support(config)
         self.config = config
         self.host = host
-        self.log = log or Log("coach", config.data.name)
+        self.mesh = mesh
+        self.rank = 0
+        self.data_shard = self.edge_shard = None
+        # every step captured: on one card, and under NCCL (collectives in
+        # the graphs); eager under gloo, whose collectives cannot be captured
+        self.capture_steps = True
+        if mesh is not None:
+            check_batch_divisibility(config.train.batch, mesh)
+            check_batch_divisibility(config.train.test_batch, mesh)
+            self.rank = dist.get_rank()
+            self.data_shard, self.edge_shard = data_shard(mesh), edge_shard(mesh)
+            self.capture_steps = dist.get_backend() == "nccl"
+        self.log = log or Log("coach", config.data.name) if self.rank == 0 else NullLog()
         self.n_modal = len(host.modalities)
         # Checked as the JAX package checks them, then ignored: the port has
         # one denoiser path (K2/K3 on the card, their plain versions on the
@@ -232,6 +271,8 @@ class Coach:
             host, self.device, self.train_store_form,
             with_sparse_adj=not self.dense_graphs, batch=config.train.batch,
         )
+        if mesh is not None:
+            self.data = shard_device_data(self.data, mesh)
 
         self.schedule = make_schedule(
             config.hyper.noise_scale, config.hyper.noise_min, config.hyper.noise_max,
@@ -290,6 +331,13 @@ class Coach:
         )
         if host.synthesized:
             self.log.info(f"⚠️ synthesized missing feature blobs for: {host.synthesized}")
+        if mesh is not None:
+            self.log.info(
+                f"Mesh: data={axis_size(mesh, DATA_AXIS)}, model={axis_size(mesh, MODEL_AXIS)} | "
+                f"backend {dist.get_backend()} | steps "
+                + ("captured (collectives inside)" if self.capture_steps
+                   else "eager (gloo collectives cannot be captured)")
+            )
 
     # ------------------------------------------------------------ state
     def _init_state(self) -> None:
@@ -303,7 +351,8 @@ class Coach:
         seed = cfg.base.seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.np_rng = np.random.default_rng(seed)
-        self.graphs = GraphCache(self.device, self.generator)
+        self.graphs = GraphCache(self.device, self.generator, capture=self.capture_steps,
+                                 error_mode="global" if self.mesh is None else "thread_local")
         self.gcn_params = init_gcn_params(
             self.generator, host.user_num, host.item_num, cfg.base.latdim,
             host.feat_dims, self.device,
@@ -315,6 +364,11 @@ class Coach:
             ))
             for _ in range(self.n_modal)
         ]
+        if self.mesh is not None:
+            # replicated on a DATAx1 mesh; a model axis refuses (ROADMAP.md A7b)
+            gcn_param_shardings(self.gcn_params, self.mesh)
+            for p in self.dn_params:
+                denoise_param_shardings(p, self.mesh)
         self.gcn_opt_state = adam_init(self.gcn_params)
         self.dn_opt_states = [adam_init(p) for p in self.dn_params]
         self.edge_buffers: list[torch.Tensor] | None = None
@@ -386,12 +440,20 @@ class Coach:
 
     def _make_adj(self, rows: torch.Tensor, cols: torch.Tensor, out=None):
         """A normalised adjacency in the run's graph form (into ``out`` in
-        place when given)."""
+        place when given), placed on the mesh (:meth:`_place`)."""
         if self.dense_graphs:
-            return build_dense_bi_adj_device(
+            return self._place(build_dense_bi_adj_device(
                 rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype, out=out
-            )
-        return build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num, out=out)
+            ))
+        return self._place(build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num, out=out))
+
+    def _place(self, adj):
+        """``adj`` with this rank's shard on a mesh: a sparse-form one sums
+        the rank's edge range (``edge_shard``); a dense-form one keeps its
+        blocks whole and the rank's rows of K1's gradients (``data_shard``)."""
+        if self.mesh is None:
+            return adj
+        return adj._replace(shard=self.edge_shard if isinstance(adj, BiAdj) else self.data_shard)
 
     def _knn_adjs(self) -> list:
         """The KNN ablation's modality graphs (JAX ``_knn_adjs``; reference
@@ -399,8 +461,9 @@ class Coach:
         only, built once a run."""
         from diffmm_tpu_torch.ops.knn import build_knn_adj
 
-        return [build_knn_adj(self.data.train_rows, self.data.train_cols, feats, self.host.user_num,
-                              self.host.item_num, self.config.hyper.knn_topk)
+        return [self._place(build_knn_adj(self.data.train_rows, self.data.train_cols, feats,
+                                          self.host.user_num, self.host.item_num,
+                                          self.config.hyper.knn_topk))
                 for feats in self.data.raw_feats]
 
     def set_edge_buffers(self, buffers: list[torch.Tensor]) -> None:
@@ -464,6 +527,7 @@ class Coach:
                 self.schedule, self.dn_params, self.dn_opt_states, self.gcn_params,
                 data.raw_feats, data.train_store, tables["users"], self._diff_weights,
                 tables["dn_scalars"], hp, self.host.item_num, self.generator, self.graphs,
+                self.data_shard,
             )
         # phase 2: modality graph rebuild (reference Main.py:195-253), or the
         # KNN ablation's graphs, built once a run (Main.py:118-134)
@@ -502,7 +566,7 @@ class Coach:
         return steps.joint_epoch(
             self.gcn_params, self.gcn_opt_state, data.adj, self.modal_adjs, data.raw_feats,
             users, pos, neg, lr, hp, cfg.base.cl_method, cfg.train.segsum_compute,
-            self.generator, self.graphs,
+            self.generator, self.graphs, self.data_shard,
         )
 
     def _epoch_result(self, joint_acc, modal_acc) -> dict[str, float]:
@@ -536,6 +600,7 @@ class Coach:
             self.rebuild_blocks, self.rebuild_widths, self.rebuild_starts,
             *self.csr_gather_layout, self.host.item_num,
             cfg.hyper.sampling_step, self.generator, self.graphs, cfg.train.rebuild_compute,
+            self.data_shard,
         ))
         return self.edge_buffers
 
@@ -651,11 +716,18 @@ class Coach:
     def _eval_sums(self, blocks, embeddings=None) -> torch.Tensor:
         """The (3,) Recall/NDCG/Precision sums over the eval ``blocks`` of
         :meth:`_fused_eval_blocks`, on the device (JAX
-        ``_make_fused_eval_fn``): the GCN forward and the ranking eval."""
+        ``_make_fused_eval_fn``): the GCN forward and the ranking eval. On
+        a mesh each rank ranks its rows of every block and the sums are
+        added over the data axis."""
         u_final, i_final = embeddings if embeddings is not None else self.forward()
         users, valid, items, counts = blocks
-        return eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
+        shard = self.data_shard
+        if shard is not None and shard.count > 1:
+            lo, hi = shard.span(users.shape[1])
+            users, valid, items, counts = (a[:, lo:hi] for a in (users, valid, items, counts))
+        sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
                           self.cum_dcg, self.config.base.topk)
+        return sums if shard is None else all_reduce_sum_(sums, shard.group)
 
     def _capture_best_from(self, best_g, best_bufs, epoch: int) -> None:
         """capture_best from a fused chunk's device copies of its best epoch."""
@@ -764,17 +836,21 @@ class Coach:
 
     def save_checkpoint(self, epoch: int, best: dict) -> None:
         """Save the full training state after ``epoch`` with the run's
-        best-metric tracking ``best``."""
+        best-metric tracking ``best``. On a mesh the state is the same on
+        every rank: rank 0 writes it and every rank waits for the write."""
         if self.ckpt is None:
             raise RuntimeError("save_checkpoint needs a Coach made with checkpoint_dir")
-        self.ckpt.save(epoch, self._ckpt_arrays(), aux={
-            "epoch": epoch,
-            "best": best,
-            "np_rng": rng_state_to_json(self.np_rng),
-            "gcn_count": self.gcn_opt_state.count,
-            "dn_counts": [s.count for s in self.dn_opt_states],
-            "best_snapshot_epoch": -1 if self.best_snapshot is None else self.best_snapshot["epoch"],
-        })
+        if self.rank == 0:
+            self.ckpt.save(epoch, self._ckpt_arrays(), aux={
+                "epoch": epoch,
+                "best": best,
+                "np_rng": rng_state_to_json(self.np_rng),
+                "gcn_count": self.gcn_opt_state.count,
+                "dn_counts": [s.count for s in self.dn_opt_states],
+                "best_snapshot_epoch": -1 if self.best_snapshot is None else self.best_snapshot["epoch"],
+            })
+        if self.mesh is not None:
+            dist.barrier()
 
     def _load_state(self, arrays: dict, aux: dict) -> None:
         """Copy a checkpoint's state into this Coach's tensors in place (the

@@ -39,6 +39,15 @@ and kept as the graph's launches a replay; each replay adds them.
 
 A capture that fails raises; nothing falls back to eager on the card. On the
 CPU there is no graph: every call runs the step.
+
+On a mesh the steps hold their collectives (the gradient all-reduce, K4's
+mesh forms, the diffusion losses' sum). NCCL's are captured with the rest
+of the step, in the ``thread_local`` capture mode (the group's watchdog
+thread may query the events of earlier collectives while a capture runs,
+which the default ``global`` mode would refuse). Gloo's cannot be
+captured: a Coach on a gloo group makes its cache with ``capture=False``,
+decided from the backend when the Coach is built, and its steps run
+eagerly on the card too.
 """
 
 from __future__ import annotations
@@ -53,10 +62,12 @@ from diffmm_tpu_torch.ops.kernels import add_launches, launch_counts
 class BlockGraph:
     """One step function, run eagerly once, then captured and replayed."""
 
-    def __init__(self, step: Callable[..., None], generator: torch.Generator, stream):
+    def __init__(self, step: Callable[..., None], generator: torch.Generator, stream,
+                 error_mode: str = "global"):
         self.step = step
         self.generator = generator
         self.stream = stream
+        self.error_mode = error_mode
         self.graph: torch.cuda.CUDAGraph | None = None
         self.inputs: tuple[torch.Tensor, ...] = ()
         self.launches: dict[str, int] = {}  # kernel launches a replay
@@ -81,7 +92,7 @@ class BlockGraph:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = launch_counts()
-        with torch.cuda.graph(graph, stream=self.stream):
+        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=self.error_mode):
             self.step(*self.inputs)
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -97,24 +108,32 @@ class GraphCache:
     directly, on the card through the :class:`BlockGraph` of ``key`` (made
     with this ``step`` at the key's first call; later calls' steps are not
     read). The key names everything the captured step bakes in besides the
-    Coach's state: the phase, its widths, its hyperparameters."""
+    Coach's state: the phase, its widths, its hyperparameters.
 
-    def __init__(self, device: torch.device, generator: torch.Generator):
+    ``capture=False`` runs every step eagerly on the card as well (a gloo
+    group's collectives cannot be captured); ``error_mode`` is the
+    captures' ``capture_error_mode`` (``"thread_local"`` where the steps
+    hold NCCL collectives)."""
+
+    def __init__(self, device: torch.device, generator: torch.Generator, capture: bool = True,
+                 error_mode: str = "global"):
         self.device = device
         self.generator = generator
+        self.capture = capture
+        self.error_mode = error_mode
         self.graphs: dict[tuple, BlockGraph] = {}
         self._buffers: dict[tuple, torch.Tensor] = {}
         self._stream = None
 
     def run(self, key: tuple, step: Callable[..., None], *inputs: torch.Tensor) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             step(*inputs)
             return
         graph = self.graphs.get(key)
         if graph is None:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
-            graph = self.graphs[key] = BlockGraph(step, self.generator, self._stream)
+            graph = self.graphs[key] = BlockGraph(step, self.generator, self._stream, self.error_mode)
         graph(*inputs)
 
     def buffer(self, key: tuple, shape, dtype: torch.dtype) -> torch.Tensor:

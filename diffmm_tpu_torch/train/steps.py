@@ -28,6 +28,19 @@ forms: no atomics anywhere in the step, so it repeats bit for bit.
 Randomness is injected: every step takes its draws (diffusion timesteps
 and noise, the cross-layer CL noise) as optional tensors and draws them
 from a ``torch.Generator`` otherwise.
+
+On the data axis of a mesh (``shard``, this rank's
+:class:`~diffmm_tpu_torch.parallel.sharding.Shard` of a block's rows; None
+on one device) every step computes the JAX mesh's function, which is the
+single-device one (``tests/test_parallel.py:58-79``): a rank takes its rows
+of each block, its losses are its parts of the global means
+(``ops/losses.py``), the L2 term is counted on rank 0 only, the gradients
+are summed over the ranks with one flat all-reduce before Adam
+(``parallel/collectives.py``), and every rank then holds the same
+parameters and moments. Every random draw is made whole on every rank from
+the same generator state, and each rank takes its rows of it, so a rank
+draws what the one-device run draws. The rebuild's ranks assemble their
+rows of the top-k tables with a placed int32 all-reduce.
 """
 
 from __future__ import annotations
@@ -48,8 +61,9 @@ from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
     denoise_forward_fused,
     prepare_denoiser,
 )
-from diffmm_tpu_torch.ops.losses import bpr_loss, info_nce, l2_normalize, l2_reg_loss
+from diffmm_tpu_torch.ops.losses import RowSlice, bpr_loss, info_nce, l2_normalize, l2_reg_loss
 from diffmm_tpu_torch.ops.topk import csr_gather_build, topk_table
+from diffmm_tpu_torch.parallel.collectives import all_reduce_grads, all_reduce_sum_
 from diffmm_tpu_torch.train.graphs import GraphCache, buffer, hold, run_step
 from diffmm_tpu_torch.train.optim import AdamState, adam_scalars, adam_update, tree_leaves, tree_map
 
@@ -73,6 +87,19 @@ def _scalars(lr: float, states: list[AdamState], n: int, device) -> torch.Tensor
     return torch.as_tensor(rows, device=device)
 
 
+def _split(shard) -> bool:
+    """Whether the steps take a part of each block: on a data axis of more
+    than one rank (at one rank the steps compute what they compute on one
+    device, with the collectives in place)."""
+    return shard is not None and shard.count > 1
+
+
+def _sum_grads(grads, shard) -> list:
+    """The gradients summed over the data axis (one all-reduce), or as they
+    are on one device."""
+    return list(grads) if shard is None else all_reduce_grads(list(grads), shard.group)
+
+
 # ------------------------------------------------------------------ phase 1
 def diffusion_block(
     schedule: DiffusionSchedule,
@@ -89,6 +116,7 @@ def diffusion_block(
     t: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """One Adam step for every modality's denoiser on one block of user
     rows (JAX ``_diffusion_block``); returns the (M,) per-modality losses.
@@ -101,10 +129,27 @@ def diffusion_block(
     `Main.py:174-185`). ``t`` (M, B) and ``noise`` (M, B, I) are the
     modalities' draws. ``lr`` is a float or an (M, 3) tensor, a row of
     :func:`~diffmm_tpu_torch.train.optim.adam_scalars` per modality (the
-    caller then advances the counts)."""
+    caller then advances the counts).
+
+    ``shard``: a mesh's data axis. The step takes the rank's rows of the
+    block and of its draws (drawn whole here when not given, in the order
+    ``training_losses`` draws them: each modality's timesteps, then its
+    noise), the weights' sum over the whole block, and the (M,) losses
+    summed over the ranks (one all-reduce) for the loss and the gradient's
+    denominator; then the gradients' all-reduce."""
+    n_modal = len(dn_params_list)
+    w_sum = torch.clamp_min(weights.sum(), 1.0)
+    if _split(shard):
+        lo, hi = shard.span(users.shape[0])
+        if t is None or noise is None:
+            draws = [(torch.randint(0, schedule.steps, (users.shape[0],), generator=generator,
+                                    device=users.device),
+                      torch.randn((users.shape[0], item_num), generator=generator, device=users.device))
+                     for _ in range(n_modal)]
+            t, noise = (torch.stack(d) for d in zip(*draws))
+        users, weights, t, noise = users[lo:hi], weights[lo:hi], t[:, lo:hi], noise[:, lo:hi]
     x0 = gather_rows(train_store, users, item_num)
     live = [_trainable(p) for p in dn_params_list]
-    w_sum = torch.clamp_min(weights.sum(), 1.0)
     with torch.enable_grad():
         losses = [
             torch.sum(training_losses(
@@ -112,17 +157,24 @@ def diffusion_block(
                 t=None if t is None else t[m], noise=None if noise is None else noise[m],
                 generator=generator,
             ) * weights) / w_sum
-            for m in range(len(live))
+            for m in range(n_modal)
         ]
         total = sum(losses)
+        if shard is None:
+            whole = torch.stack(losses).detach()
+            denom = total.detach()
+        else:
+            whole = all_reduce_sum_(torch.stack(losses).detach(), shard.group)
+            denom = sum(whole.unbind())
         leaves = [tree_leaves(p) for p in live]
-        grads = torch.autograd.grad(total / total.detach(), [g for ls in leaves for g in ls])
+        grads = torch.autograd.grad(total / denom, [g for ls in leaves for g in ls])
+    grads = _sum_grads(grads, shard)
     at = 0
     for m, (params, state, ls) in enumerate(zip(dn_params_list, dn_states, leaves)):
         adam_update(params, list(grads[at:at + len(ls)]), state,
                     lr[m] if isinstance(lr, torch.Tensor) else lr)
         at += len(ls)
-    return torch.stack(losses).detach()
+    return whole
 
 
 def diffusion_epoch(
@@ -139,6 +191,7 @@ def diffusion_epoch(
     item_num: int,
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """All diffusion blocks of one epoch, (n_blocks, B) users and weights;
     returns the (M,) loss accumulator with the reference's quirk
@@ -147,7 +200,8 @@ def diffusion_epoch(
     features are projected once: the GCN parameters do not change in this
     phase. ``lr`` is a float or the phase's (n_blocks, M, 3) Adam scalars
     (``_scalars``, made ahead by the caller). Advances each denoiser's Adam
-    count by the block count."""
+    count by the block count. ``shard``: as :func:`diffusion_block` (every
+    rank's accumulator is the global one)."""
     dev = users_blocks.device
     n_modal, n = len(dn_params_list), users_blocks.shape[0]
     with torch.no_grad():
@@ -160,7 +214,7 @@ def diffusion_epoch(
     def step(users, weights, sc):
         losses = diffusion_block(
             schedule, dn_params_list, dn_states, feats, i_embs, train_store,
-            users, weights, sc, hp, item_num, generator=generator,
+            users, weights, sc, hp, item_num, generator=generator, shard=shard,
         )
         acc.copy_((acc + losses) / torch.clamp_min(losses.sum(), 1e-12))
 
@@ -183,20 +237,33 @@ def rebuild_block_tables(
     k_table: int,
     generator: torch.Generator | None = None,
     denoise_apply=denoise_forward_fused,
+    rows: tuple[int, int] | None = None,
 ) -> list[torch.Tensor]:
     """Reverse-diffuse a user block per modality -> value-sorted (B,
     k_table) top-index tables, one per modality, with ``denoise_apply`` on
     ``denoisers`` as :func:`rebuild_forward` makes them. The default runs
     the denoise_mlp kernels (K2, K3) on the card, on prepared forms only (a
-    params dict would be put in the kernels' layout again at every step)."""
+    params dict would be put in the kernels' layout again at every step).
+
+    ``rows``: a rank's rows ``[lo, hi)`` of the block (a mesh's data
+    axis): each modality's noise is drawn for the whole block, as on one
+    device, and the tables are those of the rank's rows."""
     if denoise_apply is denoise_forward_fused and not all(
             isinstance(p, PreparedDenoiser) for p in denoisers):
         raise TypeError("rebuild_block_tables runs K2/K3 on prepare_denoiser forms only")
+    batch = users.shape[0]
+    if rows is not None:
+        users = users[rows[0]:rows[1]]
     x0 = gather_rows(train_store, users, item_num)
     tables = []
     for params in denoisers:
+        raw = None
+        if rows is not None and sampling_step > 0:
+            raw = torch.randn((batch, item_num), generator=generator, device=x0.device,
+                              dtype=x0.dtype)[rows[0]:rows[1]]
         denoised = generate_view(
-            schedule, params, x0, sampling_step, generator=generator, denoise_apply=denoise_apply,
+            schedule, params, x0, sampling_step, generator=generator, noise=raw,
+            denoise_apply=denoise_apply,
         )
         tables.append(topk_table(denoised, k_table))
     return tables
@@ -271,6 +338,7 @@ def rebuild_epoch(
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
     compute: str = "f32",
+    shard=None,
 ) -> list[torch.Tensor]:
     """All rebuild blocks of one epoch -> one CSR edge buffer per modality.
 
@@ -283,7 +351,13 @@ def rebuild_epoch(
     denoisers are put in the form their forward takes once, here, for all
     blocks and steps (:func:`rebuild_forward`, ``compute`` is
     ``train.rebuild_compute``). A step (one block of one bucket; a graph per
-    bucket on the card) writes its users' tables into the bucket's rows."""
+    bucket on the card) writes its users' tables into the bucket's rows.
+
+    ``shard``: a mesh's data axis. Each rank runs K2/K3 and the top-k on
+    its rows of every block (its part of each block's noise drawn as the
+    whole, :func:`rebuild_block_tables`) into zeroed tables, and one placed
+    int32 all-reduce a table assembles them (JAX ``coach.py:858-859``):
+    every rank then builds the same edge buffers."""
     denoisers, apply = rebuild_forward(dn_params_list, compute, graphs)
     n_modal = len(denoisers)
     dev = row_of_pos.device
@@ -294,16 +368,24 @@ def rebuild_epoch(
                   for m in range(n_modal)]
         rows = torch.arange(nb * batch, dtype=torch.int64, device=dev).view(nb, batch)
         inputs = torch.stack([blocks_b.long(), rows], dim=1)  # (nb, 2, batch): users, table rows
+        own = shard.span(batch) if _split(shard) else None
+        if shard is not None:
+            for table in tables:
+                table.zero_()
 
-        def step(blk, tables=tables, k_b=k_b):
+        def step(blk, tables=tables, k_b=k_b, own=own):
             out = rebuild_block_tables(schedule, denoisers, train_store, blk[0], item_num,
-                                       sampling_step, k_b, generator, apply)
+                                       sampling_step, k_b, generator, apply, own)
+            at = blk[1] if own is None else blk[1, own[0]:own[1]]
             for table, o in zip(tables, out):
-                table.index_copy_(0, blk[1], o)
+                table.index_copy_(0, at, o)
 
         key = ("rebuild", b, batch, k_b, sampling_step, compute)
         for j in range(nb):
             run_step(graphs, key, step, inputs[j])
+        if shard is not None:
+            for table in tables:
+                all_reduce_sum_(table, shard.group)
         bucket_tables.append(tables)
 
     row_of_pos = row_of_pos.long()
@@ -330,14 +412,17 @@ def rebuild_epoch(
 # ------------------------------------------------------------------ phase 3
 def cross_layer_cl(id_u, id_i, adj, users, pos_items, hp: dict, compute: str = "f32",
                    noise: list[torch.Tensor] | None = None,
-                   generator: torch.Generator | None = None, plans=(None, None)) -> torch.Tensor:
+                   generator: torch.Generator | None = None, plans=(None, None),
+                   own=(None, None)) -> torch.Tensor:
     """Three noisy propagations and the layer-0-vs-mean InfoNCE (JAX
     ``_cross_layer_cl``, reference `Main.py:314-334`). ``id_u``/``id_i``
     are the first, pre-noise propagation, reused from the GCN forward;
     layers 1 and 2 propagate again. ``noise`` holds the six uniform draws
     ``[u0, i0, u1, i1, u2, i2]`` (the order of the JAX package's six
     subkeys), each the shape of its layer's embeddings. ``plans`` holds the
-    ``gather_plan`` of the users and of the items (made per gather if None)."""
+    ``gather_plan`` of the users and of the items (made per gather if None);
+    ``own`` a rank's :class:`~diffmm_tpu_torch.ops.losses.RowSlice` of each
+    on a mesh's data axis (``info_nce``)."""
     ju, ji = id_u, id_i
     acc_u = acc_i = layer0_u = layer0_i = None
     for k in range(3):
@@ -356,16 +441,17 @@ def cross_layer_cl(id_u, id_i, adj, users, pos_items, hp: dict, compute: str = "
             acc_u, acc_i = acc_u + ju, acc_i + ji
     temp = hp["cross_cl_temp"]
     return (
-        info_nce(acc_u / 3.0, layer0_u, users, temp, plans[0])
-        + info_nce(acc_i / 3.0, layer0_i, pos_items, temp, plans[1])
+        info_nce(acc_u / 3.0, layer0_u, users, temp, plans[0], own[0])
+        + info_nce(acc_i / 3.0, layer0_i, pos_items, temp, plans[1], own[1])
     ) * hp["cross_cl_rate"]
 
 
-def modal_cl(out, users, pos_items, hp: dict, cl_method: int, plans=(None, None)) -> torch.Tensor:
+def modal_cl(out, users, pos_items, hp: dict, cl_method: int, plans=(None, None),
+             own=(None, None)) -> torch.Tensor:
     """Cross-modal CL (JAX ``_modal_cl``, reference `Main.py:339-368`):
     ``cl_method == 1`` pairs the modalities with each other; any other
-    value sets each modality against the final view. ``plans`` as in
-    :func:`cross_layer_cl`."""
+    value sets each modality against the final view. ``plans`` and ``own``
+    as in :func:`cross_layer_cl`."""
     temp, rate = hp["modal_cl_temp"], hp["modal_cl_rate"]
     n_modal = out.modal_u.shape[0]
     loss = 0.0
@@ -373,14 +459,14 @@ def modal_cl(out, users, pos_items, hp: dict, cl_method: int, plans=(None, None)
         for a in range(n_modal):
             for b in range(a + 1, n_modal):
                 loss = loss + (
-                    info_nce(out.modal_u[a], out.modal_u[b], users, temp, plans[0])
-                    + info_nce(out.modal_i[a], out.modal_i[b], pos_items, temp, plans[1])
+                    info_nce(out.modal_u[a], out.modal_u[b], users, temp, plans[0], own[0])
+                    + info_nce(out.modal_i[a], out.modal_i[b], pos_items, temp, plans[1], own[1])
                 ) * rate
     else:
         for m in range(n_modal):
             loss = loss + (
-                info_nce(out.u_final, out.modal_u[m], users, temp, plans[0])
-                + info_nce(out.i_final, out.modal_i[m], pos_items, temp, plans[1])
+                info_nce(out.u_final, out.modal_u[m], users, temp, plans[0], own[0])
+                + info_nce(out.i_final, out.modal_i[m], pos_items, temp, plans[1], own[1])
             ) * rate
     return loss
 
@@ -400,6 +486,7 @@ def joint_block(
     compute: str = "f32",
     cl_noise: list[torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """One Adam step of the main model on one block of interactions (JAX
     ``_joint_block``): the GCN forward, BPR, L2 on the ID embeddings, the
@@ -407,22 +494,40 @@ def joint_block(
     ``[total, bpr, reg, cl]``. Every row gather of the losses goes through
     ``ops/gather.py`` (backward: K4), with one sort a block's users, positive
     and negative items, shared by all the gathers of each. ``lr`` is a
-    float or a (3,) row of ``adam_scalars``, as ``adam_update`` takes it."""
+    float or a (3,) row of ``adam_scalars``, as ``adam_update`` takes it.
+
+    ``shard``: a mesh's data axis. The rank's BPR rows and its rows of each
+    InfoNCE, all as parts of the block's means; the L2 term on rank 0; the
+    gradients summed over the ranks. The metrics are the rank's parts
+    (``joint_epoch`` sums them over the ranks once an epoch)."""
     live = _trainable(gcn_params)
     n_users, n_items = gcn_params["u_embs"].shape[0], gcn_params["i_embs"].shape[0]
     plans = (gather_plan(users, n_users), gather_plan(pos_items, n_items))
+    own, total_rows = (None, None), None
+    bpr_rows, bpr_plans = (users, pos_items, neg_items), plans
+    if _split(shard):
+        lo, hi = shard.span(users.shape[0])
+        total_rows = users.shape[0]
+        bpr_rows = (users[lo:hi], pos_items[lo:hi], neg_items[lo:hi])
+        own = (RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[0], n_users)),
+               RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[1], n_items)))
+        bpr_plans = (own[0].plan, own[1].plan)
     with torch.enable_grad():
         out = gcn_mm(live, adj, list(modal_adjs), raw_feats, hp["modal_adj_weight"],
                      hp["residual_weight"], compute)
-        rec = bpr_loss(gather(out.u_final, users, plans[0]), gather(out.i_final, pos_items, plans[1]),
-                       gather(out.i_final, neg_items, gather_plan(neg_items, n_items)))
-        reg = l2_reg_loss(hp["reg"], [live["u_embs"], live["i_embs"]])
+        rec = bpr_loss(gather(out.u_final, bpr_rows[0], bpr_plans[0]),
+                       gather(out.i_final, bpr_rows[1], bpr_plans[1]),
+                       gather(out.i_final, bpr_rows[2], gather_plan(bpr_rows[2], n_items)), total_rows)
+        if shard is None or shard.index == 0:
+            reg = l2_reg_loss(hp["reg"], [live["u_embs"], live["i_embs"]])
+        else:
+            reg = torch.zeros((), device=rec.device)
         cl = cross_layer_cl(out.id_u, out.id_i, adj, users, pos_items, hp, compute, cl_noise, generator,
-                            plans)
-        cl = cl + modal_cl(out, users, pos_items, hp, cl_method, plans)
+                            plans, own)
+        cl = cl + modal_cl(out, users, pos_items, hp, cl_method, plans, own)
         total = rec + reg + cl
         grads = torch.autograd.grad(total, tree_leaves(live))
-    adam_update(gcn_params, list(grads), opt_state, lr)
+    adam_update(gcn_params, _sum_grads(grads, shard), opt_state, lr)
     return torch.stack([total, rec, reg, cl]).detach()
 
 
@@ -441,11 +546,14 @@ def joint_epoch(
     compute: str = "f32",
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """All joint blocks of one epoch, (n_blocks, B) each; returns the
     summed (4,) metrics (JAX ``_joint_epoch``), which each step adds in
     place. ``lr`` is a float or the phase's (n_blocks, 3) Adam scalars.
-    Advances the Adam count by the block count."""
+    Advances the Adam count by the block count. ``shard``: a mesh's data
+    axis (:func:`joint_block`); the ranks' sums are added once, at the
+    end."""
     dev = users_blocks.device
     n = users_blocks.shape[0]
     blocks = torch.stack([users_blocks, pos_blocks, neg_blocks], dim=1)  # (n, 3, B)
@@ -454,12 +562,14 @@ def joint_epoch(
 
     def step(blk, sc):
         acc.add_(joint_block(gcn_params, opt_state, adj, modal_adjs, raw_feats, blk[0], blk[1],
-                             blk[2], sc, hp, cl_method, compute, generator=generator))
+                             blk[2], sc, hp, cl_method, compute, generator=generator, shard=shard))
 
     key = ("joint", blocks.shape[2], cl_method, compute, _hp_key(hp))
     for j in range(n):
         run_step(graphs, key, step, blocks[j], scalars[j])
     opt_state.count += n
+    if shard is not None:
+        all_reduce_sum_(acc, shard.group)
     return acc.clone()
 
 

@@ -41,3 +41,11 @@ class Log:
 
     def info(self, message: str) -> None:
         self.logger.info(message)
+
+
+class NullLog:
+    """A log that writes nothing: every rank of a mesh but rank 0 takes one,
+    so the run's lines and its log file come from rank 0 alone."""
+
+    def info(self, message: str) -> None:
+        pass

@@ -873,3 +873,147 @@ def test_http_server_on_the_card(cuda, tmp_path):
     srv.shutdown()
     srv.server_close()
     thread.join()
+
+
+# ------------------------------------------------------------------ the mesh
+# On the card the mesh runs in spawned ranks (parallel/launch.py): NCCL at
+# world size 1 (the one card), gloo for two ranks that share it. Each rank
+# function below is module-level, so the spawned process finds it here.
+def _mesh_config(form):
+    from diffmm_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.base.seed = 7
+    cfg.base.latdim = 16
+    cfg.base.denoise_dim = "[32]"
+    cfg.train.batch = 64
+    cfg.train.test_batch = 64
+    cfg.train.graph_form = form
+    cfg.hyper.steps = 5
+    return cfg
+
+
+def _mesh_coach(form, mesh, **kwargs):
+    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.train.coach import Coach
+
+    cfg = _mesh_config(form)
+    host = make_synthetic_host_data(cfg, user_num=300, item_num=200, seed=3)
+    return Coach(cfg, host, device=torch.device("cuda", torch.cuda.current_device()), mesh=mesh, **kwargs)
+
+
+def _coach_state(coach):
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    out = tree_leaves(coach.gcn_params) + tree_leaves(coach.dn_params) + list(coach.edge_buffers)
+    for s in (coach.gcn_opt_state, *coach.dn_opt_states):
+        out += s.mu + s.nu
+    return [t.detach().cpu() for t in out]
+
+
+def _mesh_form_bitwise():
+    """World size 1 under NCCL: K4's mesh form and the three Functions on a
+    mesh, forward and backward, against the unsharded calls."""
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.ops.graph import spmm_bi, spmm_bi_modal_stacked
+    from diffmm_tpu_torch.ops.kernels.segsum import segsum_gather
+    from diffmm_tpu_torch.parallel import make_mesh
+    from diffmm_tpu_torch.parallel.segsum import sharded_segsum_gather
+    from diffmm_tpu_torch.parallel.sharding import edge_shard
+
+    coach = _mesh_coach("sparse", None)
+    coach.rebuild_graphs()
+    shard = edge_shard(make_mesh(1, 1))
+    adj, modal = coach.data.adj, coach.modal_adjs
+    gen = torch.Generator(device=coach.device).manual_seed(3)
+    z = torch.randn((adj.item_num, 16), generator=gen, device=coach.device)
+    nnz = adj.ui_cols.shape[0]
+    out = {"forward": torch.equal(sharded_segsum_gather(z, adj.ui_cols, adj.ui_offsets, 0, nnz, dist.group.WORLD),
+                                  segsum_gather(z, adj.ui_cols, adj.ui_offsets))}
+    grads = []
+    for sh in (None, shard):
+        a = adj._replace(shard=sh)
+        ms = [m._replace(shard=sh) for m in modal]
+        ms = [ms[0]] + [m._replace(ui_rows=ms[0].ui_rows) for m in ms[1:]]
+        x_u = coach.gcn_params["u_embs"].detach().clone().requires_grad_()
+        x_i = coach.gcn_params["i_embs"].detach().clone().requires_grad_()
+        y_u, y_i = spmm_bi(a, x_u, x_i)
+        m_u, m_i = spmm_bi_modal_stacked(ms, x_u, [x_i] * len(ms))
+        ((y_u ** 2).sum() + (y_i ** 3).sum() + (m_u ** 2).sum() + m_i.sum()).backward()
+        torch.cuda.synchronize()
+        grads.append([y_u, y_i, m_u, m_i, x_u.grad, x_i.grad])
+    out["functions"] = all(torch.equal(p, q) for p, q in zip(*grads))
+    return out
+
+
+def test_mesh_form_at_world_size_one_is_bitwise_unsharded(cuda):
+    from diffmm_tpu_torch.parallel.launch import run_ranks
+
+    (out,) = run_ranks(_mesh_form_bitwise, 1, backend="nccl")
+    assert out == {"forward": True, "functions": True}
+
+
+def _captured_vs_eager():
+    """A mesh Coach under NCCL (its steps captured, the all-reduces inside)
+    against the same Coach's steps run eagerly: an epoch's losses, its
+    eval and its state, bitwise."""
+    from diffmm_tpu_torch.parallel import make_mesh
+    from diffmm_tpu_torch.train.graphs import GraphCache
+
+    mesh = make_mesh(1, 1)
+    out = {}
+    for form in ("dense", "sparse"):
+        runs = []
+        for capture in (True, False):
+            coach = _mesh_coach(form, mesh)
+            if not capture:
+                coach.graphs = GraphCache(coach.device, coach.generator, capture=False)
+            result = coach.train_epoch(0)
+            runs.append((result, coach.test_epoch(), _coach_state(coach),
+                         sum(g.replays for g in coach.graphs.graphs.values())))
+        (r0, e0, s0, replays), (r1, e1, s1, eager_replays) = runs
+        out[form] = (r0 == r1, e0 == e1, all(torch.equal(a, b) for a, b in zip(s0, s1)),
+                     replays > 0 and eager_replays == 0)
+    return out
+
+
+def test_captured_mesh_steps_are_bitwise_the_eager_ones(cuda):
+    from diffmm_tpu_torch.parallel.launch import run_ranks
+
+    (out,) = run_ranks(_captured_vs_eager, 1, backend="nccl")
+    assert out == {"dense": (True,) * 4, "sparse": (True,) * 4}
+
+
+def _two_ranks_on_one_card():
+    import hashlib
+
+    from diffmm_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh()
+    out = {}
+    for form in ("dense", "sparse"):
+        coach = _mesh_coach(form, mesh)
+        result = coach.train_epoch(0)
+        digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in _coach_state(coach))).hexdigest()
+        out[form] = (result, coach.test_epoch(), digest, coach.capture_steps)
+    return out
+
+
+def test_two_gloo_ranks_on_the_card_hold_equal_parameters(cuda):
+    """Two ranks on the one card under gloo (eager steps): after an epoch
+    their parameters, moments and edge buffers are bitwise equal, and the
+    losses and metrics are within rel 2e-3 / abs 1e-5 of one rank's
+    (tests/test_parallel.py:76-79)."""
+    from diffmm_tpu_torch.parallel.launch import run_ranks
+
+    rank0, rank1 = run_ranks(_two_ranks_on_one_card, 2, backend="gloo")
+    for form in ("dense", "sparse"):
+        assert rank0[form] == rank1[form]
+        assert rank0[form][3] is False
+        one = _mesh_coach(form, None)
+        want = (one.train_epoch(0), one.test_epoch())
+        for got, ref in zip(rank0[form][:2], want):
+            for k in ref:
+                assert got[k] == pytest.approx(ref[k], rel=2e-3, abs=1e-5), (form, k)

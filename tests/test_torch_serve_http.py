@@ -139,7 +139,8 @@ def test_main_refuses_what_the_port_lacks(tmp_path, index, monkeypatch):
     serving.save_index(index, path)
     with pytest.raises(NotImplementedError, match="A5"):
         serve_http.main([path, "--device", "cpu", "--approx"])
-    with pytest.raises(NotImplementedError, match="A7"):
+    # shards need their ranks (torchrun --nproc_per_node 2); none started here
+    with pytest.raises(ValueError, match="--model-shards 2 needs 2 ranks"):
         serve_http.main([path, "--device", "cpu", "--model-shards", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):  # no quiet move to the CPU

@@ -166,15 +166,19 @@ def test_cli_trains_on_the_cpu_and_exports(tmp_path, monkeypatch):
     assert np.isfinite(index.u_final.numpy()).all()
 
 
-def test_cli_refuses_without_a_card_and_slice_four_flags(tmp_path, monkeypatch):
+def test_cli_refuses_without_a_card_and_slice_four_flags(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     conf = _write_conf(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["-c", conf, "--epochs", "1"])
-    for flag in (["--mesh", "4x2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="A7"):
+    # the mesh flags run under a launcher (tests/test_torch_distributed_cli.py);
+    # in one process without one they stop before any group starts
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for flag, says in ((["--mesh", "4x2"], "under torchrun"), (["--distributed"], "torchrun sets")):
+        with pytest.raises(SystemExit):
             cli.main(["-c", conf, "--device", "cpu", *flag])
+        assert says in capsys.readouterr().err
     assert cli.main(["-c", str(tmp_path / "missing.toml"), "--device", "cpu"]) == 1
 
 
