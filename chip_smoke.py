@@ -13,8 +13,12 @@ exit, no result line):
    (K1 ``spmm_dual`` at U 9,308 x I 6,710 x d 64, int8, bf16 and packed
    int4 storage (int4 also bitwise against the int8 launch),
    also bitwise across two launches, with its launch plan and scratch, and
-   its backward through autograd (``SpmmDual``); K2/K3 ``denoise_mlp`` at
-   B 1,024, H 1,024 and I 6,710 and 20,000, on weights prepared once (also
+   its backward through autograd (``SpmmDual``), and on the model axis's
+   catalog shard, 9,308 x 3,355, int8 and int4, forward and backward;
+   K2/K3 ``denoise_mlp`` at B 1,024, H 1,024 and I 6,710 and 20,000 (K2 as
+   the rebuild runs it, its partial product ``kNone``, and with its tanh
+   epilogue), and on the model axis's shards, K2's partial at K 3,355 and
+   10,000, K3 at N 3,355 and 10,000, on weights prepared once (also
    bitwise across two launches and within twice the plain f32 product's
    error against float64); K4 ``segsum_gather`` (the gather-fused sorted
    segment sum) at the yelp shape: the user direction, n 38,403, nnz
@@ -116,7 +120,20 @@ exit, no result line):
     and a Propagate's backward within K4's rule of the whole call;
     ``recommend`` over E's index at model 2 (ids equal, scores within
     1e-5) and 20 requests to the two-shard HTTP server against direct
-    calls; each rank's seconds and peak memory.
+    calls; each rank's seconds, peak memory and Coach state.
+23. path P (model-axis training: two spawned gloo ranks on the one card, a
+    1x2 mesh, eager steps; a correctness path like O): E's settings, one
+    diffusion_block and three joint_blocks from path N's state and draws
+    (K1 on each rank's (U, I/2) block, K2's partial product summed over the
+    ranks, K3 on each rank's columns), within rel 2e-3 / abs 1e-5 of N's,
+    the ranks' whole states bitwise equal after every step; then one epoch
+    and ``test_epoch``, its kernel counters set to 0 just before and read
+    just after, the ranks bitwise equal; F's settings (sparse form), the
+    same blocks against N's; E's rebuild at sampling_step 0 against one
+    device's (scores within rtol 1e-4 / atol 1e-4, edge sets equal outside
+    near-ties); a checkpoint written at 1x2 restored into a Coach without a
+    mesh, whose ``test_epoch`` agrees with the mesh's; each rank's peak
+    memory and Coach state beside path O's.
 
 Every path's K4 launches are the fused entry's: each path checks that the
 unfused entry launched no time.
@@ -161,6 +178,12 @@ F32_FLOPS = 67e12
 TOL = {"spmm_dual": (1e-5, 1e-5), "denoise_layer1": (1e-5, 5e-5), "denoise_layer2": (1e-5, 5e-5),
        "segsum": (1e-6, 1e-6)}
 
+# the entries of K2 that the rebuild launches (ops/kernels/denoise_mlp.py::
+# denoise_forward_fused): on one device the kernel with its tanh epilogue,
+# as the TPU kernel; on a mesh its partial product (the ``kNone``
+# epilogue), summed over the model axis before the tanh
+K2_ENTRY = "denoise_layer1"
+K2_MESH_ENTRY = "denoise_layer1_partial"
 KERNELS = {
     "spmm_dual": {
         "source": "diffmm_tpu_torch/csrc/spmm_dual.cu",
@@ -320,6 +343,7 @@ def phase_kernels(dev) -> dict:
             bw_gen = gen if kind == "int8" else torch.Generator(device=dev).manual_seed(4)
             out[key + "_backward"] = _spmm_dual_backward(dev, bw_gen, mat, I)
     del int8_y
+    out.update(_spmm_dual_shard_cases(dev, mask, z_u, z_i))
 
     out.update(_denoise_cases(dev, gen))
     out.update(_segsum_cases(dev, gen))
@@ -381,6 +405,84 @@ def _gather_backward_cases(dev, gen) -> dict:
     return out
 
 
+def _spmm_dual_shard_cases(dev, mask, z_u, z_i) -> dict:
+    """K1 on the model axis's catalog shard (path P's): the (U, I/2) block of
+    the second half of tiktok's columns, 9,308 x 3,355 at d 64, built in
+    place from the whole edges as the mesh Coach builds it
+    (``build_dense_bi_adj_device(cols=...)``), int8 and packed int4 (odd
+    width: the last high nibble zero). Forward against the plain version
+    within TOL and bitwise across two launches; both halves' user sums
+    against the whole block's within TOL; the backward through ``SpmmDual``
+    (one launch) against the plain version. Library: two bf16 matmuls on a
+    bf16 copy of the shard."""
+    import torch
+
+    from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
+    from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+
+    U, I = mask.shape
+    d = z_u.shape[1]
+    edges = mask.nonzero()
+    rows, cols = edges[:, 0].to(torch.int32), edges[:, 1].to(torch.int32)
+    rtol, atol = TOL["spmm_dual"]
+    bw_gen = torch.Generator(device=dev).manual_seed(12)
+    g_u = torch.randn((U, d), generator=bw_gen, device=dev)
+    out = {}
+    for store in (torch.int8, torch.uint8):
+        kind = sd.store_kind(store)
+        halves = [build_dense_bi_adj_device(rows, cols, U, I, store, cols=c).mat
+                  for c in ((0, I // 2), (I // 2, I))]
+        whole_u = sd.spmm_dual(build_dense_bi_adj_device(rows, cols, U, I, store).mat, z_u, z_i)[0]
+        lo, hi = I // 2, I
+        mat, zi = halves[1], z_i[lo:hi]
+        before = sd.LAUNCHES["spmm_dual"]
+        yu, yi = sd.spmm_dual(mat, z_u, zi)
+        launches = sd.LAUNCHES["spmm_dual"] - before
+        yu2, yi2 = sd.spmm_dual(mat, z_u, zi)
+        pu, pi = sd.spmm_dual_plain(mat, z_u, zi)
+        summed = sd.spmm_dual(halves[0], z_u, z_i[:lo])[0] + yu
+        g_i = torch.randn((hi - lo, d), generator=bw_gen, device=dev)
+        zu_g, zi_g = z_u.clone().requires_grad_(), zi.clone().requires_grad_()
+        outs = sd.SpmmDual.apply(mat, zu_g, zi_g)
+        before = sd.LAUNCHES["spmm_dual"]
+        grads = torch.autograd.grad(outs, (zu_g, zi_g), (g_u, g_i))
+        bw_launches = sd.LAUNCHES["spmm_dual"] - before
+        bw_want = sd.spmm_dual_plain(mat, g_u, g_i)
+        torch.cuda.synchronize()
+        err = max(max_err(yu, pu), max_err(yi, pi))
+        bw_err = max(max_err(a, b) for a, b in zip(grads, bw_want))
+        bitwise = torch.equal(yu, yu2) and torch.equal(yi, yi2)
+        ok = (torch.allclose(yu, pu, rtol=rtol, atol=atol) and torch.allclose(yi, pi, rtol=rtol, atol=atol)
+              and bitwise and launches == 1 and bw_launches == 1
+              and torch.allclose(summed, whole_u, rtol=rtol, atol=atol)
+              and all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in zip(grads, bw_want)))
+        check(ok, f"spmm_dual_shard[{kind}]: max_abs_err {err}, backward {bw_err}, bitwise {bitwise}, "
+                  f"launches {launches}/{bw_launches}, halves' sum err {max_err(summed, whole_u)}")
+        m16 = (sd.unpack_int4(mat, hi - lo) if kind == "int4" else mat).to(torch.bfloat16)
+        zu16, zi16 = z_u.to(torch.bfloat16), zi.to(torch.bfloat16)
+        n_bytes = mat.numel() * mat.element_size() + 2 * (U + hi - lo) * d * 4
+        b, by = bound_ms(n_bytes, 2 * 2 * U * (hi - lo) * d, BF16_FLOPS)
+        p = sd.plan(U, hi - lo, d, kind, dev)
+        rec = {
+            "ok": ok, "store": kind, "shape": [U, hi - lo, d], "columns": [lo, hi], "max_abs_err": err,
+            "backward_max_abs_err": bw_err, "bitwise_across_launches": bitwise,
+            "halves_sum_max_abs_err": max_err(summed, whole_u), "launches_per_call": launches,
+            "launches_per_backward": bw_launches,
+            "plan": {"cluster": p.cluster, "col_blocks": p.col_blocks, "row_blocks": p.row_blocks,
+                     "rows": p.rows, "groups": p.groups},
+            "m_bytes": mat.numel() * mat.element_size(),
+            "ms": time_ms(lambda: sd.spmm_dual(mat, z_u, zi), 50),
+            "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, z_u, zi), 10),
+            "backward_ms": time_ms(lambda: sd.spmm_dual(mat, g_u, g_i), 50),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(lambda: (m16 @ zi16, m16.T @ zu16), 50),
+        }
+        del m16, halves
+        out[f"spmm_dual_shard_{kind}"] = rec
+        print(f"[kernels] spmm_dual_shard_{kind}: {json.dumps(rec)}")
+    return out
+
+
 def _spmm_dual_backward(dev, gen, mat, I: int) -> dict:
     """K1's backward through autograd (``SpmmDual``) at the path's shape:
     the cotangents' gradients against the plain version's (the same call
@@ -430,14 +532,59 @@ def _spmm_dual_backward(dev, gen, mat, I: int) -> dict:
     return rec
 
 
+def _gemm_case(name: str, shape, kern, plain, exact, lib_call, n_bytes: int, prep_ms: float) -> dict:
+    """One K2/K3 case: the kernel against its plain version within TOL,
+    bitwise across two launches, within twice the plain f32 product's max
+    error against float64; its times beside three bounds: the function's
+    (``bound_ms``: its 2·B·K·N products at the TF32 rate, the card's fastest
+    for f32 operands), the design's (3xTF32, three TF32 products per f32
+    one) and the f32 FMA rate's."""
+    import torch
+
+    B, K, N = shape
+    got, again, want = kern(), kern(), plain()
+    ref = exact()
+    torch.cuda.synchronize()
+    rtol, atol = TOL["denoise_layer2" if name.startswith("denoise_layer2") else "denoise_layer1"]
+    err = max_err(got, want)
+    err_f64, plain_f64 = max_err(got.double(), ref), max_err(want.double(), ref)
+    del ref
+    bitwise = torch.equal(got, again)
+    ok = torch.allclose(got, want, rtol=rtol, atol=atol) and bitwise and err_f64 <= 2 * plain_f64
+    check(ok, f"{name}: max_abs_err {err} vs plain, {err_f64} vs f64 (plain "
+              f"{plain_f64}), bitwise across launches: {bitwise}")
+    flops = 2 * B * K * N
+    b, by = bound_ms(n_bytes, flops, TF32_FLOPS)
+    rec = {
+        "ok": ok,
+        "shape": [B, K, N],
+        "max_abs_err": err,
+        "max_err_vs_f64": err_f64,
+        "plain_max_err_vs_f64": plain_f64,
+        "bitwise_across_launches": bitwise,
+        "ms": time_ms(kern, 20),
+        "plain_ms": time_ms(plain, 20),
+        "bound_ms": b,
+        "bound_by": by,
+        "bound_design_ms": bound_ms(n_bytes, 3 * flops, TF32_FLOPS)[0],
+        "bound_design": "3xTF32: 3 TF32 products per f32 one at 495 TFLOP/s",
+        "bound_f32_fma_ms": bound_ms(n_bytes, flops, F32_FLOPS)[0],
+        "library_ms": time_ms(lib_call, 20),
+        "prepare_ms": prep_ms,
+    }
+    print(f"[kernels] {name}: {json.dumps(rec)}")
+    return rec
+
+
 def _denoise_cases(dev, gen) -> dict:
     """K2/K3 at the rebuild's shapes, tiktok's catalog (path A) and yelp's
     (path C), on weights prepared once as the rebuild prepares them (the
-    preparation timed beside them): each against its plain version within
-    TOL, bitwise across two launches, and within twice the plain f32
-    product's max error against float64. Three bounds: the function's
-    (``bound_ms``: its products at the TF32 rate), the design's (3xTF32,
-    three TF32 products per f32 one) and the f32 FMA rate's."""
+    preparation timed beside them), each as :func:`_gemm_case` holds it: K2
+    with its tanh epilogue (``denoise_layer1``, one device) and as its raw
+    partial product (``denoise_layer1_partial``, a mesh), and K3. Then the model
+    axis's shapes (path P and F's catalog cut in two), on data of their own
+    stream: K2's partial at K 3,355 and 10,000 (a rank's catalog rows of
+    W1x) and K3 at N 3,355 and 10,000 (a rank's columns of W2)."""
     import torch
 
     from diffmm_tpu_torch.ops.kernels import denoise_mlp as dm
@@ -455,59 +602,45 @@ def _denoise_cases(dev, gen) -> dict:
                    "w2": time_ms(lambda: dm.prepare_weight(w2), 5)}
         print(f"[kernels] prepare_weight{suffix}, once per rebuild and modality, ms: {json.dumps(prep_ms)}")
         h = dm.layer1_plain(x, w1x, tp)
-        full = dm.fused_denoise_mlp(x, w1x, tp, w2, b2)
+        # both kernels on weights in the JAX layout, prepared per call
+        full = dm.denoise_layer2(dm.denoise_layer1(x, w1x, tp), w2, b2)
         want_full = dm.layer2_plain(h, w2, b2)
-        for name, kern, plain, exact, lib_call, n_bytes, prep in (
-            ("denoise_layer1", lambda: dm.denoise_layer1(x, w1p, tp),
-             lambda: dm.layer1_plain(x, w1x, tp),
-             lambda: torch.tanh(x.double() @ w1x.double() + tp.double()),
-             lambda: torch.tanh(torch.addmm(tp, x, w1x)),
-             (B * K + K * H + 2 * B * H) * 4, prep_ms["w1x"]),
-            ("denoise_layer2", lambda: dm.denoise_layer2(h, w2p, b2),
-             lambda: dm.layer2_plain(h, w2, b2),
-             lambda: h.double() @ w2.double() + b2.double(),
-             lambda: torch.addmm(b2, h, w2),
-             (B * H + H * K + K + B * K) * 4, prep_ms["w2"]),
-        ):
-            got, again, want = kern(), kern(), plain()
-            ref = exact()
-            torch.cuda.synchronize()
-            rtol, atol = TOL[name]
-            err = max_err(got, want)
-            err_f64, plain_f64 = max_err(got.double(), ref), max_err(want.double(), ref)
-            del ref
-            bitwise = torch.equal(got, again)
-            ok = torch.allclose(got, want, rtol=rtol, atol=atol) and bitwise and err_f64 <= 2 * plain_f64
-            check(ok, f"{name}{suffix}: max_abs_err {err} vs plain, {err_f64} vs f64 (plain "
-                      f"{plain_f64}), bitwise across launches: {bitwise}")
-            # the function's bound: its 2·B·K·H f32 products at the card's
-            # fastest rate for f32 operands (TF32 tensor cores)
-            flops = 2 * B * K * H
-            b, by = bound_ms(n_bytes, flops, TF32_FLOPS)
-            rec = {
-                "ok": ok,
-                "shape": [B, K, H],
-                "max_abs_err": err,
-                "max_err_vs_f64": err_f64,
-                "plain_max_err_vs_f64": plain_f64,
-                "bitwise_across_launches": bitwise,
-                "ms": time_ms(kern, 20),
-                "plain_ms": time_ms(plain, 20),
-                "bound_ms": b,
-                "bound_by": by,
-                "bound_design_ms": bound_ms(n_bytes, 3 * flops, TF32_FLOPS)[0],
-                "bound_design": "3xTF32: 3 TF32 products per f32 one at 495 TFLOP/s",
-                "bound_f32_fma_ms": bound_ms(n_bytes, flops, F32_FLOPS)[0],
-                "library_ms": time_ms(lib_call, 20),
-                "prepare_ms": prep,
-            }
-            out[name + suffix] = rec
-            print(f"[kernels] {name}{suffix}: {json.dumps(rec)}")
+        out[K2_ENTRY + suffix] = _gemm_case(
+            K2_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1(x, w1p, tp),
+            lambda: dm.layer1_plain(x, w1x, tp), lambda: torch.tanh(x.double() @ w1x.double() + tp.double()),
+            lambda: torch.tanh(torch.addmm(tp, x, w1x)), (B * K + K * H + 2 * B * H) * 4, prep_ms["w1x"])
+        out[K2_MESH_ENTRY + suffix] = _gemm_case(
+            K2_MESH_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1_partial(x, w1p),
+            lambda: dm.layer1_partial_plain(x, w1x), lambda: x.double() @ w1x.double(),
+            lambda: torch.matmul(x, w1x), (B * K + K * H + B * H) * 4, prep_ms["w1x"])
+        out["denoise_layer2" + suffix] = _gemm_case(
+            "denoise_layer2" + suffix, (B, H, K), lambda: dm.denoise_layer2(h, w2p, b2),
+            lambda: dm.layer2_plain(h, w2, b2), lambda: h.double() @ w2.double() + b2.double(),
+            lambda: torch.addmm(b2, h, w2), (B * H + H * K + K + B * K) * 4, prep_ms["w2"])
         err = max_err(full, want_full)
-        check(torch.allclose(full, want_full, rtol=1e-5, atol=1e-4), f"fused_denoise_mlp{suffix}: {err}")
-        print(f"[kernels] fused_denoise_mlp{suffix} wrapper (weights prepared per call) vs plain: "
-              f"max_abs_err {err}")
+        check(torch.allclose(full, want_full, rtol=1e-5, atol=1e-4), f"K2 then K3{suffix}: {err}")
+        print(f"[kernels] K2 then K3{suffix} (weights prepared per call) vs plain: max_abs_err {err}")
         del x, w1x, tp, w2, b2, w1p, w2p, h, full, want_full
+    shard_gen = torch.Generator(device=dev).manual_seed(10)
+    for K, suffix in ((TIKTOK["item_num"] // 2, "_shard"), (YELP["item_num"] // 2, "_yelp_shard")):
+        # a rank's own contiguous columns of x (as the rebuild holds them)
+        x = torch.randn((B, K), generator=shard_gen, device=dev)
+        w1x = torch.randn((K, H), generator=shard_gen, device=dev) * math.sqrt(2.0 / (2 * K + 10 + H))
+        h = torch.tanh(torch.randn((B, H), generator=shard_gen, device=dev))
+        w2 = torch.randn((H, K), generator=shard_gen, device=dev) * math.sqrt(2.0 / (H + 2 * K))
+        b2 = torch.randn((K,), generator=shard_gen, device=dev) * 0.001
+        w1p, w2p = dm.prepare_weight(w1x), dm.prepare_weight(w2)
+        prep_ms = {"w1x": time_ms(lambda: dm.prepare_weight(w1x), 5),
+                   "w2": time_ms(lambda: dm.prepare_weight(w2), 5)}
+        out[K2_MESH_ENTRY + suffix] = _gemm_case(
+            K2_MESH_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1_partial(x, w1p),
+            lambda: dm.layer1_partial_plain(x, w1x), lambda: x.double() @ w1x.double(),
+            lambda: torch.matmul(x, w1x), (B * K + K * H + B * H) * 4, prep_ms["w1x"])
+        out["denoise_layer2" + suffix] = _gemm_case(
+            "denoise_layer2" + suffix, (B, H, K), lambda: dm.denoise_layer2(h, w2p, b2),
+            lambda: dm.layer2_plain(h, w2, b2), lambda: h.double() @ w2.double() + b2.double(),
+            lambda: torch.addmm(b2, h, w2), (B * H + H * K + K + B * K) * 4, prep_ms["w2"])
+        del x, w1x, h, w2, b2, w1p, w2p
     return out
 
 
@@ -1014,6 +1147,40 @@ def tensor_numels(obj) -> set:
     return sizes
 
 
+def held_bytes(obj) -> int:
+    """Bytes of the card storages ``obj`` holds (each storage once), walked
+    as :func:`tensor_numels` walks it."""
+    import dataclasses
+
+    import torch
+
+    seen, total, todo = set(), 0, [obj]
+    while todo:
+        obj = todo.pop()
+        if isinstance(obj, torch.Tensor):
+            st = obj.untyped_storage()
+            if obj.is_cuda and st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(obj, dict):
+            todo.extend(obj.values())
+        elif isinstance(obj, (list, tuple)):
+            todo.extend(obj)
+        elif dataclasses.is_dataclass(obj):
+            todo.extend(getattr(obj, f.name) for f in dataclasses.fields(obj))
+    return total
+
+
+def coach_state_bytes(coach) -> dict:
+    """A Coach's own state on the card: its parameters with their Adam
+    moments, and everything it holds (data, train store, adjacencies,
+    parameters, moments)."""
+    states = [coach.gcn_opt_state, *coach.dn_opt_states]
+    return {"params_and_moments": held_bytes([coach.gcn_params, coach.dn_params,
+                                              [s.mu + s.nu for s in states]]),
+            "all": held_bytes(vars(coach))}
+
+
 def drive_path(dev, cfg, host, label: str):
     """Rebuild -> test_epoch -> build_index -> 8 recommend requests, with
     every kernel counter set to 0 just before and read just after. Returns
@@ -1073,8 +1240,8 @@ def drive_path(dev, cfg, host, label: str):
     n_fwd = 2  # test_epoch and build_index
     blocks = sum(int(b.shape[0]) for b in coach.rebuild_blocks)
     want_dn = coach.n_modal * cfg.hyper.steps * blocks
-    check(launches["denoise_layer1"] == want_dn and launches["denoise_layer2"] == want_dn,
-          f"{label} denoise launches {launches}, want {want_dn} each")
+    check(launches[K2_ENTRY] == want_dn and launches["denoise_layer2"] == want_dn
+          and launches[K2_MESH_ENTRY] == 0, f"{label} denoise launches {launches}, want {want_dn} each")
     if coach.dense_graphs:
         # one per modality graph, two over the main graph
         per_fwd, kernel, other = coach.n_modal + 2, "spmm_dual", "segsum"
@@ -1224,7 +1391,7 @@ def phase_path_c(dev) -> tuple[dict, object, object]:
     rec, coach = drive_path(dev, cfg, host, "C")
     check(rec["graph_form"] == "sparse" and rec["train_store"] == "csr", f"C form {rec}")
     blocks = -(-host.user_num // cfg.train.batch)  # 38 at 1,024 users a block
-    check(rec["launches"]["denoise_layer1"] == 2 * cfg.hyper.steps * blocks,
+    check(rec["launches"][K2_ENTRY] == 2 * cfg.hyper.steps * blocks,
           f"C denoise launches {rec['launches']}")
     ui = host.user_num * host.item_num
     check(ui not in tensor_numels(vars(coach)), "C holds a (U, I) tensor")
@@ -1297,7 +1464,8 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
     n_diff = -(-host.user_num // batch)
     blocks = sum(int(b.shape[0]) for b in coach.rebuild_blocks)
     want_dn = coach.n_modal * cfg.hyper.steps * blocks * epochs if rebuild_runs_k2k3(cfg) else 0
-    check(launches["denoise_layer1"] == want_dn and launches["denoise_layer2"] == want_dn,
+    check(launches[K2_ENTRY] == want_dn and launches["denoise_layer2"] == want_dn
+          and launches[K2_MESH_ENTRY] == 0,
           f"{label} denoise launches {launches}, want {want_dn} each (the rebuilds)")
     # every joint step's launches, replayed steps included (a graph's count
     # a replay times its replays)
@@ -1718,12 +1886,14 @@ def _snapshot(coach):
 
 
 def _state(coach) -> list:
-    """Copies of a Coach's parameters, Adam moments, edge buffers and
-    generator state."""
+    """Copies of a Coach's whole parameters, Adam moments, edge buffers and
+    generator state (on a mesh gathered over the model axis: every rank
+    calls it)."""
     from diffmm_tpu_torch.train.optim import tree_leaves
 
-    out = tree_leaves(coach.gcn_params) + tree_leaves(coach.dn_params) + list(coach.edge_buffers)
-    for s in (coach.gcn_opt_state, *coach.dn_opt_states):
+    w = coach._whole(coach.gcn_params, coach.dn_params, coach.gcn_opt_state, coach.dn_opt_states)
+    out = tree_leaves(w["gcn_params"]) + tree_leaves(w["dn_params"]) + list(coach.edge_buffers)
+    for s in (w["gcn_opt_state"], *w["dn_opt_states"]):
         out += s.mu + s.nu
     return [t.clone() for t in out] + [coach.generator.get_state()]
 
@@ -1954,6 +2124,14 @@ def phase_resume(dev, host, twin, want_loss: dict, report_dir: str) -> dict:
 # epoch is held rank against rank and run against run, bitwise, and its
 # difference from N is recorded.
 MESH_TOL = {"rel": 2e-3, "abs": 1e-5}  # tests/test_parallel.py:76-79
+# P's blocks against N: the port at world size 1, the tolerance of
+# tests/test_torch_model_axis.py. The losses and metrics alone cannot see a
+# model-axis adjoint that doubles a gradient (Adam's first steps are about
+# lr·sign(g)), so the whole first Adam moment, gathered, is held against N's
+# too: each leaf's L1 sum, and its norm-wise relative error on a strided
+# sample of MOMENT_SAMPLE entries (a doubled gradient reads 1.0 there).
+P_TOL = {"rel": 1e-5, "abs": 1e-6}
+MOMENT_SAMPLE = 4096
 
 
 def _digest(tensors) -> str:
@@ -1969,16 +2147,53 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _close(a: float, b: float) -> bool:
-    return math.isclose(a, b, rel_tol=MESH_TOL["rel"], abs_tol=MESH_TOL["abs"])
+def _close(a: float, b: float, tol: dict = MESH_TOL) -> bool:
+    return math.isclose(a, b, rel_tol=tol["rel"], abs_tol=tol["abs"])
 
 
-def _blocks(coach, shard, n_joint: int = 3) -> dict:
+def _moments(coach, gcn: bool) -> dict:
+    """The whole first Adam moment of the GCN's (``gcn``) or the denoisers'
+    leaves (on a mesh gathered over the model axis: every rank calls it):
+    per leaf its L1 sum and MOMENT_SAMPLE evenly spaced entries."""
+    import torch
+
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    w = coach._whole(gcn_state=coach.gcn_opt_state) if gcn else coach._whole(dn_states=coach.dn_opt_states)
+    leaves = w["gcn_opt_state"].mu if gcn else [t for s in w["dn_opt_states"] for t in s.mu]
+    out = {"l1": [], "sample": []}
+    for t in tree_leaves(leaves):
+        flat = t.detach().reshape(-1).double()
+        n, count = flat.numel(), min(MOMENT_SAMPLE, flat.numel())
+        at = torch.arange(count, device=flat.device) * (n - 1) // max(count - 1, 1)
+        out["l1"].append(float(flat.abs().sum()))
+        out["sample"].append(flat[at].tolist())
+    return out
+
+
+def _moments_vs(got: dict, want: dict) -> dict:
+    """Per leaf: the L1 sums' relative difference and the sample's
+    norm-wise relative error, each at its worst leaf, and whether both hold
+    within P_TOL."""
+    l1 = [abs(a - b) / max(b, 1e-30) for a, b in zip(got["l1"], want["l1"])]
+    norm = []
+    ok = len(got["l1"]) == len(want["l1"])
+    for a, b, ga, wa in zip(got["sample"], want["sample"], got["l1"], want["l1"]):
+        diff = math.sqrt(sum((x - y) ** 2 for x, y in zip(a, b)))
+        ref = math.sqrt(sum(y * y for y in b))
+        norm.append(diff / max(ref, 1e-30))
+        ok = ok and diff <= P_TOL["rel"] * ref + P_TOL["abs"] and _close(ga, wa, P_TOL)
+    return {"ok": ok, "leaves": len(l1), "l1_rel_max": max(l1), "sample_norm_rel_max": max(norm)}
+
+
+def _blocks(coach, split, n_joint: int = 3) -> dict:
     """One diffusion_block, then ``n_joint`` joint_blocks, of a fresh
     Coach (E's or F's) with the train graph as each modality's graph, from
     one set of draws made on the card from seed 11 (users, timesteps, noise,
     the interaction blocks, the CL uniforms): the losses, the joint metrics
-    summed over the ranks, and the state's digest after each step."""
+    summed over the ranks, the state's digest after each step, and the
+    first Adam moments (:func:`_moments`) after the diffusion step and the
+    first joint step (each the first step of its optimiser)."""
     import torch
 
     from diffmm_tpu_torch.models.gcn import project_features
@@ -1998,12 +2213,13 @@ def _blocks(coach, shard, n_joint: int = 3) -> dict:
     losses = steps.diffusion_block(coach.schedule, coach.dn_params, coach.dn_opt_states, feats,
                                    coach.gcn_params["i_embs"], coach.data.train_store, users,
                                    torch.ones(B, device=dev), 1e-3, coach.hp(), host.item_num, t=t,
-                                   noise=noise, shard=shard)
+                                   noise=noise, split=split)
     rec["diffusion_losses"] = losses.tolist()
     rec["step_s"].append(time.perf_counter() - t0)
     rec["digests"].append(_digest(_state(coach)))
+    rec["dn_moments"] = _moments(coach, gcn=False)
     del t, noise
-    for _ in range(n_joint):
+    for j in range(n_joint):
         pick = torch.randint(0, host.nnz, (B,), generator=gen, device=dev)
         block = (coach.data.train_rows[pick], coach.data.train_cols[pick],
                  torch.randint(0, host.item_num, (B,), generator=gen, device=dev).to(torch.int32))
@@ -2012,12 +2228,14 @@ def _blocks(coach, shard, n_joint: int = 3) -> dict:
         t0 = time.perf_counter()
         metrics = steps.joint_block(coach.gcn_params, coach.gcn_opt_state, coach.data.adj, coach.modal_adjs,
                                     coach.data.raw_feats, *block, 1e-3, coach.hp(), cfg.base.cl_method,
-                                    cfg.train.segsum_compute, cl_noise=cl, shard=shard)
-        if shard is not None and shard.count > 1:
-            metrics = all_reduce_sum_(metrics.contiguous(), shard.group)
+                                    cfg.train.segsum_compute, cl_noise=cl, split=split)
+        if split is not None:
+            metrics = all_reduce_sum_(metrics.contiguous(), split.world.group)
         rec["joint_metrics"].append(metrics.tolist())
         rec["step_s"].append(time.perf_counter() - t0)
         rec["digests"].append(_digest(_state(coach)))
+        if j == 0:
+            rec["gcn_moments"] = _moments(coach, gcn=True)
     return rec
 
 
@@ -2095,7 +2313,10 @@ def mesh_path_n(report_dir: str) -> dict:
     """Path N, in one NCCL rank: E's and F's data and settings, two epochs,
     each with ``test_epoch``, on a 1x1 mesh (the steps captured with their
     collectives) against the same on a Coach without a mesh: losses,
-    metrics, parameters, moments, edge buffers and generator bitwise; the
+    metrics, parameters, moments, edge buffers and generator bitwise (the
+    one device's rebuild takes K2's tanh epilogue in the kernel, the mesh's
+    the tanh after its partial product's sum: the same f32 add and
+    ``tanhf``); the
     kernel counters set to 0 just before the mesh Coach's epoch and eval
     and read just after. K4's mesh form at F's shapes; ``recommend(mesh)``
     at model 1 bitwise the plain call; F's blocks of path O at world size 1;
@@ -2144,7 +2365,7 @@ def mesh_path_n(report_dir: str) -> dict:
         replays = {key[0]: g.replays for key, g in coach.graphs.graphs.items()}
         check(coach.capture_steps and replays.get("joint", 0) > 0, f"N {label}: steps not captured {replays}")
         want = ("spmm_dual",) if label == "E" else ("segsum",)
-        check(all(m["launches"][k] > 0 for k in (*want, "denoise_layer1", "denoise_layer2")),
+        check(all(m["launches"][k] > 0 for k in (*want, K2_MESH_ENTRY, "denoise_layer2")),
               f"N {label} launches {m['launches']}")
         n_grad = sum(t.numel() for t in tree_leaves(coach.gcn_params))
         buf = torch.zeros(n_grad, device=dev)
@@ -2166,7 +2387,7 @@ def mesh_path_n(report_dir: str) -> dict:
         del runs, coach
         gc.collect()
         fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
-        rec[f"{label}_blocks"] = _blocks(fresh, fresh.data_shard)
+        rec[f"{label}_blocks"] = _blocks(fresh, fresh.split)
         del fresh
         print(f"[path N] {label}: {json.dumps({k: v for k, v in rec[label].items()})}")
         gc.collect()
@@ -2232,7 +2453,7 @@ def _k4_mesh_checks(coach) -> dict:
     for sh in (shard, None):
         zz = z.clone().requires_grad_()
         y = Propagate.apply(zz, adj.ui_cols, adj.ui_offsets, adj.iu_cols, adj.iu_offsets, "f32", sh)
-        r_lo, r_hi = coach.data_shard.span(U) if sh is not None else (0, U)
+        r_lo, r_hi = coach.split.rows.span(U) if sh is not None else (0, U)
         (w[r_lo:r_hi] * y[r_lo:r_hi]).sum().backward()
         grads.append(zz.grad if sh is None else all_reduce_sum_(zz.grad.clone(), world))
     scale = sg.segsum_gather(w.abs(), adj.iu_cols, adj.iu_offsets)
@@ -2307,12 +2528,17 @@ def mesh_path_o(report_dir: str) -> dict:
     for _ in range(2):
         coach = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
         check(not coach.capture_steps, "O: a gloo Coach must run its steps eagerly")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         losses = coach.train_epoch(0, fence=True)
         wall = time.perf_counter() - t0
         metrics = coach.test_epoch()
         rec["E"].append({"losses": losses, "metrics": metrics, "digest": _digest(_state(coach)),
-                         "epoch_s": wall, "phases_s": dict(coach.timer.totals)})
+                         "epoch_s": wall, "phases_s": dict(coach.timer.totals),
+                         "epoch_peak_bytes": torch.cuda.max_memory_allocated(dev),
+                         "held_at_start_bytes": held, "coach_state_bytes": coach_state_bytes(coach)})
     index = build_index(coach)
     mesh2 = make_mesh(2, model_parallel=2)
     placed = place_index(index, mesh2)
@@ -2326,20 +2552,172 @@ def mesh_path_o(report_dir: str) -> dict:
     gc.collect()
     for _ in range(2):
         fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
-        rec["E_blocks"].append(_blocks(fresh, fresh.data_shard))
+        rec["E_blocks"].append(_blocks(fresh, fresh.split))
     del fresh
     gc.collect()
     cfg, host = _yelp_shape()
     for _ in range(2):
         fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
-        rec["F_blocks"].append(_blocks(fresh, fresh.data_shard))
+        rec["F_blocks"].append(_blocks(fresh, fresh.split))
     rec["k4"] = _k4_mesh_checks(fresh)
     rec["seconds"] = time.perf_counter() - t_start
     rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     return rec
 
 
-def phase_mesh(report_dir: str) -> tuple[dict, dict]:
+def _p_rebuild(coach, cfg, host) -> dict:
+    """Path P: E's rebuild on the 1x2 mesh at sampling_step 0 (the scores
+    of the clean rows decide the edges) against one device's from the same
+    whole parameters: every user's reverse-diffusion scores, gathered over
+    the model axis, within rtol 1e-4 / atol 1e-4, and the edge sets equal
+    wherever the k-th and (k+1)-th one-device scores are more than 1e-4
+    apart. Rank 0 holds the one-device Coach; every rank runs the mesh's
+    collectives."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.data.membership import gather_rows
+    from diffmm_tpu_torch.diffusion.gaussian import generate_view
+    from diffmm_tpu_torch.parallel.collectives import placed_all_reduce
+    from diffmm_tpu_torch.train import steps
+    from diffmm_tpu_torch.train.coach import Coach
+
+    split, dev = coach.split, coach.device
+    coach.config.hyper.sampling_step = 0
+    whole = coach._whole(coach.gcn_params, coach.dn_params)
+    bufs = [b.cpu() for b in coach.rebuild_graphs()]
+    I, U = host.item_num, host.user_num
+    denoisers, apply = steps.rebuild_forward(coach.dn_params, "f32", None, split)
+    scores = []
+    with torch.no_grad():
+        for m, den in enumerate(denoisers):
+            parts = []
+            for a in range(0, U, 1024):
+                x0 = gather_rows(coach.data.train_store, torch.arange(a, min(a + 1024, U), device=dev),
+                                 I)[:, split.lo:split.hi]
+                view = generate_view(coach.schedule, den, x0, 0, denoise_apply=apply, cols=(split.lo, split.hi))
+                parts.append(placed_all_reduce(view, split.lo, I, split.cat.group, dim=1))
+            scores.append(torch.cat(parts))
+    rec = {"sampling_step": 0}
+    if dist.get_rank() == 0:
+        cfg = copy.deepcopy(cfg)
+        cfg.hyper.sampling_step = 0
+        one = Coach(cfg, host, device=dev)
+        one.load_params(whole["gcn_params"], whole["dn_params"])
+        want = [b.cpu() for b in one.rebuild_graphs()]
+        den1, apply1 = steps.rebuild_forward(one.dn_params, "f32", None)
+        x0 = gather_rows(one.data.train_store, torch.arange(U, device=dev), I)
+        errs, ties, disagree = [], 0, 0
+        with torch.no_grad():
+            for m, (den, got_b, want_b) in enumerate(zip(den1, bufs, want)):
+                ref = torch.cat([generate_view(one.schedule, den, x0[a:a + 1024], 0, denoise_apply=apply1)
+                                 for a in range(0, U, 1024)])
+                errs.append(max_err(scores[m], ref))
+                ok_scores = torch.allclose(scores[m], ref, rtol=1e-4, atol=1e-4)
+                check(ok_scores, f"P rebuild scores, modality {m}: max_abs_err {errs[-1]}")
+                top = torch.sort(ref, dim=1, descending=True).values.cpu()
+                for u in range(U):
+                    lo, k = int(host.csr_offsets[u]), int(host.user_degrees[u])
+                    if set(got_b[lo:lo + k].tolist()) == set(want_b[lo:lo + k].tolist()):
+                        continue
+                    disagree += 1
+                    if k < I and float(top[u, k - 1] - top[u, k]) <= 1e-4:
+                        ties += 1
+        check(disagree == ties, f"P rebuild: {disagree} users' edge sets differ, {ties} of them at near-ties")
+        rec.update({"scores_max_abs_err": errs, "users_differing": disagree, "users_at_near_ties": ties})
+        del one
+    coach.config.hyper.sampling_step = cfg.hyper.sampling_step
+    return rec
+
+
+def mesh_path_p(report_dir: str) -> dict:
+    """Path P, in each of two gloo ranks on the one card (a 1x2 mesh, eager
+    steps): E's blocks (:func:`_blocks`) from N's state and draws; E's
+    epoch and ``test_epoch`` with the kernel counters set to 0 just before
+    and read just after; a checkpoint written at 1x2 and restored (rank 0)
+    into a Coach without a mesh; E's rebuild against one device's
+    (:func:`_p_rebuild`); F's blocks. Returns digests, losses, metrics,
+    launches, seconds, the rank's peaks and its Coach state."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from diffmm_tpu_torch.parallel import make_mesh
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(2, model_parallel=2)
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_start = time.perf_counter()
+    cfg, host = _tiktok_shape()
+    fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
+    check(not fresh.capture_steps, "P: a gloo Coach must run its steps eagerly")
+    dn = fresh.dn_params[0]
+    rec["holds"] = {"catalog": [fresh.split.lo, fresh.split.hi],
+                    "i_embs": list(fresh.gcn_params["i_embs"].shape),
+                    "w1": list(dn["in_layers"][0]["w"].shape), "w2": list(dn["out_layers"][-1]["w"].shape),
+                    "b2": list(dn["out_layers"][-1]["b"].shape), "dense_block": list(fresh.data.adj.mat.shape)}
+    check(rec["holds"]["i_embs"][0] == host.item_num // 2 and rec["holds"]["dense_block"][1] == host.item_num // 2,
+          f"P: rank {rank} does not hold half the catalog: {rec['holds']}")
+    rec["E_blocks"] = _blocks(fresh, fresh.split)
+    del fresh
+    gc.collect()
+    coach = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    losses = coach.train_epoch(0, fence=True)
+    wall = time.perf_counter() - t0
+    metrics = coach.test_epoch()
+    torch.cuda.synchronize()
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
+    check(all(launches[k] > 0 for k in ("spmm_dual", K2_MESH_ENTRY, "denoise_layer2", "segsum"))
+          and launches["segsum_unfused"] == 0 and launches[K2_ENTRY] == 0, f"P E launches {launches}")
+    rec["E"] = {"losses": losses, "metrics": metrics, "digest": _digest(_state(coach)), "epoch_s": wall,
+                "phases_s": dict(coach.timer.totals), "launches": launches,
+                "epoch_peak_bytes": torch.cuda.max_memory_allocated(dev), "held_at_start_bytes": held,
+                "coach_state_bytes": coach_state_bytes(coach)}
+    directory = [tempfile.mkdtemp() if rank == 0 else None]
+    dist.broadcast_object_list(directory, src=0)
+    coach.ckpt = CheckpointManager(directory[0])
+    coach.save_checkpoint(0, {"Recall": metrics["Recall"]})
+    if rank == 0:
+        one = Coach(copy.deepcopy(cfg), host, device=dev)
+        one.ckpt = coach.ckpt
+        one.restore_checkpoint()
+        got = one.test_epoch()
+        rec["restored_one_device"] = {"eval": got, "equal": got == metrics,
+                                      "i_embs_rows": one.gcn_params["i_embs"].shape[0]}
+        check(all(_close(got[k], metrics[k]) for k in metrics), f"P restored eval {got} vs the mesh's {metrics}")
+        del one
+        shutil.rmtree(directory[0])
+    dist.barrier()
+    rec["rebuild"] = _p_rebuild(coach, cfg, host)
+    del coach
+    gc.collect()
+    cfg, host = _yelp_shape()
+    fresh = Coach(copy.deepcopy(cfg), host, device=dev, mesh=mesh)
+    rec["F_blocks"] = _blocks(fresh, fresh.split)
+    del fresh
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return rec
+
+
+def phase_mesh(report_dir: str) -> tuple[dict, dict, dict]:
     """Paths N and O in their ranks, and the checks across them: O's ranks
     bitwise equal to each other after every step and from run to run, O
     within rel 2e-3 / abs 1e-5 of N (the JAX mesh test's tolerance)."""
@@ -2352,8 +2730,6 @@ def phase_mesh(report_dir: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     o = run_ranks(mesh_path_o, 2, (report_dir,), backend="gloo", timeout=1200)
     seconds = time.perf_counter() - t0
-    with open(os.path.join(report_dir, "mesh_paths.json"), "w") as fh:
-        json.dump({"N": n, "O": o}, fh, indent=1)
     r0, r1 = o
     for run in range(2):
         check(r0["E"][run]["digest"] == r1["E"][run]["digest"], f"O: ranks' E state differs (run {run})")
@@ -2377,6 +2753,10 @@ def phase_mesh(report_dir: str) -> tuple[dict, dict]:
                                                                               want["joint_metrics"])
                                               for a, b in zip(ga, wa))
     check(all(agree.values()), f"O against N: {agree}")
+    # the first moments beside N's, recorded (O's rows of 512 round otherwise
+    # than N's 1,024; P_TOL gates P, the model axis)
+    moments = {f"{label}_{kind}": _moments_vs(r0[f"{label}_blocks"][0][kind], n[f"{label}_blocks"][kind])
+               for label in ("E", "F") for kind in ("dn_moments", "gcn_moments")}
     # E's whole epoch from a fresh state, recorded beside N's (see the note
     # above path N): relative differences of its losses and metrics
     epoch_vs_n = {kind: {k: abs(r0["E"][0][kind][k] - v) / max(abs(v), 1e-12) for k, v in n["E"][kind].items()}
@@ -2385,10 +2765,68 @@ def phase_mesh(report_dir: str) -> tuple[dict, dict]:
           f"O recommend at model 2: {r0['recommend_model2']}")
     check(r0["http"]["ids_equal"] and r0["http"]["max_score_diff"] <= 1e-5 and r1["http"] == {"served": 20},
           f"O HTTP: {r0['http']} {r1['http']}")
-    rec = {"ranks": o, "agree_with_N": agree, "E_epoch_rel_diff_vs_N": epoch_vs_n, "seconds": seconds,
+    rec = {"ranks": o, "agree_with_N": agree, "moments_vs_N": moments, "E_epoch_rel_diff_vs_N": epoch_vs_n,
+           "seconds": seconds,
            "peak_mem_bytes": [r["peak_mem_bytes"] for r in o]}
     print(f"[path O] {json.dumps({k: v for k, v in rec.items() if k != 'ranks'})}")
-    return n, rec
+    t0 = time.perf_counter()
+    p = run_ranks(mesh_path_p, 2, (report_dir,), backend="gloo", timeout=1200)
+    p_rec = _check_path_p(p, n, o, time.perf_counter() - t0)
+    for blocks in [n[f"{x}_blocks"] for x in "EF"] + [r[f"{x}_blocks"][i] for r in o for x in "EF"
+                                                       for i in range(2)] + [r[f"{x}_blocks"] for r in p for x in "EF"]:
+        for kind in ("dn_moments", "gcn_moments"):  # the samples stay out of the report
+            blocks[kind] = {"l1": blocks[kind]["l1"]}
+    with open(os.path.join(report_dir, "mesh_paths.json"), "w") as fh:
+        json.dump({"N": n, "O": o, "P": p}, fh, indent=1)
+    return n, rec, p_rec
+
+
+def _check_path_p(p, n, o, seconds: float) -> dict:
+    """Path P's checks across its ranks and against N: the ranks' whole
+    states bitwise equal after every step and after E's epoch; E's and F's
+    blocks within P_TOL of N's, their losses, metrics and first Adam
+    moments; its memory beside O's."""
+    r0, r1 = p
+    check(r0["E"]["digest"] == r1["E"]["digest"] and r0["E"]["losses"] == r1["E"]["losses"]
+          and r0["E"]["metrics"] == r1["E"]["metrics"], "P: ranks' E epoch differs")
+    for label in ("E", "F"):
+        check(r0[f"{label}_blocks"]["digests"] == r1[f"{label}_blocks"]["digests"],
+              f"P: ranks' {label} state differs after a step")
+    for kind in ("losses", "metrics"):
+        for k, v in r0["E"][kind].items():
+            check(math.isfinite(v), f"P E {kind} {k}={v}")
+    agree, moments = {}, {}
+    for label in ("E", "F"):
+        want, got = n[f"{label}_blocks"], r0[f"{label}_blocks"]
+        agree[f"{label}_diffusion_losses"] = all(_close(a, b, P_TOL) for a, b in zip(got["diffusion_losses"],
+                                                                                     want["diffusion_losses"]))
+        agree[f"{label}_joint_metrics"] = all(_close(a, b, P_TOL) for ga, wa in zip(got["joint_metrics"],
+                                                                                     want["joint_metrics"])
+                                              for a, b in zip(ga, wa))
+        for kind in ("dn_moments", "gcn_moments"):
+            moments[f"{label}_{kind}"] = _moments_vs(got[kind], want[kind])
+            agree[f"{label}_{kind}"] = moments[f"{label}_{kind}"]["ok"]
+    check(all(agree.values()), f"P against N: {agree} {moments}")
+    epoch_vs_n = {kind: {k: abs(r0["E"][kind][k] - v) / max(abs(v), 1e-12) for k, v in n["E"][kind].items()}
+                  for kind in ("losses", "metrics")}
+    o_e = [r["E"][0] for r in o]
+    memory = {
+        "P_epoch_peak_bytes": [r["E"]["epoch_peak_bytes"] for r in p],
+        "O_epoch_peak_bytes": [e["epoch_peak_bytes"] for e in o_e],
+        "P_coach_state_bytes": [r["E"]["coach_state_bytes"] for r in p],
+        "O_coach_state_bytes": [e["coach_state_bytes"] for e in o_e],
+        "P_path_peak_bytes": [r["peak_mem_bytes"] for r in p],
+        "O_path_peak_bytes": [r["peak_mem_bytes"] for r in o],
+    }
+    memory["saved_coach_state_bytes"] = [oe["all"] - pe["all"] for oe, pe in
+                                         zip(memory["O_coach_state_bytes"], memory["P_coach_state_bytes"])]
+    rec = {"agree_with_N": agree, "moments_vs_N": moments, "E_epoch_rel_diff_vs_N": epoch_vs_n,
+           "seconds": seconds,
+           "launches": r0["E"]["launches"], "holds": [r["holds"] for r in p], "memory": memory,
+           "rebuild": r0["rebuild"], "restored_one_device": r0["restored_one_device"],
+           "E_epoch_s": [r["E"]["epoch_s"] for r in p]}
+    print(f"[path P] {json.dumps(rec)}")
+    return rec
 
 
 def main(argv=None) -> int:
@@ -2445,27 +2883,40 @@ def main(argv=None) -> int:
     report["profile_F_joint"] = phase_profile(_joint_phase_work(coach_f, 0), "F_joint", args.report_dir)
     del coach_f
     gc.collect()
-    report["path_N"], report["path_O"] = phase_mesh(args.report_dir)
+    report["path_N"], report["path_O"], report["path_P"] = phase_mesh(args.report_dir)
 
     # each kernel's launches come from this slice's path that runs it: K1-K3
     # from E (dense-form training), K4 from F (sparse-form training); the
-    # other paths' beside them
+    # other paths' beside them, and path P's (model-axis training, E's
+    # settings on a 1x2 mesh). K2's launches are those of both its entries:
+    # the tanh epilogue one device runs (K2_ENTRY) and the partial product a
+    # mesh runs (K2_MESH_ENTRY)
+    k2_entries = (K2_ENTRY, K2_MESH_ENTRY)
     kernels = report["kernels"]
+    p_launches = report["path_P"]["launches"]
     rows = []
     for name, meta in KERNELS.items():
         main_path, others = ("F", "ABCDEH") if name == "segsum" else ("E", "ABCDFH")
+        entries = k2_entries if name == "denoise_layer1" else (name,)
+        count = lambda launches: sum(launches[e] for e in entries)  # noqa: E731
         k = kernels["segsum_user" if name == "segsum" else name]
-        launches = report[f"path_{main_path}"]["launches"][name]
+        launches = count(report[f"path_{main_path}"]["launches"])
         row = {"name": name, "route": "cuda", "source": meta["source"],
                "replaces": meta["replaces"], "launches": launches,
-               **{f"launches_{p}": report[f"path_{p}"]["launches"][name] for p in others},
-               "launches_N": report["path_N"]["F" if name == "segsum" else "E"]["launches"][name],
+               **{f"launches_{p}": count(report[f"path_{p}"]["launches"]) for p in others},
+               "launches_N": count(report["path_N"]["F" if name == "segsum" else "E"]["launches"]),
+               "launches_P": count(p_launches),
                **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}
+        if name == "denoise_layer1":
+            row["launches_by_entry"] = {p: {e: launches_p[e] for e in k2_entries} for p, launches_p in
+                                        (("E", report["path_E"]["launches"]), ("P", p_launches))}
         if name == "spmm_dual":
             extra = {"bf16_store": kernels["spmm_dual_bf16"], "backward": kernels["spmm_dual_backward"],
                      "int4_store": kernels["spmm_dual_int4"],
-                     "int4_backward": kernels["spmm_dual_int4_backward"]}
+                     "int4_backward": kernels["spmm_dual_int4_backward"],
+                     "model_axis_shard_int8": kernels["spmm_dual_shard_int8"],
+                     "model_axis_shard_int4": kernels["spmm_dual_shard_int4"]}
         elif name == "segsum":
             # the fused entry on every path; its other cases in brief (in full in the report)
             row["unfused_ms"] = k["unfused_ms"]
@@ -2482,14 +2933,23 @@ def main(argv=None) -> int:
                                 "launches_N": row["launches_N"],
                                 "world_1_nccl": report["path_N"]["k4_mesh"],
                                 "world_2_gloo_checks": report["path_O"]["ranks"][0]["k4"]}
+        elif name == "denoise_layer1":
+            extra = {"yelp_shape": kernels[K2_ENTRY + "_yelp"],
+                     "partial": kernels[K2_MESH_ENTRY],
+                     "partial_yelp_shape": kernels[K2_MESH_ENTRY + "_yelp"],
+                     "model_axis_shard": kernels[K2_MESH_ENTRY + "_shard"],
+                     "model_axis_yelp_shard": kernels[K2_MESH_ENTRY + "_yelp_shard"]}
         else:
-            extra = {"yelp_shape": kernels[name + "_yelp"]}
+            extra = {"yelp_shape": kernels[name + "_yelp"],
+                     "model_axis_shard": kernels[name + "_shard"],
+                     "model_axis_yelp_shard": kernels[name + "_yelp_shard"]}
+        if name.startswith("denoise"):
             row.update({key: k[key] for key in ("bound_design_ms", "bound_design", "bound_f32_fma_ms",
                                                 "max_err_vs_f64", "plain_max_err_vs_f64",
                                                 "prepare_ms")})
         cases = [k, *(extra["cases"].values() if name == "segsum" else extra.values())]
         row.update(extra)
-        row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0 and not any(
+        row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0 and row["launches_P"] > 0 and not any(
             row.get("launches_unfused", {}).values())
         rows.append(row)
     ok = all(row["ok"] for row in rows)

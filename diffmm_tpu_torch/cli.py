@@ -17,12 +17,15 @@ group that ``torchrun`` describes in the environment (the counterpart of
 cpu``), and ``--mesh DATAxMODEL`` lays the ranks out as a ``(data, model)``
 mesh (``parallel/mesh.py``); D·M must be the world size, and without
 ``--distributed`` only ``--mesh 1x1`` runs (one process, a group of one).
-``--distributed`` alone is a ``WORLDx1`` mesh. Training takes a model axis
-of 1: above 1 is ROADMAP.md A7b and the Coach refuses. Every rank trains;
-rank 0 alone logs, writes the checkpoints and ``--export-index``.
+``--distributed`` alone is a ``WORLDx1`` mesh. A model axis above 1 splits
+the catalog-wide state (``i_embs``, the denoisers' wide layers, their Adam
+moments and the dense blocks) over its ranks (``train/coach.py``). Every
+rank trains; rank 0 alone logs, writes the checkpoints (whole arrays, which
+restore into any mesh) and ``--export-index``.
 
     torchrun --nproc_per_node 2 -m diffmm_tpu_torch --mesh 2x1 --distributed
-    torchrun --nproc_per_node 2 -m diffmm_tpu_torch --device cpu --mesh 2x1 --distributed
+    torchrun --nproc_per_node 2 -m diffmm_tpu_torch --mesh 1x2 --distributed
+    torchrun --nproc_per_node 2 -m diffmm_tpu_torch --device cpu --mesh 1x2 --distributed
 """
 
 from __future__ import annotations
@@ -60,8 +63,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--trace-dir", default=None,
                         help="write a torch.profiler trace of the run here (trace.json)")
     parser.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                        help="lay the ranks out as a (data, model) mesh, e.g. 2x1; D*M must be "
-                        "the world size (training takes a model axis of 1)")
+                        help="lay the ranks out as a (data, model) mesh, e.g. 2x1 or 1x2; D*M must "
+                        "be the world size (the model axis splits the catalog-wide state)")
     parser.add_argument("--distributed", action="store_true",
                         help="join the process group torchrun describes (RANK, WORLD_SIZE, "
                         "LOCAL_RANK, MASTER_ADDR, MASTER_PORT); NCCL, or gloo with --device cpu")
@@ -119,8 +122,8 @@ def main(argv: list[str] | None = None) -> int:
             from diffmm_tpu_torch.eval.serving import build_index, save_index
 
             # every rank runs the forward (its collectives need them all);
-            # rank 0 writes
-            index = build_index(coach)
+            # rank 0 writes the whole index, not its catalog rows
+            index = build_index(coach, place=False)
             if rank0:
                 save_index(index, args.export_index)
             which = (f"best epoch {coach.best_snapshot['epoch']}"

@@ -10,6 +10,11 @@ same functions; :func:`adam_state_from_jax` does the same for an Adam state
 sparse-form adjacency (``BiAdj``) and a CSR train store (``TrainCSR``),
 read field by field as numpy arrays.
 
+On a mesh with a model axis JAX's global arrays are whole here too: they go
+to the port's whole parameters as above, and ``Coach.load_params`` gives
+each rank its slices (``parallel/sharding.py::shard_params``,
+``place_adam_state``); ``gather_params`` gives the whole trees back.
+
 Layout: both packages store a Linear as ``{"w": (d_in, d_out), "b":
 (d_out,)}`` and compute ``x @ w + b`` (torch's ``nn.Linear`` keeps the
 transpose, ``(d_out, d_in)``; the port does not use it), so the weights

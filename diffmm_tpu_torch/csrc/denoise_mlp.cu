@@ -87,7 +87,9 @@ constexpr int kWidths[2] = {128, 104};
 // bytes) + slack to align it to 1,024
 constexpr int smem_bytes(int bn) { return kStages * 2 * bn * kBK * 4 + 1024; }
 
-enum Epilogue { kTanhAddend = 0, kBias = 1 };
+// kNone stores the raw product: K2's partial x_s @ W1x_s over one catalog
+// shard of a model axis, whose tanh can only follow the sum over the shards
+enum Epilogue { kTanhAddend = 0, kBias = 1, kNone = 2 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -280,8 +282,10 @@ __device__ __forceinline__ void load_a(float (&v)[8], const float* __restrict__ 
   }
 }
 
-// E is the (M, N) addend of kTanhAddend or the (N,) bias of kBias.
+// E is the (M, N) addend of kTanhAddend or the (N,) bias of kBias; kNone
+// reads no E.
 __device__ __forceinline__ float epilogue(float v, const float* E, int m, int n, int N, int epi) {
+  if (epi == kNone) return v;
   return epi == kTanhAddend ? tanhf(v + E[(size_t)m * N + n]) : v + E[n];
 }
 
@@ -521,6 +525,14 @@ int denoise_tile_n(int M, int N, int splits, int n_sm) {
 int denoise_layer1(const float* x, const float* w1p, const float* tp, float* h, float* part,
                    int B, int K, int H, int splits, int tile_n, void* stream) {
   return launch(x, w1p, tp, h, part, B, H, K, splits, tile_n, kTanhAddend, stream);
+}
+
+// K2's partial: s (B, H) = x (B, K) @ w1x (K, H), the raw f32 product (the
+// kNone epilogue), for a catalog shard of K rows of W1x; the caller sums
+// the shards' s and applies tanh(s + tp). tile_n and part as for K2.
+int denoise_layer1_partial(const float* x, const float* w1p, float* s, float* part, int B, int K,
+                           int H, int splits, int tile_n, void* stream) {
+  return launch(x, w1p, nullptr, s, part, B, H, K, splits, tile_n, kNone, stream);
 }
 
 // K3: out (B, N) = h (B, H) @ w2 (H, N) + b2 (N,), w2p the prepared w2;

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from diffmm_tpu_torch.data.membership import TrainCSR, gather_item_lists, gather_rows
-from diffmm_tpu_torch.parallel.collectives import placed_all_reduce
 
 
 class EvalBatchSums(NamedTuple):
@@ -40,6 +39,21 @@ def _plain_score_topk(u, i_final, train_store, users, topk):
     mask = gather_rows(train_store, users, i_final.shape[0])
     scores = (u @ i_final.T) * (1.0 - mask) - mask * 1e8
     return torch.topk(scores, topk, dim=1).indices
+
+
+def local_mask(train_store, users: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """(B, hi - lo) f32: 1 where a user of ``users`` has a train item of the
+    catalog range ``[lo, hi)``. A dense store's columns are sliced; a CSR
+    store's seen lists are gathered whole and the items of the range kept
+    (JAX ``local_mask_csr``)."""
+    width = hi - lo
+    if isinstance(train_store, TrainCSR):
+        seen, valid = gather_item_lists(train_store, users)
+        loc = seen.long() - lo
+        loc = torch.where(valid & (loc >= 0) & (loc < width), loc, width)  # out of range: dropped
+        mask = torch.zeros((users.shape[0], width + 1), dtype=torch.float32, device=users.device)
+        return mask.scatter_(1, loc, 1.0)[:, :width]
+    return train_store.index_select(0, users.long())[:, lo:hi].to(torch.float32)
 
 
 def make_score_topk(topk: int, mesh=None):
@@ -68,26 +82,17 @@ def make_score_topk(topk: int, mesh=None):
     r, group = axis_index(mesh, MODEL_AXIS), mesh.get_group(MODEL_AXIS)
 
     def sharded(u, i_final, train_store, users):
+        from diffmm_tpu_torch.ops.topk import catalog_topk
+        from diffmm_tpu_torch.parallel.sharding import Shard
+
         item_num = i_final.shape[0]
         if item_num % m or topk > item_num // m:
             return _plain_score_topk(u, i_final, train_store, users, topk)
         width = item_num // m
         off = r * width
-        b = users.shape[0]
-        if isinstance(train_store, TrainCSR):
-            seen, valid = gather_item_lists(train_store, users)
-            loc = seen.long() - off
-            loc = torch.where(valid & (loc >= 0) & (loc < width), loc, width)  # out of range: dropped
-            mask = torch.zeros((b, width + 1), dtype=torch.float32, device=u.device)
-            mask = mask.scatter_(1, loc, 1.0)[:, :width]
-        else:
-            mask = train_store.index_select(0, users.long())[:, off:off + width].to(torch.float32)
+        mask = local_mask(train_store, users, off, off + width)
         s = (u @ i_final[off:off + width].T) * (1.0 - mask) - mask * 1e8
-        vals, idx = torch.topk(s, topk, dim=1)
-        vals_all = placed_all_reduce(vals, r * topk, m * topk, group, dim=1)
-        ids_all = placed_all_reduce(idx + off, r * topk, m * topk, group, dim=1)
-        sel = torch.topk(vals_all, topk, dim=1).indices
-        return torch.gather(ids_all, 1, sel)
+        return catalog_topk(s, topk, off, Shard(r, m, group))
 
     return sharded
 
@@ -121,16 +126,26 @@ def _metric_sums(
 
 def eval_epoch(
     u_final, i_final, users_blocks, valid_blocks, train_store,
-    items_blocks, counts_blocks, cum_dcg, topk: int,
+    items_blocks, counts_blocks, cum_dcg, topk: int, cols: tuple[int, int] | None = None, cat=None,
 ) -> torch.Tensor:
     """Summed (recall, ndcg, precision) over blocks with a leading
-    (n_blocks,) dim, one block at a time."""
+    (n_blocks,) dim, one block at a time.
+
+    The trainer's eval (``Coach.test_epoch``) scores the catalog range
+    ``cols`` (default: the whole catalog) of the whole ``i_final`` and
+    merges over the model axis ``cat`` (``ops/topk.py::catalog_topk``; JAX
+    ``ranking.py:54-120``): on a model axis each rank scores its catalog
+    shard, and one device takes the same steps over one part."""
+    from diffmm_tpu_torch.ops.topk import catalog_topk
+
+    lo, hi = (0, i_final.shape[0]) if cols is None else cols
+    items = i_final[lo:hi]
     acc = torch.zeros(3, dtype=torch.float32, device=u_final.device)
     for users, valid, t_items, t_counts in zip(
         users_blocks, valid_blocks, items_blocks, counts_blocks
     ):
-        top_idx = _plain_score_topk(
-            u_final.index_select(0, users.long()), i_final, train_store, users, topk
-        )
+        mask = local_mask(train_store, users, lo, hi)
+        scores = (u_final.index_select(0, users.long()) @ items.T) * (1.0 - mask) - mask * 1e8
+        top_idx = catalog_topk(scores, topk, lo, cat)
         acc += torch.stack(_metric_sums(top_idx, valid, t_items, t_counts, cum_dcg, topk))
     return acc

@@ -186,11 +186,12 @@ def seen_csr_from_edges(
     return indptr, indices, width
 
 
-def build_index(coach, use_best: bool = True) -> RecIndex:
+def build_index(coach, use_best: bool = True, place: bool = True) -> RecIndex:
     """Freeze a Coach into a serving index: the GCN forward over its
     rebuilt modality graphs, like eval, placed on the Coach's mesh
-    (:func:`place_index`). On a mesh every rank builds it (the forward's
-    collectives need every rank).
+    (:func:`place_index`) unless ``place`` is false (an index to export
+    whole, :func:`save_index`). On a mesh every rank builds it (the
+    forward's collectives need every rank).
 
     ``use_best``: serve the best-Recall epoch's captured model
     (``Coach.best_state``, the reference's model selection, `Main.py:71-78`)
@@ -204,13 +205,14 @@ def build_index(coach, use_best: bool = True) -> RecIndex:
     indptr, indices, width = seen_csr_from_edges(
         coach.host.train_rows, coach.host.train_cols, coach.host.user_num
     )
-    return place_index(RecIndex(
+    index = RecIndex(
         u_final=u_final,
         i_final=i_final,
         seen_indptr=torch.as_tensor(indptr, device=coach.device),
         seen_indices=torch.as_tensor(indices, device=coach.device),
         seen_width=width,
-    ), getattr(coach, "mesh", None))
+    )
+    return place_index(index, getattr(coach, "mesh", None)) if place else index
 
 
 def save_index(index: RecIndex, path: str) -> None:

@@ -10,6 +10,14 @@ Architecture (hidden widths ``H``, catalog ``I``): sinusoidal time
 embedding -> Linear(d_emb, d_emb); optional modality gating; ``concat([x_t,
 time_emb])`` through the in-layers with tanh, then the out-layers with tanh
 between all but the last. Dropout is never applied, as in the reference.
+
+The first in-layer's product over the concat is computed as its two parts,
+``x_t @ W[:n] + time_emb @ W[n:] + b`` (n the x columns), so that on a
+model axis (``group``) the x part can be one catalog shard's: x_t and the
+x rows of W are then the rank's catalog range, the products over the
+catalog (that part, and the gate's ``x_t @ modal_feat``) are summed over
+the group before anything nonlinear, and the last out-layer (the rank's
+catalog columns) gives the rank's columns of the output.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import math
 from typing import Any
 
 import torch
+
+from diffmm_tpu_torch.parallel.collectives import AllReduceSum
 
 Params = dict[str, Any]
 
@@ -84,12 +94,22 @@ def _linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
     return x.to(dt) @ w.to(dt) + b
 
 
+def catalog_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, a product over the rank's catalog shard, summed over the model
+    axis ``group`` (autograd: :class:`~diffmm_tpu_torch.parallel.
+    collectives.AllReduceSum`, in f32); ``x`` itself without a group."""
+    if group is None:
+        return x
+    return AllReduceSum.apply(x.to(torch.float32), group).to(x.dtype)
+
+
 def denoise_forward(
     params: Params,
     x_t: torch.Tensor,
     timesteps: torch.Tensor,
     modal_feat: torch.Tensor | None = None,
     compute_dtype: torch.dtype | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Predict x0 from x_t (reference `Model.py:183-220`).
 
@@ -101,7 +121,10 @@ def denoise_forward(
     cast once per rebuild), and the time embedding's projection stays in
     the weights' promoted type and is cast after it. Without it the forward
     runs in x_t's type, bf16 weights widened (``base.denoise_param_dtype=
-    "bf16"``: gradients reach them rounded back to bf16, as JAX's do)."""
+    "bf16"``: gradients reach them rounded back to bf16, as JAX's do).
+
+    ``group``: a model axis; x_t, ``modal_feat`` and the catalog-wide
+    layers are then the rank's catalog shard (see the module note)."""
     emb = timestep_embedding(timesteps, params["emb"]["w"].shape[0])
     time_emb = _linear(emb, params["emb"])
     if compute_dtype is not None:
@@ -110,11 +133,15 @@ def denoise_forward(
         if modal_feat is not None:
             modal_feat = modal_feat.to(compute_dtype)
     if modal_feat is not None:
-        projected = x_t @ modal_feat
+        projected = catalog_sum(x_t @ modal_feat, group)
         gate = torch.sigmoid(_linear(projected, params["gate"]))
         x_t = x_t + (projected * gate) @ modal_feat.T
-    h = torch.cat([x_t, time_emb], dim=-1)
-    for layer in params["in_layers"]:
+    first, *rest = params["in_layers"]
+    w, n = first["w"], x_t.shape[-1]
+    dt = torch.promote_types(x_t.dtype, w.dtype)
+    h = torch.tanh(catalog_sum(x_t.to(dt) @ w[:n].to(dt), group)
+                   + time_emb.to(dt) @ w[n:].to(dt) + first["b"])
+    for layer in rest:
         h = torch.tanh(_linear(h, layer))
     n_out = len(params["out_layers"])
     for i, layer in enumerate(params["out_layers"]):

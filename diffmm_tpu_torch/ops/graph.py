@@ -7,7 +7,10 @@ bipartite adjacency ``D^-1/2 (A + I) D^-1/2`` over the (user, item) nodes
 
 * dense (:class:`DenseBiAdj`): a (U, I) int8, bf16 or packed int4 matrix; both
   propagation directions go through the ``spmm_dual`` kernel (K1) on the
-  card, with bf16 operands and f32 accumulation as in the JAX package; or
+  card, with bf16 operands and f32 accumulation as in the JAX package. On a
+  model axis each rank holds its (U, I/m) block of catalog columns, built
+  in place from the replicated edges, and K1 runs on it
+  (:class:`MeshSpmmDual`); or
 * sparse (:class:`BiAdj`): the edges sorted user-major plus a permutation
   to item-major order; each direction sums, per segment of ascending ids,
   the rows its edges name, in one launch of the gather-fused ``segsum``
@@ -36,7 +39,7 @@ import torch
 
 from diffmm_tpu_torch.ops.kernels.segsum import segment_offsets, segsum_gather
 from diffmm_tpu_torch.ops.kernels.spmm_dual import SpmmDual, dense_storage, spmm_dual
-from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
+from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_, placed_all_reduce
 from diffmm_tpu_torch.parallel.segsum import slice_segsum_gather
 
 
@@ -50,10 +53,11 @@ class DenseBiAdj(NamedTuple):
         nibble order).
       s_user: (U,) f32 ``(deg_u + 1)^-1/2``.
       s_item: (I,) f32 ``(deg_i + 1)^-1/2``.
-      shard: None on one device; on a mesh's data axis, this rank's
-        :class:`~diffmm_tpu_torch.parallel.sharding.Shard`: the blocks stay
-        whole on every rank, and the backward keeps the rank's rows of the
-        gradients (:class:`MeshSpmmDual`).
+      shard: None on one device; on a mesh, this rank's
+        :class:`~diffmm_tpu_torch.parallel.sharding.Split`: ``mat`` then holds
+        the catalog columns ``[split.lo, split.hi)`` only (all of them where
+        the model axis does not cut the catalog), and the propagation is
+        :class:`MeshSpmmDual`. The scales stay whole.
     """
 
     mat: torch.Tensor
@@ -127,11 +131,20 @@ def build_dense_bi_adj_device(
     item_num: int,
     store_dtype: torch.dtype = torch.int8,
     out: DenseBiAdj | None = None,
+    cols: tuple[int, int] | None = None,
 ) -> DenseBiAdj:
     """Dense-form adjacency from (possibly sentinel-padded) device edges,
     into ``out`` in place when given (a captured graph that reads ``out``
     then reads the new graph). ``store_dtype`` int8, bf16, or uint8 for
     packed int4 (``ops/kernels/spmm_dual.py``).
+
+    ``cols``: a catalog range ``[lo, hi)`` (a model axis's shard): the
+    block holds those columns only, (U, hi - lo), built from the same whole
+    edges (an edge outside the range goes to the spare row, as a pad does);
+    the scales count every edge. No (U, I) tensor exists. A packed int4
+    shard is packed from its own first column, so its bytes start on a
+    byte whatever ``lo`` is, odd widths included (the last high nibble
+    zero), where a cut of the whole packed block would need an even ``lo``.
 
     The JAX package drops the sentinel pad edges ``(user_num, item_num)``
     with ``mode="drop"`` in its scatter and degree sums. Here nothing is
@@ -149,6 +162,7 @@ def build_dense_bi_adj_device(
     deterministic (the JAX package scatters at int8 and narrows,
     ``diffmm_tpu/ops/graph.py:291-297``; the port's extra memory is the
     O(nnz) index and value vectors)."""
+    lo, hi = (0, item_num) if cols is None else cols
     rows, cols = ui_rows.long(), ui_cols.long()
     pad = (rows >= user_num) | (cols >= item_num)
     rows = torch.where(pad, user_num, rows)
@@ -156,16 +170,18 @@ def build_dense_bi_adj_device(
     dev = ui_rows.device
     # rows on 16-byte boundaries, so the spmm_dual kernel reads them in
     # 16-byte vectors (a (U, I) view of padded storage, the spare row past it)
-    mat = dense_storage(user_num, item_num, store_dtype, dev) if out is None else out.mat
+    mat = dense_storage(user_num, hi - lo, store_dtype, dev) if out is None else out.mat
     ld = mat.stride(0)
     flat = mat.as_strided((user_num + 1, ld), (ld, 1)).view(-1)
     flat.zero_()
-    col = torch.where(pad, 0, cols)
+    off = pad | (cols < lo) | (cols >= hi)
+    col = torch.where(off, 0, cols - lo)
+    rows_in = torch.where(off, user_num, rows)
     if store_dtype == torch.uint8:
         nibble = torch.where(col % 2 == 0, 1, 16).to(torch.uint8)
-        flat.index_add_(0, rows * ld + col // 2, nibble)
+        flat.index_add_(0, rows_in * ld + col // 2, nibble)
     else:
-        flat.index_fill_(0, rows * ld + col, 1)
+        flat.index_fill_(0, rows_in * ld + col, 1)
     ones = torch.ones(rows.shape[0], dtype=torch.float32, device=dev)
     deg_u = torch.zeros(user_num + 1, dtype=torch.float32, device=dev).index_add_(0, rows, ones)
     deg_i = torch.zeros(item_num + 1, dtype=torch.float32, device=dev).index_add_(0, cols, ones)
@@ -379,32 +395,51 @@ class MultiItemPropagate(torch.autograd.Function):
 
 
 class MeshSpmmDual(torch.autograd.Function):
-    """K1 on a mesh's data axis: ``MeshSpmmDual.apply(mat, z_u, z_i,
-    shard)``. The forward is the one-device call, the same on every rank
-    (the blocks are replicated). The backward first sums the two cotangents
-    over the ranks (one all-reduce; each rank's is its own share of the
-    loss's), launches K1 on the totals, so that the bf16 rounding of K1's
-    operands falls on the whole cotangent as on one device, and keeps the
-    rank's rows of each gradient (zeros elsewhere): the step's gradient
-    all-reduce then adds every row once."""
+    """K1 on a mesh: ``MeshSpmmDual.apply(mat, z_u, z_i, split)`` with
+    ``mat`` the rank's (U, hi - lo) block of catalog columns ``[lo, hi)``
+    (``split``, a :class:`~diffmm_tpu_torch.parallel.sharding.Split`) and
+    z_u, z_i whole, as every output is.
+
+    Forward: one K1 launch on the block with the rank's rows of z_i gives
+    ``(M_s z_i,s, M_sᵀ z_u)``; the first is summed over the model axis (one
+    all-reduce, ``y_u = Σ_s M_s z_i,s``) and the second, the rank's item
+    rows of y_i, gathered over it. Where the model axis does not cut the
+    catalog the block is whole and no collective runs.
+
+    Backward: each rank's cotangents are its shares of the loss's, so they
+    are first summed over the world (one all-reduce), and K1 rounds whole
+    cotangents to bf16, as one device does; one K1 launch on the block with
+    the sums then gives ``(M_s g_i,s, M_sᵀ g_u)``, the model shard's part of
+    dz_u and its item rows of dz_i. The ranks of ``split.rows`` (those that
+    hold this catalog range) have computed the same, so each keeps its rows
+    of the two (zeros elsewhere): the gradients are shares again, which the
+    step's gradient all-reduce adds up once each."""
 
     @staticmethod
-    def forward(ctx, mat, z_u, z_i, shard):
+    def forward(ctx, mat, z_u, z_i, split):
         ctx.save_for_backward(mat)
-        ctx.shard = shard
-        return spmm_dual(mat, z_u, z_i)
+        ctx.split = split
+        lo, hi = split.lo, split.hi
+        y_u, y_i = spmm_dual(mat, z_u, z_i[lo:hi])
+        if split.cat is None:
+            return y_u, y_i
+        group = split.cat.group
+        return all_reduce_sum_(y_u, group), placed_all_reduce(y_i, lo, z_i.shape[0], group)
 
     @staticmethod
     def backward(ctx, g_u, g_i):
         (mat,) = ctx.saved_tensors
-        shard = ctx.shard
-        total = all_reduce_sum_(torch.cat([g_u.reshape(-1), g_i.reshape(-1)]), shard.group)
-        dz_u, dz_i = spmm_dual(mat, *(t.view(g.shape) for t, g in zip(total.split([g_u.numel(), g_i.numel()]),
-                                                                        (g_u, g_i))))
-        for dz in (dz_u, dz_i):
-            lo, hi = shard.span(dz.shape[0])
-            dz[:lo] = 0.0
-            dz[hi:] = 0.0
+        split = ctx.split
+        total = all_reduce_sum_(torch.cat([g_u.reshape(-1), g_i.reshape(-1)]), split.world.group)
+        g_u, g_i = (t.view(g.shape) for t, g in zip(total.split([g_u.numel(), g_i.numel()]), (g_u, g_i)))
+        lo, hi = split.lo, split.hi
+        dz_u, dz_i_s = spmm_dual(mat, g_u, g_i[lo:hi])
+        dz_i = torch.zeros_like(g_i)
+        a, b = split.rows.span(hi - lo)
+        dz_i[lo + a:lo + b] = dz_i_s[a:b]
+        a, b = split.rows.span(dz_u.shape[0])
+        dz_u[:a] = 0.0
+        dz_u[b:] = 0.0
         return None, dz_u, dz_i, None
 
 

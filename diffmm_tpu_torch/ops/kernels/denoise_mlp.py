@@ -6,7 +6,18 @@ Counterpart of ``diffmm_tpu/ops/pallas/denoise_mlp.py``
     K2: h   = tanh(x @ W1x + temb_proj)      (b1 folded into temb_proj)
     K3: out = h @ W2 + b2
 
-with f32 accuracy. The hand kernels are ``csrc/denoise_mlp.cu``: 3xTF32
+with f32 accuracy. On one device K2 applies the tanh in its epilogue, as
+the TPU kernel does (:func:`denoise_layer1`). On a mesh W1x is cut by its
+catalog rows and W2 by its catalog columns (``parallel/sharding.py``); the
+tanh cannot be cut, so K2 then runs as :func:`denoise_layer1_partial`, the
+raw product ``x_s @ W1x_s`` of the rank's catalog columns, the ranks'
+products are summed over the model axis, and the tanh follows
+(:func:`denoise_forward_fused`); K3 runs on the rank's columns as it
+stands. A mesh runs the partial form at any model axis, 1 included, so that
+every model-axis collective runs wherever there is a mesh; the kernel's
+epilogue and the tanh after it are the same f32 add and ``tanhf``, so a
+mesh of one rank computes what one device does, bit for bit. The hand
+kernels are ``csrc/denoise_mlp.cu``: 3xTF32
 products on the tensor cores, whose source note gives their design and
 bound. They take the weights in their own layout, :class:`KernelWeight`,
 made by :func:`prepare_weight`: transposed, padded, split into TF32 hi and
@@ -14,8 +25,8 @@ lo halves and swizzled. The weights do not change during a rebuild, so the
 rebuild prepares each denoiser once (:func:`prepare_denoiser`) and
 :func:`denoise_forward_fused`, the counterpart of ``denoise_forward_pallas``,
 runs every step and block on the prepared form. The wrappers
-:func:`denoise_layer1`, :func:`denoise_layer2` and :func:`fused_denoise_mlp`
-also take the JAX layouts and then prepare per call.
+:func:`denoise_layer1`, :func:`denoise_layer1_partial` and
+:func:`denoise_layer2` also take the JAX layouts and then prepare per call.
 """
 
 from __future__ import annotations
@@ -28,12 +39,13 @@ import torch
 
 from diffmm_tpu_torch.models.denoise import timestep_embedding
 from diffmm_tpu_torch.ops.kernels import check_launch, load_library, round_up, sm_count
+from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"denoise_layer1": 0, "denoise_layer2": 0}
+LAUNCHES = {"denoise_layer1": 0, "denoise_layer1_partial": 0, "denoise_layer2": 0}
 
 KT = 32  # contraction depth of a kernel tile (kBK in csrc/denoise_mlp.cu)
 NT = 128  # N padding of the prepared weights (kPadN)
@@ -42,6 +54,11 @@ NT = 128  # N padding of the prepared weights (kPadN)
 def layer1_plain(x: torch.Tensor, w1x: torch.Tensor, temb_proj: torch.Tensor) -> torch.Tensor:
     """Plain K2: ``tanh(x @ w1x + temb_proj)``."""
     return torch.tanh(x @ w1x + temb_proj)
+
+
+def layer1_partial_plain(x: torch.Tensor, w1x: torch.Tensor) -> torch.Tensor:
+    """Plain K2 partial: ``x @ w1x``."""
+    return x @ w1x
 
 
 def layer2_plain(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -114,6 +131,8 @@ def _lib():
         for fn in (lib.denoise_layer1, lib.denoise_layer2):
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             fn.restype = i
+        lib.denoise_layer1_partial.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.denoise_layer1_partial.restype = i
         for fn in (lib.denoise_splits, lib.denoise_tile_n):
             fn.argtypes = [i, i, i, i]
             fn.restype = i
@@ -167,17 +186,18 @@ def _weight(what: str, name: str, w, k: int, n: int, device: torch.device) -> Ke
     return w
 
 
-def _launch(what: str, a: torch.Tensor, w: KernelWeight, e: torch.Tensor) -> torch.Tensor:
-    """``epilogue(a (M, K) @ w (K, N), e)`` by kernel ``what``, with the
-    split-K scratch the kernel asks for."""
+def _launch(what: str, a: torch.Tensor, w: KernelWeight, e: torch.Tensor | None) -> torch.Tensor:
+    """``epilogue(a (M, K) @ w (K, N), e)`` by kernel ``what`` (no ``e``:
+    the raw product), with the split-K scratch the kernel asks for."""
     lib = _lib()
     (m, k), n, dev = a.shape, w.n, a.device
     splits, tile_n = _plan(m, n, k, dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     part = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32, device=dev)
+    ptrs = (a.data_ptr(), w.data.data_ptr()) + (() if e is None else (e.data_ptr(),))
     check_launch(
         getattr(lib, what)(
-            a.data_ptr(), w.data.data_ptr(), e.data_ptr(), out.data_ptr(), part.data_ptr(),
+            *ptrs, out.data_ptr(), part.data_ptr(),
             m, k, n, splits, tile_n, torch.cuda.current_stream(dev).cuda_stream,
         ),
         what,
@@ -208,6 +228,23 @@ def denoise_layer1(x: torch.Tensor, w1x, temb_proj: torch.Tensor) -> torch.Tenso
     )
 
 
+def denoise_layer1_partial(x: torch.Tensor, w1x) -> torch.Tensor:
+    """K2's partial product ``x @ w1x`` (the ``kNone`` epilogue: no tanh, no
+    addend), the part of one catalog shard: the hand kernel for CUDA
+    tensors, the plain version for CPU tensors (only there). x (B, K) f32;
+    w1x a (K, H) f32 tensor or, on the card, its :class:`KernelWeight`. A
+    build or launch that fails raises."""
+    if not _on_cuda("denoise_layer1_partial", x):
+        return layer1_partial_plain(x, _plain_weight("denoise_layer1_partial", w1x))
+    (B, K), H, dev = x.shape, _out_dim(w1x), x.device
+    return _launch(
+        "denoise_layer1_partial",
+        _check("denoise_layer1_partial", "x", x, (B, K), dev),
+        _weight("denoise_layer1_partial", "w1x", w1x, K, H, dev),
+        None,
+    )
+
+
 def denoise_layer2(h: torch.Tensor, w2, b2: torch.Tensor) -> torch.Tensor:
     """K3, ``h @ w2 + b2``: the hand kernel for CUDA tensors, the plain
     version for CPU tensors (only there). h (B, H), b2 (N,), f32; w2 an
@@ -221,12 +258,6 @@ def denoise_layer2(h: torch.Tensor, w2, b2: torch.Tensor) -> torch.Tensor:
         _weight("denoise_layer2", "w2", w2, H, N, dev),
         _check("denoise_layer2", "b2", b2, (N,), dev),
     )
-
-
-def fused_denoise_mlp(x, w1x, temb_proj, w2, b2) -> torch.Tensor:
-    """``tanh(x @ w1x + temb_proj) @ w2 + b2`` through K2 then K3 (the plain
-    versions for CPU tensors)."""
-    return denoise_layer2(denoise_layer1(x, w1x, temb_proj), w2, b2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,7 +294,7 @@ def prepare_denoiser(params) -> PreparedDenoiser:
     )
 
 
-def denoise_forward_fused(params, x_t: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+def denoise_forward_fused(params, x_t: torch.Tensor, timesteps: torch.Tensor, group=None) -> torch.Tensor:
     """The denoiser forward without modality conditioning, through K2/K3.
 
     Counterpart of ``denoise_forward_pallas`` with ``modal_feat=None``, the
@@ -272,9 +303,20 @@ def denoise_forward_fused(params, x_t: torch.Tensor, timesteps: torch.Tensor) ->
     single call as the tests make one, a params dict, prepared here per
     call. The time embedding's projection ``t @
     W1[I:] + b1`` is a (B, d_emb) x (d_emb, H) product computed here,
-    outside the kernels."""
+    outside the kernels.
+
+    Without a model axis ``group`` K2 applies the tanh in its epilogue
+    (:func:`denoise_layer1`). With one (x_t and the prepared weights are
+    then the rank's catalog columns and rows, and so is the output) K2 runs
+    as its partial product (:func:`denoise_layer1_partial`), summed over
+    the axis, then ``tanh(s + temb_proj)``. K3 gives the output columns."""
     p = params if isinstance(params, PreparedDenoiser) else prepare_denoiser(params)
     emb = timestep_embedding(timesteps, p.emb_w.shape[0])
     time_emb = emb @ p.emb_w + p.emb_b
     temb_proj = time_emb @ p.w1_time + p.b1
-    return fused_denoise_mlp(x_t, p.w1x, temb_proj, p.w2, p.b2)
+    if group is None:
+        h = denoise_layer1(x_t, p.w1x, temb_proj)
+    else:
+        s = all_reduce_sum_(denoise_layer1_partial(x_t, p.w1x), group)
+        h = torch.tanh(s + temb_proj)
+    return denoise_layer2(h, p.w2, p.b2)

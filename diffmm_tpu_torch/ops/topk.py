@@ -16,15 +16,35 @@ import numpy as np
 import torch
 
 
-def topk_table(scores: torch.Tensor, k_max: int) -> torch.Tensor:
-    """Per-row top-``k_max`` item indices, value-sorted descending.
+def catalog_topk(scores: torch.Tensor, k: int, offset: int = 0, cat=None) -> torch.Tensor:
+    """Per-row top-``k`` global item ids, value-sorted descending, of rows
+    whose catalog columns ``[offset, offset + width)`` are ``scores`` (B,
+    width), the rest held by the other ranks of the model axis ``cat`` (a
+    :class:`~diffmm_tpu_torch.parallel.sharding.Shard`; None: the columns
+    are the whole catalog).
+
+    Each rank takes the top ``min(k, width)`` of its columns, offsets them
+    to global ids, and a placed all-reduce over the axis brings the ranks'
+    candidates together for one merge top-k (JAX's distributed eval top-k,
+    ``diffmm_tpu/eval/ranking.py:54-120``). The union of the shards' top
+    ``min(k, width)`` holds the global top-k, so the merge is exact (the
+    ``min`` covers shards narrower than k). Without an axis the merge runs
+    on the one top-k, so one device and a mesh of one rank compute alike.
 
     The JAX package's two ``train.rebuild_topk`` choices, ``approx``
     (``approx_max_k`` at recall 1.0) and ``exact`` (``top_k``), give the
-    same values, so the port has this one form, ``torch.topk(sorted=True)``.
-    Index order on exact float ties is unspecified in all three, as in the
-    reference's ``torch.topk``."""
-    return torch.topk(scores, k_max, dim=1, sorted=True).indices.to(torch.int32)
+    same values, so the port has this one form. The order of exactly tied
+    values is unspecified in all three, as in ``torch.topk``."""
+    from diffmm_tpu_torch.parallel.collectives import placed_all_reduce
+
+    kl = min(k, scores.shape[1])
+    vals, idx = torch.topk(scores, kl, dim=1, sorted=True)
+    idx = idx + offset
+    if cat is not None:
+        at, total = cat.index * kl, cat.count * kl
+        vals = placed_all_reduce(vals, at, total, cat.group, dim=1)
+        idx = placed_all_reduce(idx, at, total, cat.group, dim=1)
+    return torch.gather(idx, 1, torch.topk(vals, k, dim=1, sorted=True).indices)
 
 
 class RebuildBucketPlan(NamedTuple):

@@ -11,6 +11,17 @@ mesh form of K4 places its partial with ``dynamic_update_slice`` before its
 ``psum`` (``segsum.py:483-487``).
 Adding zeros leaves every f32 and integer value as it is, so the result is
 exact.
+
+The autograd forms share one convention: a rank's loss is its share of the
+one global loss (its rows of a block, its catalog columns of a row), so
+its cotangents are shares too, and the ranks' shares add up to the whole.
+A sum over ranks (:class:`AllReduceSum`) then sums its cotangent again in
+the backward, and the all-gather of row shards (:class:`AllGatherRows`)
+sums it and keeps the rank's rows, which is what JAX's ``shard_map``
+transposes give. A replicated value whose cotangent every rank holds whole
+would be counted once a rank: that is why every loss term that the ranks
+of an axis would compute alike is counted on one rank of it only
+(``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +63,23 @@ def placed_all_reduce(local: torch.Tensor, offset: int, total: int, group, dim: 
     frame = local.new_zeros(shape)
     frame.narrow(dim, offset, local.shape[dim]).copy_(local)
     return all_reduce_sum_(frame, group)
+
+
+class AllGatherRows(torch.autograd.Function):
+    """``AllGatherRows.apply(x, offset, total, group)``: the (total, ...)
+    table whose rows ``[offset, offset + len(x))`` are this rank's ``x``
+    (:func:`placed_all_reduce`). The backward sums the cotangent's shares
+    over ``group`` and keeps the rank's rows: the adjoint of the gather."""
+
+    @staticmethod
+    def forward(ctx, x, offset, total, group):
+        ctx.offset, ctx.n, ctx.group = offset, x.shape[0], group
+        return placed_all_reduce(x.contiguous(), offset, total, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = all_reduce_sum_(g.contiguous().clone(), ctx.group)
+        return whole[ctx.offset:ctx.offset + ctx.n], None, None, None
 
 
 def all_reduce_grads(grads: list[torch.Tensor], group) -> list[torch.Tensor]:

@@ -7,14 +7,15 @@ device; the port runs one process per card with ``torch.distributed``, and
 its mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over every rank
 with the dims ``("data", "model")``:
 
-* ``data``: batch rows (interaction blocks, diffusion and rebuild user
-  blocks, eval user blocks) and the train edges are split over it; the
-  parameters and their Adam moments are replicated, and the gradients are
-  summed over it once a step (``parallel/collectives.py``).
+* ``data``: batch rows (diffusion and rebuild user blocks, eval user
+  blocks; interaction blocks and the train edges over both axes) are split
+  over it; the narrow parameters and their Adam moments are replicated, and
+  the gradients are summed once a step (``parallel/sharding.py::
+  reduce_grads``).
 * ``model``: the catalog. Serving and the ranking eval score one catalog
-  shard a rank (``eval/ranking.py``, ``eval/serving.py``); training with a
-  model axis above 1 is ROADMAP.md A7b and refuses
-  (``parallel/sharding.py``).
+  shard a rank (``eval/ranking.py``, ``eval/serving.py``), and training
+  splits the catalog-wide parameters, their Adam moments and the dense
+  blocks over it (``parallel/sharding.py``).
 
 The backend is NCCL on the card. Gloo is used only where the caller names
 it: the CPU ranks of the tests and of ``--device cpu``, and two ranks that

@@ -38,18 +38,24 @@ packs the dense blocks two cells a byte, which K1 reads;
 its state in place already).
 
 On a mesh (``mesh=``, a ``(data, model)`` DeviceMesh of
-``parallel/mesh.py`` with a model axis of 1; above 1 is ROADMAP.md A7b and
-refuses) every rank holds the whole state, replicated, and the Coach
-computes the JAX mesh Coach's function, which is the one-device function
-(JAX ``coach.py:206-221, 303-306, 442-460``): each rank takes its rows of
-every diffusion, rebuild, joint and eval block (the batch sizes must divide
-over the data axis), sums its range of the sparse form's edges (K4's mesh
-forms), and the steps' collectives make the rest global
+``parallel/mesh.py``) the Coach computes the JAX mesh Coach's function,
+which is the one-device function (JAX ``coach.py:206-221, 303-306,
+442-460``). The catalog-wide state is split over the model axis as JAX's
+``NamedSharding``s split it (``parallel/sharding.py``): each rank holds its
+rows of ``i_embs``, its catalog range of each denoiser's first in-layer and
+its columns of the last out-layer, with their Adam moments, and on the
+dense form its (U, I/m) column block of every adjacency; the rest is
+replicated. Each rank takes its part of every diffusion, rebuild, joint and
+eval block (a :class:`~diffmm_tpu_torch.parallel.sharding.Split`; the batch
+sizes must divide over the data axis), sums its range of the sparse form's
+edges (K4's mesh forms), and the steps' collectives make the rest global
 (``train/steps.py``). The steps are captured CUDA graphs under NCCL, with
 their collectives inside; under gloo (named for CPU ranks and for ranks
 that share a card) they run eagerly, decided from the backend here and
-said in the log. Rank 0 alone logs and writes checkpoints, and every rank
-waits for its write; every rank restores the same file.
+said in the log. Checkpoints hold whole arrays, gathered from the ranks'
+slices, which rank 0 writes while every rank waits; every rank restores
+its slices of the same file, so a checkpoint restores into any mesh and
+into a Coach without one.
 
 Random draws come from one ``torch.Generator`` on the Coach's device
 (parameter init, negatives, diffusion timesteps and noise, the rebuild's
@@ -82,11 +88,13 @@ from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
 from diffmm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
 from diffmm_tpu_torch.parallel.sharding import (
     check_batch_divisibility,
-    data_shard,
-    denoise_param_shardings,
     edge_shard,
-    gcn_param_shardings,
+    gather_adam_state,
+    gather_params,
+    make_split,
+    place_adam_state,
     shard_device_data,
+    shard_params,
 )
 from diffmm_tpu_torch.train import steps
 from diffmm_tpu_torch.train.graphs import GraphCache
@@ -144,18 +152,27 @@ def estimate_state_bytes(
     return n_modal * 3 * denoise * param_bytes + 3 * gcn * 4 + user_num * item_num
 
 
+def dense_blocks_bytes(n_modal: int, user_num: int, item_num: int, bytes_per_cell: float) -> float:
+    """The dense form's (n_modal + 1) blocks, plus one transient bf16 copy
+    for stores narrower than bf16 (JAX ``choose_graph_form``)."""
+    bytes_needed = (n_modal + 1) * user_num * item_num * bytes_per_cell
+    if bytes_per_cell < 2:
+        bytes_needed += user_num * item_num * 2
+    return bytes_needed
+
+
 def choose_graph_form(
     form: str, n_modal: int, user_num: int, item_num: int,
     bytes_per_cell: float = 1.0, budget_bytes: int = DENSE_GRAPH_BUDGET_BYTES,
+    model_parallel: int = 1,
 ) -> bool:
     """True -> dense form. ``form``: auto|dense|sparse. Under auto the
-    (n_modal + 1) blocks, plus one transient bf16 copy for narrower stores,
-    must fit ``budget_bytes``."""
+    blocks (:func:`dense_blocks_bytes`) must fit ``budget_bytes`` a device
+    times ``model_parallel``, the ranks that share them by catalog columns
+    (JAX ``choose_graph_form``, ``coach.py:162-186``)."""
     if form == "auto":
-        bytes_needed = (n_modal + 1) * user_num * item_num * bytes_per_cell
-        if bytes_per_cell < 2:
-            bytes_needed += user_num * item_num * 2
-        return bytes_needed <= budget_bytes
+        return (dense_blocks_bytes(n_modal, user_num, item_num, bytes_per_cell)
+                <= budget_bytes * max(model_parallel, 1))
     if form in ("dense", "sparse"):
         return form == "dense"
     raise ValueError(f"train.graph_form must be auto|dense|sparse, got {form!r}")
@@ -195,7 +212,7 @@ class Coach:
         self.host = host
         self.mesh = mesh
         self.rank = 0
-        self.data_shard = self.edge_shard = None
+        self.edge_shard = None
         # every step captured: on one card, and under NCCL (collectives in
         # the graphs); eager under gloo, whose collectives cannot be captured
         self.capture_steps = True
@@ -203,13 +220,13 @@ class Coach:
             check_batch_divisibility(config.train.batch, mesh)
             check_batch_divisibility(config.train.test_batch, mesh)
             self.rank = dist.get_rank()
-            self.data_shard, self.edge_shard = data_shard(mesh), edge_shard(mesh)
+            self.edge_shard = edge_shard(mesh)
             self.capture_steps = dist.get_backend() == "nccl"
         self.log = log or Log("coach", config.data.name) if self.rank == 0 else NullLog()
         self.n_modal = len(host.modalities)
         # Checked as the JAX package checks them, then ignored: the port has
         # one denoiser path (K2/K3 on the card, their plain versions on the
-        # CPU) and one top-k (``ops/topk.py::topk_table``). So is
+        # CPU) and one top-k (``ops/topk.py::catalog_topk``). So is
         # ``train.stack_modal``: the sparse form always stacks its modal
         # propagations (``models/gcn.py``).
         for name, allowed in (
@@ -245,14 +262,16 @@ class Coach:
                         param_bytes=self.dn_dtype.itemsize,
                     ),
                 )
+        model_parallel = 1 if mesh is None else axis_size(mesh, MODEL_AXIS)
         self.dense_graphs = choose_graph_form(
             config.train.graph_form, self.n_modal, host.user_num, host.item_num,
-            bytes_per_cell, budget,
+            bytes_per_cell, budget, model_parallel=model_parallel,
         )
         if config.train.graph_form == "auto" and not self.dense_graphs:
+            blocks = dense_blocks_bytes(self.n_modal, host.user_num, host.item_num, bytes_per_cell)
             self.log.info(
-                f"auto graph form: sparse (dense blocks over the budget of "
-                f"{budget / 2**30:.2f} GiB; train.dense_budget_gb overrides)"
+                f"auto graph form: sparse (blocks+reserve {blocks / 2**30:.2f} GiB > budget "
+                f"{budget * model_parallel / 2**30:.2f} GiB; train.dense_budget_gb overrides)"
             )
         if config.train.segsum_compute not in ("f32", "bf16"):
             raise ValueError(
@@ -310,10 +329,6 @@ class Coach:
         self._joint_idx, _ = _pad_blocks(host.nnz, batch)
         self.cum_dcg = dcg_table(config.base.topk, self.device)
         self._fused_eval_cache: dict = {}
-        if self.dense_graphs:
-            self.data = self.data._replace(
-                adj=self._make_adj(self.data.train_rows, self.data.train_cols)
-            )
         self.timer = PhaseTimer()
         self.ckpt = None
         # the full state (parameters and Adam moments of every model) is
@@ -321,7 +336,12 @@ class Coach:
         self.checkpoint_every = max(1, checkpoint_every)
         if checkpoint_dir is not None:
             self.ckpt = CheckpointManager(checkpoint_dir)
+        self.split = None
         self._init_state()
+        if self.dense_graphs:
+            self.data = self.data._replace(
+                adj=self._make_adj(self.data.train_rows, self.data.train_cols)
+            )
 
         self.log.info(f"USER: {host.user_num}, ITEM: {host.item_num}")
         self.log.info(f"NUM OF INTERACTIONS: {host.nnz}")
@@ -353,11 +373,11 @@ class Coach:
         self.np_rng = np.random.default_rng(seed)
         self.graphs = GraphCache(self.device, self.generator, capture=self.capture_steps,
                                  error_mode="global" if self.mesh is None else "thread_local")
-        self.gcn_params = init_gcn_params(
+        gcn_params = init_gcn_params(
             self.generator, host.user_num, host.item_num, cfg.base.latdim,
             host.feat_dims, self.device,
         )
-        self.dn_params = [
+        dn_params = [
             tree_map(lambda a: a.to(self.dn_dtype), init_denoise_params(
                 self.generator, host.item_num, cfg.base.denoise_dims(),
                 cfg.base.d_emb_size, cfg.base.latdim, self.device,
@@ -365,10 +385,10 @@ class Coach:
             for _ in range(self.n_modal)
         ]
         if self.mesh is not None:
-            # replicated on a DATAx1 mesh; a model axis refuses (ROADMAP.md A7b)
-            gcn_param_shardings(self.gcn_params, self.mesh)
-            for p in self.dn_params:
-                denoise_param_shardings(p, self.mesh)
+            # every rank draws the whole parameters from the one seed and keeps
+            # its slices (JAX shard_model_params)
+            self.split = make_split(self.mesh, gcn_params, dn_params[0])
+        self._set_params(gcn_params, dn_params)
         self.gcn_opt_state = adam_init(self.gcn_params)
         self.dn_opt_states = [adam_init(p) for p in self.dn_params]
         self.edge_buffers: list[torch.Tensor] | None = None
@@ -393,31 +413,44 @@ class Coach:
             self.config.base.seed = seed
         self._init_state()
 
+    def _set_params(self, gcn_params: dict, dn_params: list[dict]) -> None:
+        """Take whole parameter trees on this device: on a mesh this rank's
+        slices of them (:func:`~diffmm_tpu_torch.parallel.sharding.
+        shard_params`), in their own storage."""
+        split = self.split
+        self.gcn_params = shard_params(gcn_params, None if split is None else split.gcn_place, split)
+        self.dn_params = [shard_params(p, None if split is None else split.dn_place, split)
+                          for p in dn_params]
+
     def load_params(self, gcn_params: dict, dn_params: list[dict],
                     gcn_opt_state: AdamState | None = None,
                     dn_opt_states: list[AdamState] | None = None) -> None:
-        """Take parameters in the port's layout (``convert.params_from_jax``
-        makes them from a JAX run's) and, optionally, their Adam states
-        (``convert.adam_state_from_jax``), copied to this Coach's device;
-        fresh Adam states otherwise. Drops any rebuilt graphs and captured
-        steps."""
-        self.gcn_params = tree_to(gcn_params, self.device)
-        self.dn_params = [tree_map(lambda a: a.to(self.dn_dtype), p)
-                          for p in tree_to(list(dn_params), self.device)]
-        if len(self.dn_params) != self.n_modal:
-            raise ValueError(f"expected {self.n_modal} denoisers, got {len(self.dn_params)}")
+        """Take whole parameters in the port's layout
+        (``convert.params_from_jax`` makes them from a JAX run's) and,
+        optionally, their Adam states (``convert.adam_state_from_jax``),
+        copied to this Coach's device (on a mesh, this rank's slices of
+        them); fresh Adam states otherwise. Drops any rebuilt graphs and
+        captured steps."""
+        dn_params = [tree_map(lambda a: a.to(self.dn_dtype), p)
+                     for p in tree_to(list(dn_params), self.device)]
+        if len(dn_params) != self.n_modal:
+            raise ValueError(f"expected {self.n_modal} denoisers, got {len(dn_params)}")
+        self._set_params(tree_to(gcn_params, self.device), dn_params)
+        split = self.split
 
-        def state_to(state, params):
+        def state_to(state, params, place):
             if state is None:
                 return adam_init(params)
+            state = place_adam_state(AdamState(state.count, tree_to(state.mu, self.device),
+                                               tree_to(state.nu, self.device)), place, split)
             # the moments in their parameters' types, as optax's zeros_like
-            mu, nu = ([m.to(p.dtype) for m, p in zip(tree_to(ms, self.device), tree_leaves(params))]
-                      for ms in (state.mu, state.nu))
+            mu, nu = ([m.to(p.dtype) for m, p in zip(ms, tree_leaves(params))] for ms in (state.mu, state.nu))
             return AdamState(state.count, mu, nu)
 
-        self.gcn_opt_state = state_to(gcn_opt_state, self.gcn_params)
+        g_place, d_place = (None, None) if split is None else (split.gcn_place, split.dn_place)
+        self.gcn_opt_state = state_to(gcn_opt_state, self.gcn_params, g_place)
         dn_opt_states = dn_opt_states or [None] * self.n_modal
-        self.dn_opt_states = [state_to(s, p) for s, p in zip(dn_opt_states, self.dn_params)]
+        self.dn_opt_states = [state_to(s, p, d_place) for s, p in zip(dn_opt_states, self.dn_params)]
         self.edge_buffers = None
         self.modal_adjs = None
         self.graphs.clear()
@@ -440,20 +473,23 @@ class Coach:
 
     def _make_adj(self, rows: torch.Tensor, cols: torch.Tensor, out=None):
         """A normalised adjacency in the run's graph form (into ``out`` in
-        place when given), placed on the mesh (:meth:`_place`)."""
+        place when given), placed on the mesh (:meth:`_place`): a dense one
+        holds this rank's catalog columns only."""
         if self.dense_graphs:
+            split = self.split
             return self._place(build_dense_bi_adj_device(
-                rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype, out=out
+                rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype, out=out,
+                cols=None if split is None else (split.lo, split.hi),
             ))
         return self._place(build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num, out=out))
 
     def _place(self, adj):
         """``adj`` with this rank's shard on a mesh: a sparse-form one sums
-        the rank's edge range (``edge_shard``); a dense-form one keeps its
-        blocks whole and the rank's rows of K1's gradients (``data_shard``)."""
+        the rank's edge range (``edge_shard``); a dense-form one runs K1's
+        mesh form on its catalog columns (the :class:`Split`)."""
         if self.mesh is None:
             return adj
-        return adj._replace(shard=self.edge_shard if isinstance(adj, BiAdj) else self.data_shard)
+        return adj._replace(shard=self.edge_shard if isinstance(adj, BiAdj) else self.split)
 
     def _knn_adjs(self) -> list:
         """The KNN ablation's modality graphs (JAX ``_knn_adjs``; reference
@@ -527,7 +563,7 @@ class Coach:
                 self.schedule, self.dn_params, self.dn_opt_states, self.gcn_params,
                 data.raw_feats, data.train_store, tables["users"], self._diff_weights,
                 tables["dn_scalars"], hp, self.host.item_num, self.generator, self.graphs,
-                self.data_shard,
+                self.split,
             )
         # phase 2: modality graph rebuild (reference Main.py:195-253), or the
         # KNN ablation's graphs, built once a run (Main.py:118-134)
@@ -566,7 +602,7 @@ class Coach:
         return steps.joint_epoch(
             self.gcn_params, self.gcn_opt_state, data.adj, self.modal_adjs, data.raw_feats,
             users, pos, neg, lr, hp, cfg.base.cl_method, cfg.train.segsum_compute,
-            self.generator, self.graphs, self.data_shard,
+            self.generator, self.graphs, self.split,
         )
 
     def _epoch_result(self, joint_acc, modal_acc) -> dict[str, float]:
@@ -600,7 +636,7 @@ class Coach:
             self.rebuild_blocks, self.rebuild_widths, self.rebuild_starts,
             *self.csr_gather_layout, self.host.item_num,
             cfg.hyper.sampling_step, self.generator, self.graphs, cfg.train.rebuild_compute,
-            self.data_shard,
+            self.split,
         ))
         return self.edge_buffers
 
@@ -717,17 +753,20 @@ class Coach:
         """The (3,) Recall/NDCG/Precision sums over the eval ``blocks`` of
         :meth:`_fused_eval_blocks`, on the device (JAX
         ``_make_fused_eval_fn``): the GCN forward and the ranking eval. On
-        a mesh each rank ranks its rows of every block and the sums are
-        added over the data axis."""
+        a mesh each rank ranks its rows of every block (``split.rows``)
+        against its catalog shard, the top-k merged over the model axis, and
+        the sums are added over ``split.rows``."""
         u_final, i_final = embeddings if embeddings is not None else self.forward()
         users, valid, items, counts = blocks
-        shard = self.data_shard
-        if shard is not None and shard.count > 1:
-            lo, hi = shard.span(users.shape[1])
-            users, valid, items, counts = (a[:, lo:hi] for a in (users, valid, items, counts))
+        split = self.split
+        if split is None:
+            return eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
+                              self.cum_dcg, self.config.base.topk)
+        lo, hi = split.rows.span(users.shape[1])
+        users, valid, items, counts = (a[:, lo:hi] for a in (users, valid, items, counts))
         sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
-                          self.cum_dcg, self.config.base.topk)
-        return sums if shard is None else all_reduce_sum_(sums, shard.group)
+                          self.cum_dcg, self.config.base.topk, (split.lo, split.hi), split.cat)
+        return all_reduce_sum_(sums, split.rows.group)
 
     def _capture_best_from(self, best_g, best_bufs, epoch: int) -> None:
         """capture_best from a fused chunk's device copies of its best epoch."""
@@ -765,7 +804,7 @@ class Coach:
             raise RuntimeError("run rebuild_graphs() first: the forward reads the modality graphs")
         return steps.gcn_forward(
             self.gcn_params if params is None else params, self.data.adj, modal_adjs,
-            self.data.raw_feats, self.hp(), self.config.train.segsum_compute,
+            self.data.raw_feats, self.hp(), self.config.train.segsum_compute, self.split,
         )
 
     @torch.no_grad()
@@ -810,38 +849,58 @@ class Coach:
         return params, modal_adjs
 
     # ------------------------------------------------------------ checkpoints
+    def _whole(self, gcn_params=None, dn_params=None, gcn_state=None, dn_states=None) -> dict:
+        """Whole trees from this rank's slices (collectives over the model
+        axis: every rank calls it); the trees as they are without a mesh."""
+        split = self.split
+        g_place, d_place = (None, None) if split is None else (split.gcn_place, split.dn_place)
+        out = {}
+        if gcn_params is not None:
+            out["gcn_params"] = gather_params(tree_to(gcn_params, self.device), g_place, split)
+        if dn_params is not None:
+            out["dn_params"] = [gather_params(p, d_place, split) for p in dn_params]
+        if gcn_state is not None:
+            out["gcn_opt_state"] = gather_adam_state(gcn_state, g_place, split)
+        if dn_states is not None:
+            out["dn_opt_states"] = [gather_adam_state(st, d_place, split) for st in dn_states]
+        return out
+
     def _ckpt_arrays(self) -> dict:
-        """The tensors of a checkpoint: parameters, Adam moments, the edge
-        buffers, the best snapshot (the live state stands in before any eval;
-        ``best_snapshot_epoch`` -1 marks it absent) and the generator's
-        state; a KNN Coach has no edge buffers (empty lists). The Adam counts
-        and the numpy stream go in the JSON part."""
+        """The tensors of a checkpoint, whole (on a mesh gathered from the
+        ranks' slices, a collective): parameters, Adam moments, the edge
+        buffers, the best snapshot (the live state stands in before any
+        eval; ``best_snapshot_epoch`` -1 marks it absent) and the
+        generator's state; a KNN Coach has no edge buffers (empty lists).
+        The Adam counts and the numpy stream go in the JSON part."""
         snap = self.best_snapshot
         buffers = self.edge_buffers or []
         if snap is None:
             best_params, best_buffers = self.gcn_params, buffers
         else:
             best_params, best_buffers = snap["gcn_params"], snap["edge_buffers"] or []
+        live = self._whole(self.gcn_params, self.dn_params, self.gcn_opt_state, self.dn_opt_states)
         moments = lambda s: {"mu": s.mu, "nu": s.nu}  # noqa: E731
         return {
-            "gcn_params": self.gcn_params,
-            "gcn_opt_state": moments(self.gcn_opt_state),
-            "dn_params": self.dn_params,
-            "dn_opt_states": [moments(s) for s in self.dn_opt_states],
+            "gcn_params": live["gcn_params"],
+            "gcn_opt_state": moments(live["gcn_opt_state"]),
+            "dn_params": live["dn_params"],
+            "dn_opt_states": [moments(s) for s in live["dn_opt_states"]],
             "edge_buffers": buffers,
-            "best_gcn_params": best_params,
+            "best_gcn_params": self._whole(best_params)["gcn_params"],
             "best_edge_buffers": best_buffers,
             "generator": self.generator.get_state(),
         }
 
     def save_checkpoint(self, epoch: int, best: dict) -> None:
         """Save the full training state after ``epoch`` with the run's
-        best-metric tracking ``best``. On a mesh the state is the same on
-        every rank: rank 0 writes it and every rank waits for the write."""
+        best-metric tracking ``best``. On a mesh every rank takes part in
+        gathering the whole arrays, rank 0 writes them, and every rank waits
+        for the write."""
         if self.ckpt is None:
             raise RuntimeError("save_checkpoint needs a Coach made with checkpoint_dir")
+        arrays = self._ckpt_arrays()
         if self.rank == 0:
-            self.ckpt.save(epoch, self._ckpt_arrays(), aux={
+            self.ckpt.save(epoch, arrays, aux={
                 "epoch": epoch,
                 "best": best,
                 "np_rng": rng_state_to_json(self.np_rng),
@@ -853,19 +912,27 @@ class Coach:
             dist.barrier()
 
     def _load_state(self, arrays: dict, aux: dict) -> None:
-        """Copy a checkpoint's state into this Coach's tensors in place (the
-        tensors the captured steps read keep their addresses) and set its
-        generator, numpy stream, Adam counts, edge buffers and best
-        snapshot."""
+        """Copy a checkpoint's whole state into this Coach's tensors in
+        place (on a mesh this rank's slices of it; the tensors the captured
+        steps read keep their addresses) and set its generator, numpy
+        stream, Adam counts, edge buffers and best snapshot."""
+        split = self.split
+        g_place, d_place = (None, None) if split is None else (split.gcn_place, split.dn_place)
+        cut = lambda tree, place: shard_params(tree_to(tree, self.device), place, split)  # noqa: E731
         with torch.no_grad():
-            for live, saved in zip(tree_leaves(self.gcn_params), tree_leaves(arrays["gcn_params"])):
+            for live, saved in zip(tree_leaves(self.gcn_params), tree_leaves(cut(arrays["gcn_params"], g_place))):
                 live.copy_(saved)
-            for live, saved in zip(tree_leaves(self.dn_params), tree_leaves(arrays["dn_params"])):
-                live.copy_(saved)
+            for params, saved in zip(self.dn_params, arrays["dn_params"]):
+                for live, value in zip(tree_leaves(params), tree_leaves(cut(saved, d_place))):
+                    live.copy_(value)
             states = [self.gcn_opt_state, *self.dn_opt_states]
+            places = [g_place] + [d_place] * len(self.dn_opt_states)
             saved_states = [arrays["gcn_opt_state"], *arrays["dn_opt_states"]]
-            for state, saved, count in zip(states, saved_states, [aux["gcn_count"], *aux["dn_counts"]]):
-                for live, value in zip(state.mu + state.nu, saved["mu"] + saved["nu"]):
+            counts = [aux["gcn_count"], *aux["dn_counts"]]
+            for state, saved, count, place in zip(states, saved_states, counts, places):
+                whole = AdamState(int(count), tree_to(saved["mu"], self.device), tree_to(saved["nu"], self.device))
+                placed = place_adam_state(whole, place, split)
+                for live, value in zip(state.mu + state.nu, placed.mu + placed.nu):
                     live.copy_(value)
                 state.count = int(count)
         self.generator.set_state(arrays["generator"])
@@ -877,7 +944,7 @@ class Coach:
         snap_epoch = aux["best_snapshot_epoch"]
         self.best_snapshot = None if snap_epoch < 0 else {
             "epoch": snap_epoch,
-            "gcn_params": arrays["best_gcn_params"],
+            "gcn_params": tree_map(lambda a: a.to("cpu", copy=True), cut(arrays["best_gcn_params"], g_place)),
             "edge_buffers": None if self.knn else list(arrays["best_edge_buffers"]),
         }
 

@@ -29,21 +29,45 @@ Randomness is injected: every step takes its draws (diffusion timesteps
 and noise, the cross-layer CL noise) as optional tensors and draws them
 from a ``torch.Generator`` otherwise.
 
-On the data axis of a mesh (``shard``, this rank's
-:class:`~diffmm_tpu_torch.parallel.sharding.Shard` of a block's rows; None
-on one device) every step computes the JAX mesh's function, which is the
-single-device one (``tests/test_parallel.py:58-79``): a rank takes its rows
-of each block, its losses are its parts of the global means
-(``ops/losses.py``), the L2 term is counted on rank 0 only, the gradients
-are summed over the ranks with one flat all-reduce before Adam
-(``parallel/collectives.py``), and every rank then holds the same
-parameters and moments. Every random draw is made whole on every rank from
-the same generator state, and each rank takes its rows of it, so a rank
-draws what the one-device run draws. The rebuild's ranks assemble their
-rows of the top-k tables with a placed int32 all-reduce.
+On a mesh (``split``, this rank's
+:class:`~diffmm_tpu_torch.parallel.sharding.Split`; None on one device)
+every step computes the JAX mesh's function, which is the single-device one
+(``tests/test_parallel.py:58-79``). Each rank's loss is its share of the
+step's one loss, and so are its gradients:
+
+* a diffusion block's rows go over ``split.rows`` and, where the model
+  axis cuts the catalog, its catalog columns over the model axis: the
+  rank's x0, noise and denoiser shards, the catalog products summed over
+  the axis before anything nonlinear (``models/denoise.py``), the row
+  losses the rank's columns' shares (``diffusion/gaussian.py``);
+* a joint block's rows go over the world (``split.world``): the step
+  first gathers ``i_embs`` whole over the model axis
+  (:class:`~diffmm_tpu_torch.parallel.collectives.AllGatherRows`, whose
+  backward returns each rank's rows of the summed cotangent), and the GCN's
+  outputs are then whole on every rank (K1's and K4's mesh forms,
+  ``ops/graph.py``); the L2 term is counted on rank 0;
+* the gradients are summed once a step: a replicated parameter's over the
+  world, a cut one's over ``split.rows``
+  (:func:`~diffmm_tpu_torch.parallel.sharding.reduce_grads`), and every
+  rank updates its own slices with Adam.
+
+Every random draw is made whole on every rank from the same generator
+state, and each rank takes its rows and columns of it, so a rank draws
+what the one-device run draws. The rebuild's ranks run K2's partial
+product on their catalog columns, sum it over the model axis, run K3 on
+their columns, merge their top-k candidates over the model axis
+(``ops/topk.py::catalog_topk``) and assemble their rows of the top-k
+tables with a placed int32 all-reduce over ``split.rows``.
+
+One device runs the same steps with no collective (the sums over one part
+are the parts; its rebuild takes K2's tanh in the kernel's epilogue, the
+same f32 add and ``tanhf``), so that a mesh of one rank computes what one
+device does, bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -62,8 +86,9 @@ from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
     prepare_denoiser,
 )
 from diffmm_tpu_torch.ops.losses import RowSlice, bpr_loss, info_nce, l2_normalize, l2_reg_loss
-from diffmm_tpu_torch.ops.topk import csr_gather_build, topk_table
-from diffmm_tpu_torch.parallel.collectives import all_reduce_grads, all_reduce_sum_
+from diffmm_tpu_torch.ops.topk import catalog_topk, csr_gather_build
+from diffmm_tpu_torch.parallel.collectives import AllGatherRows, all_reduce_sum_
+from diffmm_tpu_torch.parallel.sharding import REPLICATED, ROWS, reduce_grads
 from diffmm_tpu_torch.train.graphs import GraphCache, buffer, hold, run_step
 from diffmm_tpu_torch.train.optim import AdamState, adam_scalars, adam_update, tree_leaves, tree_map
 
@@ -87,17 +112,56 @@ def _scalars(lr: float, states: list[AdamState], n: int, device) -> torch.Tensor
     return torch.as_tensor(rows, device=device)
 
 
-def _split(shard) -> bool:
-    """Whether the steps take a part of each block: on a data axis of more
-    than one rank (at one rank the steps compute what they compute on one
-    device, with the collectives in place)."""
-    return shard is not None and shard.count > 1
+def _cols(split, item_num: int) -> tuple[int, int]:
+    """The rank's catalog range (the whole catalog on one device)."""
+    return (0, item_num) if split is None else (split.lo, split.hi)
 
 
-def _sum_grads(grads, shard) -> list:
-    """The gradients summed over the data axis (one all-reduce), or as they
-    are on one device."""
-    return list(grads) if shard is None else all_reduce_grads(list(grads), shard.group)
+def _group(split):
+    """The model axis's group where it cuts the catalog, else None."""
+    return None if split is None or split.cat is None else split.cat.group
+
+
+def local_leaf(leaf: torch.Tensor, place: str, split, dim: int = 0) -> torch.Tensor:
+    """The rank's catalog part of a catalog-wide leaf whose catalog runs
+    along ``dim``, differentiable: the leaf itself where it is stored cut
+    (or there is no split), else its catalog range (along dim 0 keeping any
+    rows past the catalog)."""
+    if split is None or place != REPLICATED or (split.lo, split.hi) == (0, split.item_num):
+        return leaf
+    if dim == 1:
+        return leaf[:, split.lo:split.hi]
+    if leaf.shape[0] == split.item_num:
+        return leaf[split.lo:split.hi]
+    return torch.cat([leaf[split.lo:split.hi], leaf[split.item_num:]])
+
+
+def local_denoiser(params: dict, split) -> dict:
+    """A denoiser's tree with its catalog-wide layers (the first in-layer's
+    x rows, the last out-layer) as the rank's catalog part
+    (:func:`local_leaf`); identity on one device."""
+    if split is None:
+        return params
+    first, last = params["in_layers"][0], params["out_layers"][-1]
+    place = split.dn_place
+    return {
+        **params,
+        "in_layers": [{**first, "w": local_leaf(first["w"], place["in_layers"][0]["w"], split)},
+                      *params["in_layers"][1:]],
+        "out_layers": [*params["out_layers"][:-1],
+                       {"w": local_leaf(last["w"], place["out_layers"][-1]["w"], split, dim=1),
+                        "b": local_leaf(last["b"], place["out_layers"][-1]["b"], split)}],
+    }
+
+
+def whole_gcn(gcn_params: dict, split) -> dict:
+    """The GCN parameters with ``i_embs`` whole: gathered over the model
+    axis where it is cut (:class:`AllGatherRows`: its backward gives each
+    rank its rows of the summed cotangent); as they are otherwise."""
+    if split is None or split.gcn_place["i_embs"] != ROWS:
+        return gcn_params
+    i_embs = AllGatherRows.apply(gcn_params["i_embs"], split.lo, split.item_num, split.cat.group)
+    return {**gcn_params, "i_embs": i_embs}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -116,59 +180,65 @@ def diffusion_block(
     t: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
-    shard=None,
+    split=None,
 ) -> torch.Tensor:
     """One Adam step for every modality's denoiser on one block of user
     rows (JAX ``_diffusion_block``); returns the (M,) per-modality losses.
 
     ``feats`` are the projected modality features and ``i_embs`` the item
-    embeddings, both constants here (the JAX package stops their
-    gradients). ``weights`` (B,) masks the block's pad rows: each loss is
-    the weighted sum over ``max(sum(weights), 1)``. The gradient is that of
-    ``sum(losses) / sum(losses)`` with the denominator detached (reference
+    embeddings (as stored: on a model axis the rank's rows), both
+    constants here (the JAX package stops their gradients). ``weights``
+    (B,) masks the block's pad rows: each loss is the weighted sum over
+    ``max(sum(weights), 1)``. The gradient is that of ``sum(losses) /
+    sum(losses)`` with the denominator detached (reference
     `Main.py:174-185`). ``t`` (M, B) and ``noise`` (M, B, I) are the
     modalities' draws. ``lr`` is a float or an (M, 3) tensor, a row of
     :func:`~diffmm_tpu_torch.train.optim.adam_scalars` per modality (the
     caller then advances the counts).
 
-    ``shard``: a mesh's data axis. The step takes the rank's rows of the
-    block and of its draws (drawn whole here when not given, in the order
-    ``training_losses`` draws them: each modality's timesteps, then its
-    noise), the weights' sum over the whole block, and the (M,) losses
-    summed over the ranks (one all-reduce) for the loss and the gradient's
-    denominator; then the gradients' all-reduce."""
+    ``split``: a mesh. The step takes the rank's rows (``split.rows``) and
+    catalog columns of the block and of its draws (drawn whole here when
+    not given, in the order ``training_losses`` draws them: each modality's
+    timesteps, then its noise), the weights' sum over the whole block, the
+    (M,) losses as the ranks' shares summed over the world (one all-reduce)
+    for the loss and the gradient's denominator; then the gradients'
+    all-reduces."""
     n_modal = len(dn_params_list)
     w_sum = torch.clamp_min(weights.sum(), 1.0)
-    if _split(shard):
-        lo, hi = shard.span(users.shape[0])
+    lo, hi = _cols(split, item_num)
+    group = _group(split)
+    own_sim = split is None or split.cat is None or split.cat.index == 0
+    if split is not None:
+        a, b = split.rows.span(users.shape[0])
         if t is None or noise is None:
             draws = [(torch.randint(0, schedule.steps, (users.shape[0],), generator=generator,
                                     device=users.device),
                       torch.randn((users.shape[0], item_num), generator=generator, device=users.device))
                      for _ in range(n_modal)]
             t, noise = (torch.stack(d) for d in zip(*draws))
-        users, weights, t, noise = users[lo:hi], weights[lo:hi], t[:, lo:hi], noise[:, lo:hi]
-    x0 = gather_rows(train_store, users, item_num)
+        users, weights, t, noise = users[a:b], weights[a:b], t[:, a:b], noise[:, a:b, lo:hi]
+    x0 = gather_rows(train_store, users, item_num)[:, lo:hi]
+    i_embs = i_embs if split is None else local_leaf(i_embs, split.gcn_place["i_embs"], split)
     live = [_trainable(p) for p in dn_params_list]
     with torch.enable_grad():
         losses = [
             torch.sum(training_losses(
-                schedule, live[m], x0, i_embs, feats[m], hp["sim_weight"], hp["reg"],
-                t=None if t is None else t[m], noise=None if noise is None else noise[m],
-                generator=generator,
+                schedule, local_denoiser(live[m], split), x0, i_embs, feats[m][lo:hi], hp["sim_weight"],
+                hp["reg"], t=None if t is None else t[m], noise=None if noise is None else noise[m],
+                generator=generator, item_num=item_num, group=group, own_sim=own_sim,
             ) * weights) / w_sum
             for m in range(n_modal)
         ]
         total = sum(losses)
-        if shard is None:
+        if split is None:
             whole = torch.stack(losses).detach()
             denom = total.detach()
         else:
-            whole = all_reduce_sum_(torch.stack(losses).detach(), shard.group)
+            whole = all_reduce_sum_(torch.stack(losses).detach(), split.world.group)
             denom = sum(whole.unbind())
         leaves = [tree_leaves(p) for p in live]
         grads = torch.autograd.grad(total / denom, [g for ls in leaves for g in ls])
-    grads = _sum_grads(grads, shard)
+    grads = reduce_grads(grads, None if split is None else [split.dn_place] * n_modal, split)
     at = 0
     for m, (params, state, ls) in enumerate(zip(dn_params_list, dn_states, leaves)):
         adam_update(params, list(grads[at:at + len(ls)]), state,
@@ -191,7 +261,7 @@ def diffusion_epoch(
     item_num: int,
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
-    shard=None,
+    split=None,
 ) -> torch.Tensor:
     """All diffusion blocks of one epoch, (n_blocks, B) users and weights;
     returns the (M,) loss accumulator with the reference's quirk
@@ -200,7 +270,7 @@ def diffusion_epoch(
     features are projected once: the GCN parameters do not change in this
     phase. ``lr`` is a float or the phase's (n_blocks, M, 3) Adam scalars
     (``_scalars``, made ahead by the caller). Advances each denoiser's Adam
-    count by the block count. ``shard``: as :func:`diffusion_block` (every
+    count by the block count. ``split``: as :func:`diffusion_block` (every
     rank's accumulator is the global one)."""
     dev = users_blocks.device
     n_modal, n = len(dn_params_list), users_blocks.shape[0]
@@ -214,7 +284,7 @@ def diffusion_epoch(
     def step(users, weights, sc):
         losses = diffusion_block(
             schedule, dn_params_list, dn_states, feats, i_embs, train_store,
-            users, weights, sc, hp, item_num, generator=generator, shard=shard,
+            users, weights, sc, hp, item_num, generator=generator, split=split,
         )
         acc.copy_((acc + losses) / torch.clamp_min(losses.sum(), 1e-12))
 
@@ -237,7 +307,7 @@ def rebuild_block_tables(
     k_table: int,
     generator: torch.Generator | None = None,
     denoise_apply=denoise_forward_fused,
-    rows: tuple[int, int] | None = None,
+    split=None,
 ) -> list[torch.Tensor]:
     """Reverse-diffuse a user block per modality -> value-sorted (B,
     k_table) top-index tables, one per modality, with ``denoise_apply`` on
@@ -245,27 +315,29 @@ def rebuild_block_tables(
     the denoise_mlp kernels (K2, K3) on the card, on prepared forms only (a
     params dict would be put in the kernels' layout again at every step).
 
-    ``rows``: a rank's rows ``[lo, hi)`` of the block (a mesh's data
-    axis): each modality's noise is drawn for the whole block, as on one
-    device, and the tables are those of the rank's rows."""
-    if denoise_apply is denoise_forward_fused and not all(
-            isinstance(p, PreparedDenoiser) for p in denoisers):
+    ``split``: a mesh. The rank takes its rows (``split.rows``) and its
+    catalog columns of the block (the denoisers are then its shards); each
+    modality's noise is drawn for the whole block, as on one device, and
+    normalised over whole rows; each table is the top-k over the whole
+    catalog of the rank's rows (:func:`~diffmm_tpu_torch.ops.topk.
+    catalog_topk`, merged over the model axis)."""
+    fused = denoise_apply is denoise_forward_fused or getattr(denoise_apply, "func", None) is denoise_forward_fused
+    if fused and not all(isinstance(p, PreparedDenoiser) for p in denoisers):
         raise TypeError("rebuild_block_tables runs K2/K3 on prepare_denoiser forms only")
     batch = users.shape[0]
-    if rows is not None:
-        users = users[rows[0]:rows[1]]
-    x0 = gather_rows(train_store, users, item_num)
+    lo, hi = _cols(split, item_num)
+    a, b = (0, batch) if split is None else split.rows.span(batch)
+    x0 = gather_rows(train_store, users[a:b], item_num)[:, lo:hi]
     tables = []
     for params in denoisers:
         raw = None
-        if rows is not None and sampling_step > 0:
-            raw = torch.randn((batch, item_num), generator=generator, device=x0.device,
-                              dtype=x0.dtype)[rows[0]:rows[1]]
+        if sampling_step > 0:
+            raw = torch.randn((batch, item_num), generator=generator, device=x0.device, dtype=x0.dtype)[a:b]
         denoised = generate_view(
             schedule, params, x0, sampling_step, generator=generator, noise=raw,
-            denoise_apply=denoise_apply,
+            denoise_apply=denoise_apply, cols=(lo, hi),
         )
-        tables.append(topk_table(denoised, k_table))
+        tables.append(catalog_topk(denoised, k_table, lo, None if split is None else split.cat).to(torch.int32))
     return tables
 
 
@@ -276,16 +348,25 @@ def _hold_tree(graphs: GraphCache | None, key: tuple, tree):
     return tree_map(lambda a: hold(graphs, (*key, next(leaves)), a), tree)
 
 
-def _bf16_apply(params, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def _bf16_apply(params, x_t: torch.Tensor, t: torch.Tensor, group=None) -> torch.Tensor:
     """The plain forward with bf16 products, back in f32 (JAX
     ``rebuild_apply`` under ``train.rebuild_compute="bf16"``)."""
-    return denoise_forward(params, x_t, t, compute_dtype=torch.bfloat16).to(torch.float32)
+    return denoise_forward(params, x_t, t, compute_dtype=torch.bfloat16, group=group).to(torch.float32)
 
 
-def rebuild_forward(dn_params_list: list, compute: str = "f32", graphs: GraphCache | None = None):
+def _on_axis(apply, split):
+    """``apply`` with the model axis's group bound, where there is one."""
+    group = _group(split)
+    return apply if split is None else functools.partial(apply, group=group)
+
+
+def rebuild_forward(dn_params_list: list, compute: str = "f32", graphs: GraphCache | None = None,
+                    split=None):
     """The rebuild's denoisers and forward, chosen as the JAX package
     chooses them (``diffmm_tpu/train/steps.py:115-168``), put in their form
-    once per rebuild: ``(denoisers, denoise_apply)``.
+    once per rebuild: ``(denoisers, denoise_apply)``. On a mesh
+    (``split``) the denoisers are the rank's catalog shards and the forward
+    sums its catalog products over the model axis.
 
     * ``compute="bf16"`` (``train.rebuild_compute``, its spelling checked
       by ``config.check_slice_support``): the plain forward in bf16 (f32 accumulation on
@@ -298,14 +379,18 @@ def rebuild_forward(dn_params_list: list, compute: str = "f32", graphs: GraphCac
     * f32 and more hidden layers: the plain f32 forward (TF32 off) on the
       parameters as they are; K2/K3 take one hidden layer, and the JAX
       package runs its XLA forward there too."""
+    dn_params_list = [local_denoiser(p, split) for p in dn_params_list]
     if compute == "bf16":
         cast = [_hold_tree(graphs, ("rebuild_bf16", m), tree_map(lambda a: a.to(torch.bfloat16), p))
                 for m, p in enumerate(dn_params_list)]
-        return cast, _bf16_apply
+        return cast, _on_axis(_bf16_apply, split)
     if any(len(p["in_layers"]) != 1 or len(p["out_layers"]) != 1 for p in dn_params_list):
-        return dn_params_list, denoise_forward
+        if split is not None:  # a local part may be a new tensor: held where a graph reads it
+            dn_params_list = [_hold_tree(graphs, ("rebuild_local", m), p) for m, p in enumerate(dn_params_list)]
+        return dn_params_list, _on_axis(denoise_forward, split)
     wide = [tree_map(lambda a: a.to(torch.float32), p) for p in dn_params_list]
-    return [_hold_denoiser(graphs, m, prepare_denoiser(p)) for m, p in enumerate(wide)], denoise_forward_fused
+    return ([_hold_denoiser(graphs, m, prepare_denoiser(p)) for m, p in enumerate(wide)],
+            _on_axis(denoise_forward_fused, split))
 
 
 def _hold_denoiser(graphs: GraphCache | None, m: int, p: PreparedDenoiser) -> PreparedDenoiser:
@@ -338,7 +423,7 @@ def rebuild_epoch(
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
     compute: str = "f32",
-    shard=None,
+    split=None,
 ) -> list[torch.Tensor]:
     """All rebuild blocks of one epoch -> one CSR edge buffer per modality.
 
@@ -353,12 +438,13 @@ def rebuild_epoch(
     ``train.rebuild_compute``). A step (one block of one bucket; a graph per
     bucket on the card) writes its users' tables into the bucket's rows.
 
-    ``shard``: a mesh's data axis. Each rank runs K2/K3 and the top-k on
-    its rows of every block (its part of each block's noise drawn as the
-    whole, :func:`rebuild_block_tables`) into zeroed tables, and one placed
-    int32 all-reduce a table assembles them (JAX ``coach.py:858-859``):
-    every rank then builds the same edge buffers."""
-    denoisers, apply = rebuild_forward(dn_params_list, compute, graphs)
+    ``split``: a mesh. Each rank runs K2/K3 on its rows and catalog
+    columns of every block (its part of each block's noise drawn as the
+    whole) and the merged top-k (:func:`rebuild_block_tables`) into zeroed
+    tables, and one placed int32 all-reduce a table over ``split.rows``
+    assembles them (JAX ``coach.py:858-859``): every rank then builds the
+    same edge buffers."""
+    denoisers, apply = rebuild_forward(dn_params_list, compute, graphs, split)
     n_modal = len(denoisers)
     dev = row_of_pos.device
     bucket_tables = []  # [bucket][modality] -> (rows_b, k_b)
@@ -368,24 +454,24 @@ def rebuild_epoch(
                   for m in range(n_modal)]
         rows = torch.arange(nb * batch, dtype=torch.int64, device=dev).view(nb, batch)
         inputs = torch.stack([blocks_b.long(), rows], dim=1)  # (nb, 2, batch): users, table rows
-        own = shard.span(batch) if _split(shard) else None
-        if shard is not None:
+        own = (0, batch) if split is None else split.rows.span(batch)
+        if split is not None:
             for table in tables:
                 table.zero_()
 
         def step(blk, tables=tables, k_b=k_b, own=own):
             out = rebuild_block_tables(schedule, denoisers, train_store, blk[0], item_num,
-                                       sampling_step, k_b, generator, apply, own)
-            at = blk[1] if own is None else blk[1, own[0]:own[1]]
+                                       sampling_step, k_b, generator, apply, split)
+            at = blk[1, own[0]:own[1]]
             for table, o in zip(tables, out):
                 table.index_copy_(0, at, o)
 
         key = ("rebuild", b, batch, k_b, sampling_step, compute)
         for j in range(nb):
             run_step(graphs, key, step, inputs[j])
-        if shard is not None:
+        if split is not None:
             for table in tables:
-                all_reduce_sum_(table, shard.group)
+                all_reduce_sum_(table, split.rows.group)
         bucket_tables.append(tables)
 
     row_of_pos = row_of_pos.long()
@@ -486,7 +572,7 @@ def joint_block(
     compute: str = "f32",
     cl_noise: list[torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
-    shard=None,
+    split=None,
 ) -> torch.Tensor:
     """One Adam step of the main model on one block of interactions (JAX
     ``_joint_block``): the GCN forward, BPR, L2 on the ID embeddings, the
@@ -496,30 +582,34 @@ def joint_block(
     and negative items, shared by all the gathers of each. ``lr`` is a
     float or a (3,) row of ``adam_scalars``, as ``adam_update`` takes it.
 
-    ``shard``: a mesh's data axis. The rank's BPR rows and its rows of each
-    InfoNCE, all as parts of the block's means; the L2 term on rank 0; the
-    gradients summed over the ranks. The metrics are the rank's parts
-    (``joint_epoch`` sums them over the ranks once an epoch)."""
+    ``split``: a mesh. ``i_embs`` gathered whole (:func:`whole_gcn`); the
+    rank's BPR rows and its rows of each InfoNCE over the world, all as
+    parts of the block's means; the L2 term on rank 0; the gradients summed
+    (:func:`~diffmm_tpu_torch.parallel.sharding.reduce_grads`). The metrics
+    are the rank's parts (``joint_epoch`` sums them over the world once an
+    epoch)."""
     live = _trainable(gcn_params)
-    n_users, n_items = gcn_params["u_embs"].shape[0], gcn_params["i_embs"].shape[0]
-    plans = (gather_plan(users, n_users), gather_plan(pos_items, n_items))
+    n_users = gcn_params["u_embs"].shape[0]
     own, total_rows = (None, None), None
-    bpr_rows, bpr_plans = (users, pos_items, neg_items), plans
-    if _split(shard):
-        lo, hi = shard.span(users.shape[0])
-        total_rows = users.shape[0]
-        bpr_rows = (users[lo:hi], pos_items[lo:hi], neg_items[lo:hi])
-        own = (RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[0], n_users)),
-               RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[1], n_items)))
-        bpr_plans = (own[0].plan, own[1].plan)
     with torch.enable_grad():
-        out = gcn_mm(live, adj, list(modal_adjs), raw_feats, hp["modal_adj_weight"],
+        whole = whole_gcn(live, split)
+        n_items = whole["i_embs"].shape[0]
+        plans = (gather_plan(users, n_users), gather_plan(pos_items, n_items))
+        bpr_rows, bpr_plans = (users, pos_items, neg_items), plans
+        if split is not None:
+            lo, hi = split.world.span(users.shape[0])
+            total_rows = users.shape[0]
+            bpr_rows = (users[lo:hi], pos_items[lo:hi], neg_items[lo:hi])
+            own = (RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[0], n_users)),
+                   RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[1], n_items)))
+            bpr_plans = (own[0].plan, own[1].plan)
+        out = gcn_mm(whole, adj, list(modal_adjs), raw_feats, hp["modal_adj_weight"],
                      hp["residual_weight"], compute)
         rec = bpr_loss(gather(out.u_final, bpr_rows[0], bpr_plans[0]),
                        gather(out.i_final, bpr_rows[1], bpr_plans[1]),
                        gather(out.i_final, bpr_rows[2], gather_plan(bpr_rows[2], n_items)), total_rows)
-        if shard is None or shard.index == 0:
-            reg = l2_reg_loss(hp["reg"], [live["u_embs"], live["i_embs"]])
+        if split is None or split.world.index == 0:
+            reg = l2_reg_loss(hp["reg"], [whole["u_embs"], whole["i_embs"]])
         else:
             reg = torch.zeros((), device=rec.device)
         cl = cross_layer_cl(out.id_u, out.id_i, adj, users, pos_items, hp, compute, cl_noise, generator,
@@ -527,7 +617,8 @@ def joint_block(
         cl = cl + modal_cl(out, users, pos_items, hp, cl_method, plans, own)
         total = rec + reg + cl
         grads = torch.autograd.grad(total, tree_leaves(live))
-    adam_update(gcn_params, _sum_grads(grads, shard), opt_state, lr)
+    adam_update(gcn_params, reduce_grads(grads, None if split is None else split.gcn_place, split),
+                opt_state, lr)
     return torch.stack([total, rec, reg, cl]).detach()
 
 
@@ -546,14 +637,13 @@ def joint_epoch(
     compute: str = "f32",
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
-    shard=None,
+    split=None,
 ) -> torch.Tensor:
     """All joint blocks of one epoch, (n_blocks, B) each; returns the
     summed (4,) metrics (JAX ``_joint_epoch``), which each step adds in
     place. ``lr`` is a float or the phase's (n_blocks, 3) Adam scalars.
-    Advances the Adam count by the block count. ``shard``: a mesh's data
-    axis (:func:`joint_block`); the ranks' sums are added once, at the
-    end."""
+    Advances the Adam count by the block count. ``split``: a mesh
+    (:func:`joint_block`); the ranks' sums are added once, at the end."""
     dev = users_blocks.device
     n = users_blocks.shape[0]
     blocks = torch.stack([users_blocks, pos_blocks, neg_blocks], dim=1)  # (n, 3, B)
@@ -562,22 +652,24 @@ def joint_epoch(
 
     def step(blk, sc):
         acc.add_(joint_block(gcn_params, opt_state, adj, modal_adjs, raw_feats, blk[0], blk[1],
-                             blk[2], sc, hp, cl_method, compute, generator=generator, shard=shard))
+                             blk[2], sc, hp, cl_method, compute, generator=generator, split=split))
 
     key = ("joint", blocks.shape[2], cl_method, compute, _hp_key(hp))
     for j in range(n):
         run_step(graphs, key, step, blocks[j], scalars[j])
     opt_state.count += n
-    if shard is not None:
-        all_reduce_sum_(acc, shard.group)
+    if split is not None:
+        all_reduce_sum_(acc, split.world.group)
     return acc.clone()
 
 
 # --------------------------------------------------------------------- eval
-def gcn_forward(gcn_params, adj, modal_adjs, raw_feats, hp: dict, segsum_compute: str = "f32"):
-    """Final (user, item) embeddings for eval and serving."""
+def gcn_forward(gcn_params, adj, modal_adjs, raw_feats, hp: dict, segsum_compute: str = "f32",
+                split=None):
+    """Final (user, item) embeddings for eval and serving, whole on every
+    rank of a mesh (``split``: ``i_embs`` gathered first)."""
     out = gcn_mm(
-        gcn_params, adj, list(modal_adjs), raw_feats,
+        whole_gcn(gcn_params, split), adj, list(modal_adjs), raw_feats,
         modal_adj_weight=hp["modal_adj_weight"],
         residual_weight=hp["residual_weight"],
         segsum_compute=segsum_compute,

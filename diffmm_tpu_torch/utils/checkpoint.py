@@ -9,6 +9,10 @@ JAX key. The newest ``max_to_keep`` files are kept. A save writes a
 temporary file and renames it, so a run that stops mid-save leaves the
 previous checkpoints whole.
 
+On a mesh the Coach writes whole arrays, gathered from the ranks' slices
+over the model axis, so that one file restores into any mesh and into a
+Coach without one (``train/coach.py``).
+
 Saves are synchronous: the JAX package's ``async_save`` overlaps orbax's
 disk write with training, and has no counterpart here (``wait`` and
 ``close`` have nothing to wait for).
@@ -78,7 +82,11 @@ class CheckpointManager:
         return epoch, blob["arrays"], json.loads(blob["aux"])
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
+        """On a mesh the Coach writes whole arrays, gathered from the ranks' slices
+over the model axis, so that one file restores into any mesh and into a
+Coach without one (``train/coach.py``).
+
+Saves are synchronous: nothing is in flight."""
 
     def close(self) -> None:
         """Nothing stays open between saves."""

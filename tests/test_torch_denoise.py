@@ -1,6 +1,7 @@
 """Port diffusion schedule, denoiser and the K2/K3 plain versions against
 diffmm_tpu: make_schedule, timestep_embedding, denoise_forward (with and
-without modality gating), fused_denoise_mlp in interpret mode and
+without modality gating), K2 then K3 against JAX's fused_denoise_mlp in
+interpret mode, and
 denoise_forward_pallas in interpret mode, with JAX parameters carried over
 by convert.params_from_jax.
 
@@ -21,7 +22,8 @@ from diffmm_tpu_torch.diffusion import schedule as ts
 from diffmm_tpu_torch.models import denoise as td
 from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
     denoise_forward_fused,
-    fused_denoise_mlp,
+    denoise_layer1,
+    denoise_layer2,
     layer1_plain,
     layer2_plain,
 )
@@ -91,7 +93,7 @@ def test_k2_k3_plain_match_fused_interpret(rng, shape):
     b2 = rng.standard_normal((K,)).astype(np.float32) * 0.01
     want = np.asarray(j_fused(*(jnp.asarray(a) for a in (x, w1, tp, w2, b2)), interpret=True))
     tt = [torch.as_tensor(a) for a in (x, w1, tp, w2, b2)]
-    got = fused_denoise_mlp(*tt).numpy()
+    got = denoise_layer2(denoise_layer1(*tt[:3]), tt[3], tt[4]).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     two_step = layer2_plain(layer1_plain(*tt[:3]), tt[3], tt[4]).numpy()
     np.testing.assert_array_equal(got, two_step)

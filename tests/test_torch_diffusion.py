@@ -17,6 +17,7 @@ from diffmm_tpu.models import denoise as jd
 from diffmm_tpu_torch.convert import denoise_params_from_jax
 from diffmm_tpu_torch.diffusion import gaussian as tg
 from diffmm_tpu_torch.diffusion.schedule import make_schedule as t_sched
+from diffmm_tpu_torch.ops.losses import l2_normalize
 from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_forward_fused
 
 RTOL, ATOL = 1e-5, 1e-5
@@ -34,10 +35,12 @@ def test_q_sample_sign_noise_branch(rng):
     x0 = (rng.random((6, 20)) < 0.3).astype(np.float32)
     t = np.array([0, 1, 2, 3, 4, 1])
     key = jax.random.PRNGKey(9)
-    raw = np.asarray(jax.random.normal(key, x0.shape, dtype=jnp.float32))
+    raw = np.array(jax.random.normal(key, x0.shape, dtype=jnp.float32))
     want = np.asarray(jg.q_sample(j_sched(*SCHED), jnp.asarray(x0), jnp.asarray(t), None, key=key))
-    got = tg.q_sample(t_sched(*SCHED), torch.as_tensor(x0), torch.as_tensor(t),
-                      raw=torch.as_tensor(raw)).numpy()
+    x0_t = torch.as_tensor(x0)
+    # the sign-normalised noise as generate_view makes it from the raw draw
+    noise = torch.sign(x0_t) * l2_normalize(torch.as_tensor(raw), dim=1)
+    got = tg.q_sample(t_sched(*SCHED), x0_t, torch.as_tensor(t), noise=noise).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
@@ -53,7 +56,7 @@ def test_p_mean_matches(rng):
 def test_generate_view_matches(rng, sampling_step):
     j, t, x0 = _setup(rng)
     key = jax.random.PRNGKey(21)
-    raw = np.asarray(jax.random.normal(key, x0.shape, dtype=jnp.float32))
+    raw = np.array(jax.random.normal(key, x0.shape, dtype=jnp.float32))
     want = np.asarray(jg.generate_view(j_sched(*SCHED), j, jnp.asarray(x0), sampling_step, key=key))
     got = tg.generate_view(t_sched(*SCHED), t, torch.as_tensor(x0), sampling_step,
                            noise=torch.as_tensor(raw)).numpy()

@@ -7,8 +7,9 @@ package's tests/test_distributed_smoke.py.
 come from ``parallel/launch.py::run_ranks``, which sets the launcher's
 environment as ``torchrun --nproc_per_node 2`` would: they train a tiny
 synthetic config on a 2x1 mesh with checkpoints, and rank 0 alone writes
-the log, the checkpoints and the exported index; a second run resumes; a
-1x2 mesh refuses training (ROADMAP.md A7b). The sharded HTTP server's
+the log, the checkpoints and the exported index; a second run resumes. On
+a 1x2 mesh (the catalog over the model axis) they train, checkpoint,
+export the whole index and resume the same way. The sharded HTTP server's
 answers over two catalog shards give a direct ``recommend`` on the whole
 index's items, and its scores within 1e-5 (each shard's product is another
 matmul call over the same dot products).
@@ -57,26 +58,27 @@ def test_cli_mesh_1x1_runs_in_one_process(tmp_path):
 
 
 def _cli_ranks(directory):
-    """On each rank: the 1x2 mesh's refusal, then two epochs with
-    checkpoints and an exported index, then a third epoch resumed."""
+    """On each rank: a 1x2 mesh's two epochs with checkpoints and an
+    exported index, then a third resumed; then the same on a 2x1 mesh."""
     import torch.distributed as dist
 
     from diffmm_tpu_torch import cli
 
     torch.set_num_threads(1)
     os.chdir(directory)
-    conf, ck = _write_conf(directory), os.path.join(directory, "ck")
-    refusal = None
-    try:
-        cli.main(["-c", conf, "--device", "cpu", "--mesh", "1x2", "--distributed", "--epochs", "1"])
-    except NotImplementedError as e:
-        refusal = str(e)
-    args = ["-c", conf, "--device", "cpu", "--mesh", "2x1", "--distributed", "--checkpoint-dir", ck,
-            "--checkpoint-every", "1", "--set", "train.graph_form=sparse"]
+    conf = _write_conf(directory)
+    model_args = ["-c", conf, "--device", "cpu", "--mesh", "1x2", "--distributed", "--checkpoint-dir",
+                  os.path.join(directory, "ck12"), "--checkpoint-every", "1"]
+    model_rc = [cli.main([*model_args, "--epochs", "2", "--export-index",
+                          os.path.join(directory, "idx12.npz")])]
+    dist.barrier()
+    model_rc.append(cli.main([*model_args, "--epochs", "3"]))
+    args = ["-c", conf, "--device", "cpu", "--mesh", "2x1", "--distributed", "--checkpoint-dir",
+            os.path.join(directory, "ck"), "--checkpoint-every", "1", "--set", "train.graph_form=sparse"]
     rc = [cli.main([*args, "--epochs", "2", "--export-index", os.path.join(directory, "idx.npz")])]
     dist.barrier()
     rc.append(cli.main([*args, "--epochs", "3"]))
-    return {"refusal": refusal, "rc": rc}
+    return {"model_rc": model_rc, "rc": rc}
 
 
 def test_cli_two_ranks_train_checkpoint_and_resume(tmp_path):
@@ -86,16 +88,23 @@ def test_cli_two_ranks_train_checkpoint_and_resume(tmp_path):
     outs = run_ranks(_cli_ranks, 2, (str(tmp_path),))
     for out in outs:
         assert out["rc"] == [0, 0]
-        assert "A7b" in out["refusal"]
+        assert out["model_rc"] == [0, 0]  # the 1x2 mesh trains and resumes
     logs = glob.glob(str(tmp_path / "logs" / "*.log"))
     assert len(logs) == 1  # rank 0's (one file a process); rank 1 logs nothing
     text = "".join(open(p).read() for p in logs)
+    assert "Mesh: data=1, model=2 | backend gloo | steps eager" in text
     assert "Mesh: data=2, model=1 | backend gloo | steps eager" in text
-    assert "Resumed from checkpoint at epoch 1" in text
+    assert text.count("Resumed from checkpoint at epoch 1") == 2
     assert CheckpointManager(str(tmp_path / "ck")).epochs() == [0, 1, 2]
+    _, arrays, _ = CheckpointManager(str(tmp_path / "ck12")).restore()
+    assert arrays["gcn_params"]["i_embs"].shape == (30, 8)  # whole, gathered from the two ranks
     assert not glob.glob(str(tmp_path / "ck" / "*.tmp*"))
     index = load_index(str(tmp_path / "idx.npz"), device="cpu")
     assert index.u_final.shape == (40, 8) and np.isfinite(index.i_final.numpy()).all()
+    with np.load(str(tmp_path / "idx12.npz")) as whole:  # the 1x2 export: every item's row
+        assert whole["u_final"].shape == (40, 8) and whole["i_final"].shape == (30, 8)
+        assert np.isfinite(whole["i_final"]).all()
+        assert not np.array_equal(whole["i_final"][:15], whole["i_final"][15:])
 
 
 def _get(url):

@@ -139,7 +139,7 @@ def _f64_gate(got, plain, exact) -> tuple[float, float]:
 )
 def test_denoise_kernels_match_plain(cuda, shape):
     from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
-        LAUNCHES, denoise_layer1, denoise_layer2, fused_denoise_mlp, layer1_plain, layer2_plain,
+        LAUNCHES, denoise_layer1, denoise_layer2, layer1_plain, layer2_plain,
         prepare_weight,
     )
 
@@ -151,7 +151,7 @@ def test_denoise_kernels_match_plain(cuda, shape):
     w2 = torch.randn((H, K), generator=gen, device=cuda) * (2.0 / (K + H)) ** 0.5
     b2 = torch.randn((K,), generator=gen, device=cuda) * 0.01
     before = dict(LAUNCHES)
-    got = fused_denoise_mlp(x, w1, tp, w2, b2)
+    got = denoise_layer2(denoise_layer1(x, w1, tp), w2, b2)  # weights prepared per call
     want = layer2_plain(layer1_plain(x, w1, tp), w2, b2)
     torch.cuda.synchronize()
     assert LAUNCHES["denoise_layer1"] == before["denoise_layer1"] + 1
@@ -1012,6 +1012,119 @@ def test_two_gloo_ranks_on_the_card_hold_equal_parameters(cuda):
     for form in ("dense", "sparse"):
         assert rank0[form] == rank1[form]
         assert rank0[form][3] is False
+        one = _mesh_coach(form, None)
+        want = (one.train_epoch(0), one.test_epoch())
+        for got, ref in zip(rank0[form][:2], want):
+            for k in ref:
+                assert got[k] == pytest.approx(ref[k], rel=2e-3, abs=1e-5), (form, k)
+
+
+# ------------------------------------------------------------ model axis
+@pytest.mark.parametrize("store", [torch.int8, torch.uint8], ids=["int8", "int4"])
+def test_spmm_dual_on_a_catalog_shard_matches_plain(cuda, store):
+    """K1 on each half of tiktok's catalog (9,308 x 3,355, d 64), built in
+    place from the whole edges (``build_dense_bi_adj_device(cols=...)``):
+    forward and backward against the plain version on the same shard, and
+    the two shards' user sums against the whole block's."""
+    from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import LAUNCHES, SpmmDual, spmm_dual, spmm_dual_plain
+
+    U, I, d = 9308, 6710, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    edges = (torch.rand((U, I), generator=gen, device=cuda) < 0.001).nonzero()
+    rows, cols = edges[:, 0].to(torch.int32), edges[:, 1].to(torch.int32)
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    whole = build_dense_bi_adj_device(rows, cols, U, I, store).mat
+    y_u_whole, _ = spmm_dual(whole, z_u, z_i)
+    y_u_sum = torch.zeros_like(y_u_whole)
+    for lo, hi in ((0, I // 2), (I // 2, I)):
+        mat = build_dense_bi_adj_device(rows, cols, U, I, store, cols=(lo, hi)).mat
+        before = LAUNCHES["spmm_dual"]
+        y_u, y_i = spmm_dual(mat, z_u, z_i[lo:hi])
+        assert LAUNCHES["spmm_dual"] == before + 1
+        p_u, p_i = spmm_dual_plain(mat, z_u, z_i[lo:hi])
+        torch.testing.assert_close(y_u, p_u, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(y_i, p_i, rtol=1e-5, atol=1e-5)
+        y_u_sum += y_u
+        zu, zi = z_u.clone().requires_grad_(), z_i[lo:hi].clone().requires_grad_()
+        g_u, g_i = torch.randn_like(y_u), torch.randn_like(y_i)
+        torch.autograd.backward(SpmmDual.apply(mat, zu, zi), (g_u, g_i))
+        q_u, q_i = spmm_dual_plain(mat, g_u, g_i)
+        torch.testing.assert_close(zu.grad, q_u, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(zi.grad, q_i, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y_u_sum, y_u_whole, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1024, 3355, 1024), (1024, 10000, 1024), (256, 3355, 1024), (7, 133, 48)])
+def test_denoise_partial_and_column_shards_match_plain(cuda, shape):
+    """K2's partial product (the ``kNone`` epilogue) on a catalog shard of K
+    rows, and K3 on a shard of N = K columns (tiktok's half, 3,355, odd;
+    yelp's half, 10,000): against the plain products, the same bits on a
+    second launch, the f64 gate; two halves' partials summed then tanh
+    against K2 over the whole catalog."""
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
+        LAUNCHES, denoise_layer1, denoise_layer1_partial, denoise_layer2, layer1_partial_plain,
+        layer2_plain, prepare_weight,
+    )
+
+    B, K, H = shape
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((B, 2 * K), generator=gen, device=cuda)
+    w1 = torch.randn((2 * K, H), generator=gen, device=cuda) * (2.0 / (2 * K + H)) ** 0.5
+    tp = torch.randn((B, H), generator=gen, device=cuda) * 0.1
+    w2 = torch.randn((H, 2 * K), generator=gen, device=cuda) * (2.0 / (2 * K + H)) ** 0.5
+    b2 = torch.randn((2 * K,), generator=gen, device=cuda) * 0.01
+    parts = []
+    for lo, hi in ((0, K), (K, 2 * K)):
+        xs, w1s = x[:, lo:hi].contiguous(), w1[lo:hi]
+        before = dict(LAUNCHES)
+        s = denoise_layer1_partial(xs, prepare_weight(w1s))
+        assert LAUNCHES["denoise_layer1_partial"] == before["denoise_layer1_partial"] + 1
+        plain = layer1_partial_plain(xs, w1s)
+        torch.testing.assert_close(s, plain, rtol=1e-5, atol=5e-5)
+        assert torch.equal(s, denoise_layer1_partial(xs, prepare_weight(w1s)))
+        _f64_gate(s, plain, xs.double() @ w1s.double())
+        parts.append(s)
+        h = torch.tanh(s + tp)
+        out = denoise_layer2(h, prepare_weight(w2[:, lo:hi].contiguous()), b2[lo:hi])
+        out_plain = layer2_plain(h, w2[:, lo:hi], b2[lo:hi])
+        torch.testing.assert_close(out, out_plain, rtol=1e-5, atol=5e-5)
+        _f64_gate(out, out_plain, h.double() @ w2[:, lo:hi].double() + b2[lo:hi].double())
+    whole = denoise_layer1(x, prepare_weight(w1), tp)
+    torch.testing.assert_close(torch.tanh(parts[0] + parts[1] + tp), whole, rtol=1e-5, atol=5e-5)
+
+
+def _model_axis_on_one_card():
+    import hashlib
+
+    from diffmm_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh(model_parallel=2)
+    out = {}
+    for form in ("dense", "sparse"):
+        coach = _mesh_coach(form, mesh)
+        result = coach.train_epoch(0)
+        whole = coach._whole(coach.gcn_params, coach.dn_params)
+        state = [t.detach().cpu() for t in
+                 [whole["gcn_params"]["i_embs"], *[p["out_layers"][-1]["w"] for p in whole["dn_params"]]]]
+        digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in state)).hexdigest()
+        out[form] = (result, coach.test_epoch(), digest, tuple(coach.gcn_params["i_embs"].shape))
+    return out
+
+
+def test_model_axis_two_gloo_ranks_on_the_card(cuda):
+    """A 1x2 mesh on the one card under gloo: each rank holds half of the
+    catalog's rows, the ranks' whole state is bitwise equal after an
+    epoch, and the losses and metrics are within rel 2e-3 / abs 1e-5 of one
+    device's."""
+    from diffmm_tpu_torch.parallel.launch import run_ranks
+
+    rank0, rank1 = run_ranks(_model_axis_on_one_card, 2, backend="gloo")
+    for form in ("dense", "sparse"):
+        assert rank0[form] == rank1[form]
+        assert rank0[form][3] == (100, 16)
         one = _mesh_coach(form, None)
         want = (one.train_epoch(0), one.test_epoch())
         for got, ref in zip(rank0[form][:2], want):

@@ -169,6 +169,23 @@ def test_choose_graph_form_matches_jax(store, budget_gib):
                                          budget_bytes=budget)
 
 
+@pytest.mark.parametrize("model_parallel", [1, 2, 4])
+def test_choose_graph_form_scales_with_model_axis_as_jax(model_parallel):
+    """The dense blocks' budget times the model axis, as JAX's
+    ``choose_graph_form`` (tests/test_dense_graph.py:76-84): a shape just
+    past one device's budget is sparse at model 1 and dense at 2 and 4."""
+    U = 60000
+    I = tcoach.DENSE_GRAPH_BUDGET_BYTES // (3 * U * 2) + 100
+    for store in ("int8", "bf16", "int4"):
+        _, bytes_per_cell = jcoach.resolve_dense_store(store)
+        for shape in ((U, I, 2), (9308, 6710, 3), (38403, 20000, 2)):
+            u, i, m = shape
+            assert tcoach.choose_graph_form("auto", m, u, i, bytes_per_cell, model_parallel=model_parallel) == \
+                jcoach.choose_graph_form("auto", m, u, i, model_parallel, bytes_per_cell=bytes_per_cell,
+                                         budget_bytes=tcoach.DENSE_GRAPH_BUDGET_BYTES), (store, shape)
+    assert tcoach.choose_graph_form("auto", 2, U, I, 2, model_parallel=model_parallel) == (model_parallel > 1)
+
+
 @pytest.mark.parametrize("param_dtype", ["f32", "bf16"])
 def test_estimate_state_bytes_matches_jax(monkeypatch, param_dtype):
     """The Coach's call passes the denoisers' bytes a parameter (2 for bf16,

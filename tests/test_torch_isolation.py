@@ -93,7 +93,7 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch, tmp_path):
 def test_kernel_wrappers_raise_off_cuda_and_cpu():
     """On a CUDA tensor a wrapper launches or raises; on the CPU it takes the
     plain version; any other device raises."""
-    from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_layer2, fused_denoise_mlp
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_layer1, denoise_layer1_partial, denoise_layer2
     from diffmm_tpu_torch.ops.kernels.segsum import segsum
     from diffmm_tpu_torch.ops.kernels.spmm_dual import spmm_dual
 
@@ -102,8 +102,9 @@ def test_kernel_wrappers_raise_off_cuda_and_cpu():
         spmm_dual(torch.empty((4, 3), dtype=torch.int8, device=meta),
                   torch.empty((4, 16), device=meta), torch.empty((3, 16), device=meta))
     with pytest.raises(ValueError, match="denoise_layer1: unsupported device"):
-        fused_denoise_mlp(*(torch.empty(s, device=meta)
-                            for s in ((2, 3), (3, 4), (2, 4), (4, 3), (3,))))
+        denoise_layer1(*(torch.empty(s, device=meta) for s in ((2, 3), (3, 4), (2, 4))))
+    with pytest.raises(ValueError, match="denoise_layer1_partial: unsupported device"):
+        denoise_layer1_partial(*(torch.empty(s, device=meta) for s in ((2, 3), (3, 4))))
     with pytest.raises(ValueError, match="denoise_layer2: unsupported device"):
         denoise_layer2(*(torch.empty(s, device=meta) for s in ((2, 4), (4, 3), (3,))))
     with pytest.raises(ValueError, match="segsum: unsupported device"):
@@ -137,8 +138,8 @@ def _calls_inside_try(path, allowed=()):
 
 def test_no_except_around_a_kernel_launch():
     """No try block in the port encloses a kernel wrapper or C entry call."""
-    launches = {"spmm_dual", "fused_denoise_mlp", "denoise_forward_fused", "_launch",
-                "spmm_dual_forward", "denoise_layer1", "denoise_layer2", "load_library",
+    launches = {"spmm_dual", "denoise_forward_fused", "_launch", "spmm_dual_forward",
+                "denoise_layer1", "denoise_layer1_partial", "denoise_layer2", "load_library",
                 "segsum", "segsum_gather", "segsum_forward"}
     for path in _sources():
         for name in _calls_inside_try(path):

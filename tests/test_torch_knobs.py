@@ -51,7 +51,7 @@ from diffmm_tpu_torch.data.membership import gather_rows
 from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data as t_synth
 from diffmm_tpu_torch.diffusion import gaussian as tg
 from diffmm_tpu_torch.models.gcn import project_features
-from diffmm_tpu_torch.ops.topk import topk_table as t_topk_table
+from diffmm_tpu_torch.ops.topk import catalog_topk
 from diffmm_tpu_torch.train import steps as ts
 from diffmm_tpu_torch.train.coach import Coach as TCoach
 from diffmm_tpu_torch.train.optim import tree_leaves
@@ -160,7 +160,7 @@ def test_reverse_view_matches_jax_with_the_same_noise(rng, compute, dims, tol):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol[0], atol=tol[1])
         k = 6
-        _assert_tables_match(t_topk_table(got, k).numpy(), np.asarray(j_topk_table(want, k, "exact")),
+        _assert_tables_match(catalog_topk(got, k).numpy(), np.asarray(j_topk_table(want, k, "exact")),
                              got.numpy(), tol)
 
 

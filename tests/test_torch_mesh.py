@@ -25,15 +25,17 @@ def _numbers_out(msg: str) -> str:
 def _four_rank_checks():
     """Run on each of 4 gloo ranks: the mesh's shape and coordinates, the
     errors, the placed all-reduce, the batch and block shares, the catalog
-    placement and the model-axis refusal."""
+    placement and the model-axis placements of the parameters."""
     import torch.distributed as dist
 
     from diffmm_tpu_torch.parallel import (
         DATA_AXIS,
         MODEL_AXIS,
         catalog_spec,
+        catalog_range,
         check_batch_divisibility,
         data_shard,
+        denoise_param_shardings,
         edge_shard,
         gcn_param_shardings,
         make_mesh,
@@ -52,8 +54,7 @@ def _four_rank_checks():
     out["names"] = tuple(mesh.mesh_dim_names)
     errors = {}
     for name, call in (("too_many", lambda: make_mesh(5)), ("divide", lambda: make_mesh(4, 3)),
-                       ("batch", lambda: check_batch_divisibility(3, mesh)),
-                       ("a7b", lambda: gcn_param_shardings({"i_embs": torch.zeros(4, 2)}, mesh))):
+                       ("batch", lambda: check_batch_divisibility(3, mesh))):
         try:
             call()
         except (ValueError, NotImplementedError) as e:
@@ -63,6 +64,12 @@ def _four_rank_checks():
     flat = make_mesh(4, model_parallel=1)
     out["flat_shape"] = (axis_size(flat, DATA_AXIS), axis_size(flat, MODEL_AXIS))
     out["replicated"] = gcn_param_shardings({"u_embs": 0, "modal_proj": [{"w": 0}]}, flat)
+    out["gcn_place"] = gcn_param_shardings({"u_embs": torch.zeros(6, 4), "i_embs": torch.zeros(40, 4)}, mesh)
+    out["dn_place"] = denoise_param_shardings(
+        {"in_layers": [{"w": torch.zeros(50, 8), "b": torch.zeros(8)}],
+         "out_layers": [{"w": torch.zeros(8, 40), "b": torch.zeros(40)}],
+         "emb": {"w": torch.zeros(10, 10), "b": torch.zeros(10)}}, mesh)
+    out["catalog_range"] = (catalog_range(40, mesh), catalog_range(39, mesh))
     # placed all-reduce: rank r writes rows [2r, 2r + 2) of an (8, 3) frame
     local = torch.full((2, 3), float(rank + 1)) + torch.arange(3.0)
     out["placed_rows"] = placed_all_reduce(local, 2 * rank, 8, dist.group.WORLD).numpy()
@@ -120,10 +127,37 @@ def test_mesh_errors_match_jax(four_ranks):
 
 
 def test_model_axis_training_names_a7b(four_ranks):
-    """A model axis above 1 in training refuses with ROADMAP.md A7b; a
-    DATAx1 mesh places every parameter replicated."""
-    kind, msg = four_ranks[0]["errors"]["a7b"]
-    assert kind == "NotImplementedError" and "A7b" in msg
+    """Model-axis training (ROADMAP.md A7b) places the parameters as JAX
+    does on the same 2x2 mesh (tests/test_param_sharding.py:31-48):
+    ``i_embs`` rows, the first in-layer's rows, the last out-layer's columns
+    and bias on the model axis, the rest replicated; each rank's catalog
+    range is its model coordinate's half, and an undivided catalog stays
+    whole. A DATAx1 mesh places the narrow parameters replicated."""
+    import jax
+
+    from diffmm_tpu.parallel import MODEL_AXIS, make_mesh
+    from diffmm_tpu.parallel.sharding import denoise_param_shardings, gcn_param_shardings
+
+    j_mesh = make_mesh(4, model_parallel=2)
+    named = {"rows": (MODEL_AXIS,), "cols": (None, MODEL_AXIS), "replicated": ()}
+
+    def spec(sh):
+        s = list(sh.spec)
+        while s and s[-1] is None:
+            s.pop()
+        return tuple(s)
+
+    j_gcn = gcn_param_shardings({"u_embs": np.zeros((6, 4)), "i_embs": np.zeros((40, 4))}, j_mesh)
+    j_dn = denoise_param_shardings(
+        {"in_layers": [{"w": np.zeros((50, 8)), "b": np.zeros(8)}],
+         "out_layers": [{"w": np.zeros((8, 40)), "b": np.zeros(40)}],
+         "emb": {"w": np.zeros((10, 10)), "b": np.zeros(10)}}, j_mesh)
+    for out in four_ranks:
+        for port, jax_tree in ((out["gcn_place"], j_gcn), (out["dn_place"], j_dn)):
+            assert jax.tree.map(lambda p: named[p], port) == jax.tree.map(spec, jax_tree)
+    for out in four_ranks:
+        m = out["coords"][1]
+        assert out["catalog_range"] == ((20 * m, 20 * m + 20), (0, 39))
     assert four_ranks[0]["replicated"] == {"u_embs": "replicated", "modal_proj": [{"w": "replicated"}]}
 
 

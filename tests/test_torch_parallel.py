@@ -18,7 +18,8 @@ The JAX mesh computes the single-device function, and so must the port's:
 * ``train_epoch(0)`` and ``test_epoch`` at world size 2 against world size
   1 within rel 2e-3 / abs 1e-5, the JAX mesh test's tolerance;
 * both ranks' parameters and Adam moments bitwise equal after each step;
-* the batch guard and the model-axis refusal (ROADMAP.md A7b).
+* the batch guard, and a 1x2 mesh's Coach holding its catalog shards
+  (model-axis training itself: tests/test_torch_model_axis.py).
 
 JAX is imported inside the tests only: the spawned ranks import this module
 to find their function, and need torch alone.
@@ -77,7 +78,7 @@ def _state(coach) -> list[np.ndarray]:
     return [t.detach().numpy().copy() for t in out]
 
 
-def _blocks(coach, inp, shard):
+def _blocks(coach, inp, split):
     """One diffusion_block, then one joint_block (the first changes no GCN
     parameter, so both start from ``inp``'s state), with ``inp``'s draws;
     the losses, the metrics and the state after each."""
@@ -91,13 +92,13 @@ def _blocks(coach, inp, shard):
     losses = ts.diffusion_block(
         coach.schedule, coach.dn_params, coach.dn_opt_states, feats, coach.gcn_params["i_embs"],
         coach.data.train_store, t["d_users"], t["d_weights"], LR, coach.hp(), I,
-        t=t["d_t"], noise=t["d_noise"], shard=shard,
+        t=t["d_t"], noise=t["d_noise"], split=split,
     )
     after_diffusion = _state(coach)
     metrics = ts.joint_block(
         coach.gcn_params, coach.gcn_opt_state, coach.data.adj, coach.modal_adjs, coach.data.raw_feats,
         t["users"], t["pos"], t["neg"], LR, coach.hp(), coach.config.base.cl_method,
-        cl_noise=[torch.as_tensor(n) for n in inp["cl_noise"]], shard=shard,
+        cl_noise=[torch.as_tensor(n) for n in inp["cl_noise"]], split=split,
     )
     return {"metrics": metrics.numpy(), "joint_state": _state(coach), "losses": losses.numpy(),
             "diffusion_state": after_diffusion}
@@ -123,7 +124,7 @@ def _rank_work(inputs):
     out = {}
     for form, cl_method in FORMS.items():
         coach = _coach(_config(form, cl_method), mesh)
-        out[f"blocks_{form}"] = _blocks(coach, inputs[form], coach.data_shard)
+        out[f"blocks_{form}"] = _blocks(coach, inputs[form], coach.split)
         out[f"epoch_{form}"] = _epoch(_coach(_config(form, cl_method), mesh))
     # a fused chunk of two epochs against two single epochs, and a checkpoint
     # restored into a new Coach (sparse form, eval on the chunk's boundaries)
@@ -147,13 +148,14 @@ def _rank_work(inputs):
     if dist.get_rank() == 0:
         shutil.rmtree(directory[0])
     errors = {}
-    for name, cfg, m in (("batch", _config("dense", batch=15), mesh),
-                         ("a7b", _config("dense"), make_mesh(2, model_parallel=2))):
-        try:
-            _coach(cfg, m)
-        except (ValueError, NotImplementedError) as e:
-            errors[name] = (type(e).__name__, str(e))
+    try:
+        _coach(_config("dense", batch=15), mesh)
+    except ValueError as e:
+        errors["batch"] = (type(e).__name__, str(e))
     out["errors"] = errors
+    model = _coach(_config("dense"), make_mesh(2, model_parallel=2))
+    out["model_axis"] = (tuple(model.gcn_params["i_embs"].shape), tuple(model.data.adj.mat.shape),
+                         (model.split.lo, model.split.hi))
     return out
 
 
@@ -310,10 +312,14 @@ def test_epoch_and_eval_match_one_rank(setup, form):
 
 
 def test_batch_guard_and_model_axis_refusal(setup):
+    """The batch guard holds on the data axis; a model axis of 2 no longer
+    refuses: its Coach holds its half of the catalog (``i_embs`` rows and
+    the dense block's columns)."""
     _, ranks = setup
     errors = ranks[0]["errors"]
     assert errors["batch"][0] == "ValueError" and "divisible by the data-axis size 2" in errors["batch"][1]
-    assert errors["a7b"][0] == "NotImplementedError" and "A7b" in errors["a7b"][1]
+    for r, out in enumerate(ranks):
+        assert out["model_axis"] == ((I // 2, 16), (U, I // 2), (r * I // 2, (r + 1) * I // 2))
 
 
 def test_fused_chunk_and_checkpoint_on_the_mesh(setup):

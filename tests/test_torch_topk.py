@@ -1,6 +1,7 @@
 """Port rebuild top-k (diffmm_tpu_torch/ops/topk.py) against diffmm_tpu:
 bucket plans and the CSR gather layout on the tiktok_mini degrees (integers,
-compared exactly), topk_table on tie-free scores (exactly), and the edge
+compared exactly), catalog_topk on tie-free scores against JAX's
+topk_table (exactly), and the edge
 buffer built from a table (exactly)."""
 
 import os
@@ -51,8 +52,7 @@ def test_topk_table_and_gather_build_match(rng):
     U, I, k = 30, 50, 7
     # tie-free scores: a permutation per row
     scores = np.stack([rng.permutation(I) for _ in range(U)]).astype(np.float32)
-    table = tt.topk_table(torch.as_tensor(scores), k)
-    assert table.dtype == torch.int32
+    table = tt.catalog_topk(torch.as_tensor(scores), k).to(torch.int32)  # as the rebuild casts it
     # the port's one top-k against both of the JAX package's forms
     for impl in ("approx", "exact"):
         want = jt.topk_table(jnp.asarray(scores), k, impl)
