@@ -58,7 +58,10 @@ exit, no result line):
    and ``test_epoch``, the same records; K4 forward and backward in every
    joint step; no (U, I) tensor.
 10. path G: two epochs on data/tiktok_mini with the configuration of
-    tests/test_regression_mini.py; Recall@20 in that test's band.
+    tests/test_regression_mini.py, Recall@20 in that test's band; four
+    epochs on data/baby_mini with the configuration of
+    tests/test_regression_baby_mini.py, Recall@20 in that test's band
+    (0.006-0.018) at its seed, the seeds 1-5 recorded.
 11. C1 (training repeats bit for bit): two joint_blocks from one saved state
     and one set of draws, dense at E's shape and sparse at F's, equal
     bitwise; a second fresh Coach at E gives path E's two epochs' losses
@@ -93,13 +96,26 @@ exit, no result line):
 19. path M (after resume): path E's index exported, loaded onto the card
     and served over HTTP (``eval/serve_http.py``) on 127.0.0.1: health,
     error paths, 200 requests each equal to a direct ``recommend``; their
-    latencies beside the direct calls'.
-20. profiles (torch.profiler, after every path's host-clock times): A's
+    latencies beside the direct calls'; ``recommend(approx=True)`` equal
+    to ``approx=False`` (ids, scores bitwise) and 20 requests to an
+    ``approx`` server equal to direct calls; the port's serve_bench
+    (``python -m diffmm_tpu_torch.tools.serve_bench``, a subprocess on the
+    card) against that index and a random one at the yelp shape, 2,000
+    requests from 4 clients each, p50/p95/p99 and throughput printed.
+20. path Q (the sweep tool): path B's configuration (data/tiktok_mini,
+    conf/test.toml at full width, batch 256, dense form); a reused-Coach
+    sweep (``tools/sweep.py::_sweep_one``) of ``residual_weight``,
+    ``sampling_step`` and ``train.lr``, two values and one epoch each,
+    bitwise equal to one fresh Coach a value (rows, losses, state); a
+    ``--forked`` sweep of ``hyper.steps`` 5,3 whose rows equal a
+    ``--run-once`` child each; each run's seconds beside a first epoch's
+    (its graph captures) and a second's.
+21. profiles (torch.profiler, after every path's host-clock times): A's
     and C's rebuild + eval, one more joint phase of E at epoch 1's
     learning rate, replayed from its graph and run eagerly, and one more
     joint phase of F replayed; each with its idle share and the shares of
     PyTorch's ``index_select`` and of K4 in its device time.
-21. path N (the mesh, in one spawned NCCL rank): E's and F's data and
+22. path N (the mesh, in one spawned NCCL rank): E's and F's data and
     settings, two epochs, each with ``test_epoch``, on a 1x1 mesh, the steps
     captured with their all-reduces inside, bitwise the Coach without a
     mesh (losses, metrics, parameters, moments, edge buffers, generator),
@@ -108,7 +124,7 @@ exit, no result line):
     ``segsum_gather``, timed per rank, with its all-reduce, bound and
     library; ``recommend(mesh)`` at model 1 bitwise the plain call; F's
     blocks of path O; the gradient all-reduce's time a step.
-22. path O (two spawned gloo ranks on the one card, eager steps; a
+23. path O (two spawned gloo ranks on the one card, eager steps; a
     correctness path: its times are not speed figures): E's settings, one
     epoch and ``test_epoch``, twice (the ranks and the runs bitwise equal,
     the difference from N recorded); E's and F's settings, one
@@ -121,7 +137,7 @@ exit, no result line):
     ``recommend`` over E's index at model 2 (ids equal, scores within
     1e-5) and 20 requests to the two-shard HTTP server against direct
     calls; each rank's seconds, peak memory and Coach state.
-23. path P (model-axis training: two spawned gloo ranks on the one card, a
+24. path P (model-axis training: two spawned gloo ranks on the one card, a
     1x2 mesh, eager steps; a correctness path like O): E's settings, one
     diffusion_block and three joint_blocks from path N's state and draws
     (K1 on each rank's (U, I/2) block, K2's partial product summed over the
@@ -1559,10 +1575,46 @@ def _mini_recall(dev, host, seed: int, **settings) -> tuple[dict, list]:
     return coach.test_epoch(), losses
 
 
+# The JAX package's baby_mini bar (tests/test_regression_baby_mini.py:27-51):
+# Recall@20 after four epochs on data/baby_mini (both feature blobs
+# synthesised, svd) at seed 1818; the seeds around it recorded.
+BABY_BAND = (0.006, 0.018)
+BABY_SEEDS = tuple(range(1, 6))
+
+
+def _baby_recall(dev, host, seed: int) -> dict:
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.utils.logging import NullLog
+
+    cfg = _baby_config()
+    cfg.base.seed = seed
+    coach = Coach(cfg, host, device=dev, log=NullLog())
+    for epoch in range(4):
+        coach.train_epoch(epoch)
+    return coach.test_epoch()
+
+
+def _baby_config():
+    from diffmm_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.data.name = "baby_mini"
+    cfg.data.missing_modalities = "svd"
+    cfg.base.latdim = 32
+    cfg.base.denoise_dim = "[64]"
+    cfg.train.batch = 512
+    cfg.train.test_batch = 512
+    cfg.train.epoch = 4
+    return cfg
+
+
 def phase_path_g(dev) -> dict:
     """Two epochs on data/tiktok_mini with the configuration of
     tests/test_regression_mini.py on the card: Recall@20 at seed 1818 in
-    RECALL_BAND; the other seeds' recorded."""
+    RECALL_BAND; the other seeds' recorded. Then four epochs on
+    data/baby_mini with the configuration of
+    tests/test_regression_baby_mini.py: Recall@20 at seed 1818 in
+    BABY_BAND; BABY_SEEDS' recorded."""
     from diffmm_tpu_torch.config import Config
     from diffmm_tpu_torch.data.loader import load_host_data
 
@@ -1574,9 +1626,18 @@ def phase_path_g(dev) -> dict:
     rec = {"losses": losses, "metrics": metrics, "band": list(RECALL_BAND),
            "wall_s": time.perf_counter() - t0,
            "other_seeds_recall": {s: _mini_recall(dev, host, s)[0]["Recall"] for s in G_SEEDS}}
+    baby_host = load_host_data(_baby_config(), data_root=os.path.join(REPO, "data"))
+    check((baby_host.user_num, baby_host.item_num) == (2000, 7050) and baby_host.synthesized == ["image", "text"],
+          f"G baby_mini {baby_host.user_num} x {baby_host.item_num}, synthesised {baby_host.synthesized}")
+    t0 = time.perf_counter()
+    baby = _baby_recall(dev, baby_host, 1818)
+    rec["baby_mini"] = {"metrics": baby, "band": list(BABY_BAND), "wall_s": time.perf_counter() - t0,
+                        "other_seeds_recall": {s: _baby_recall(dev, baby_host, s)["Recall"] for s in BABY_SEEDS}}
     print(f"[path G] {json.dumps(rec)}")
     check(RECALL_BAND[0] <= metrics["Recall"] <= RECALL_BAND[1],
           f"G Recall@20 {metrics['Recall']} outside {RECALL_BAND}")
+    check(BABY_BAND[0] <= baby["Recall"] <= BABY_BAND[1],
+          f"G baby_mini Recall@20 {baby['Recall']} outside {BABY_BAND}")
     return rec
 
 
@@ -1813,13 +1874,68 @@ def _http_get(url):
         return e.code, json.loads(e.read())
 
 
+# the port's serve_bench at path M: requests, client threads, and the yelp
+# shape's random index beside E's exported one
+BENCH_REQUESTS, BENCH_CLIENTS = 2000, 4
+BENCH_SYNTHETIC = f"synthetic:{YELP['user_num']},{YELP['item_num']},64"
+
+
+def _serve_bench(index: str) -> dict:
+    """``python -m diffmm_tpu_torch.tools.serve_bench`` on the card against
+    ``index`` (a path or ``synthetic:U,I,d``): its JSON line."""
+    cmd = [sys.executable, "-m", "diffmm_tpu_torch.tools.serve_bench", index, "--requests",
+           str(BENCH_REQUESTS), "--clients", str(BENCH_CLIENTS), "--k", "20"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"M serve_bench {index}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.perf_counter() - t0
+    check(out["requests"] == BENCH_REQUESTS and out["device"] == "cuda"
+          and out["p99_ms"] >= out["p95_ms"] >= out["p50_ms"] > 0 and out["throughput_rps"] > 0,
+          f"M serve_bench {index}: {out}")
+    return out
+
+
+def _approx_checks(dev, index, users: list, base_url_of) -> dict:
+    """``recommend(approx=True)`` against ``approx=False`` on the card (ids
+    equal, scores bitwise) at several k and both mask modes, and 20
+    requests to an ``--approx`` server, each equal to a direct
+    ``approx=True`` call."""
+    import torch
+
+    from diffmm_tpu_torch.eval import serving
+
+    batch = torch.tensor(users, dtype=torch.int32, device=dev)
+    same = []
+    for k in (1, 20, 100):
+        for mask_seen in (True, False):
+            exact = serving.recommend(index, batch, k, mask_seen)
+            approx = serving.recommend(index, batch, k, mask_seen, approx=True)
+            same.append(torch.equal(exact[0], approx[0]) and torch.equal(exact[1], approx[1]))
+    served = []
+    with base_url_of(approx=True) as base:
+        for u in users[:20]:
+            code, body = _http_get(base + f"/recommend?user={u}&k=20")
+            ids, scores = serving.recommend(index, torch.tensor([u], dtype=torch.int32, device=dev), 20,
+                                            approx=True)
+            served.append(code == 200 and body["items"] == ids[0].tolist() and body["scores"] == scores[0].tolist())
+    rec = {"recommend_bitwise_exact": all(same), "cases": len(same), "served_equal_direct": served.count(True)}
+    check(all(same), f"M: recommend(approx=True) differs from approx=False: {same}")
+    check(all(served) and len(served) == 20, f"M: --approx server answers differ from direct calls: {served}")
+    return rec
+
+
 def phase_path_m(dev, coach_e, report_dir: str) -> dict:
     """Path M: path E's index exported, loaded onto the card and served over
     HTTP on 127.0.0.1 (``eval/serve_http.py``, warmup k=20) in a thread:
     /health, the error paths, and 200 single-user ``/recommend?k=20``
     requests, each equal to a direct ``recommend`` (ids, scores bitwise);
     host-clock latencies of the requests (the first one, on a fresh server
-    thread, apart) and of the direct calls (each ending in its host read)."""
+    thread, apart) and of the direct calls (each ending in its host read).
+    Then ``approx`` (``_approx_checks``), and the port's serve_bench as a
+    subprocess on the card against the exported index and against a random
+    index at the yelp shape."""
+    import contextlib
     import threading
 
     import numpy as np
@@ -1830,31 +1946,38 @@ def phase_path_m(dev, coach_e, report_dir: str) -> dict:
     path = os.path.join(report_dir, "index_E.npz")
     serving.save_index(serving.build_index(coach_e), path)
     index = serving.load_index(path)  # onto the card
-    os.remove(path)
     check(index.u_final.device.type == "cuda", "M: the index is not on the card")
+
+    @contextlib.contextmanager
+    def serving_at(**kwargs):
+        """A server over ``index`` on a free port in a thread, shut down and
+        joined on leaving."""
+        srv = serve_http.make_server(index, "127.0.0.1", 0, warmup_ks=[20], **kwargs)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            yield f"http://127.0.0.1:{srv.server_address[1]}"
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join()
     U, I = index.u_final.shape[0], index.i_final.shape[0]
-    srv = serve_http.make_server(index, "127.0.0.1", 0, warmup_ks=[20])
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{srv.server_address[1]}"
-    health = _http_get(base + "/health")
-    errors = [_http_get(base + q)[0] for q in
-              ("/recommend", f"/recommend?user={U}&k=20", "/recommend?user=1&k=0", "/nope")]
     gen = torch.Generator().manual_seed(20)
     users = torch.randint(0, U, (200,), generator=gen).tolist()
     http_s, direct_s, same = [], [], []
-    for u in users:
-        t0 = time.perf_counter()
-        code, body = _http_get(base + f"/recommend?user={u}&k=20")
-        http_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        ids, scores = serving.recommend(index, torch.tensor([u], dtype=torch.int32, device=dev), 20)
-        ids, scores = ids[0].tolist(), scores[0].tolist()
-        direct_s.append(time.perf_counter() - t0)
-        same.append(code == 200 and body["items"] == ids and body["scores"] == scores)
-    srv.shutdown()
-    srv.server_close()
-    thread.join()
+    with serving_at() as base:
+        health = _http_get(base + "/health")
+        errors = [_http_get(base + q)[0] for q in
+                  ("/recommend", f"/recommend?user={U}&k=20", "/recommend?user=1&k=0", "/nope")]
+        for u in users:
+            t0 = time.perf_counter()
+            code, body = _http_get(base + f"/recommend?user={u}&k=20")
+            http_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ids, scores = serving.recommend(index, torch.tensor([u], dtype=torch.int32, device=dev), 20)
+            ids, scores = ids[0].tolist(), scores[0].tolist()
+            direct_s.append(time.perf_counter() - t0)
+            same.append(code == 200 and body["items"] == ids and body["scores"] == scores)
     pct = lambda xs, q: float(np.percentile(np.asarray(xs) * 1e3, q))  # noqa: E731
     rec = {
         "index": [U, I],
@@ -1870,7 +1993,143 @@ def phase_path_m(dev, coach_e, report_dir: str) -> dict:
     check(health[0] == 200 and health[1] == {"status": "ok", "users": U, "items": I}, f"M health {health}")
     check(errors == [400, 400, 400, 404], f"M error codes {errors}")
     check(all(same), f"M: {same.count(False)} responses differ from the direct call")
+    rec["approx"] = _approx_checks(dev, index, users, serving_at)
+    rec["serve_bench"] = {"E_index": _serve_bench(path), BENCH_SYNTHETIC: _serve_bench(BENCH_SYNTHETIC)}
+    os.remove(path)
+    for name, out in rec["serve_bench"].items():
+        print(f"[path M] serve_bench {name} ({out['users']} x {out['items']}): p50 {out['p50_ms']} ms, "
+              f"p95 {out['p95_ms']} ms, p99 {out['p99_ms']} ms, {out['throughput_rps']} requests/s")
     print(f"[path M] {json.dumps(rec)}")
+    return rec
+
+
+# ------------------------------------------------------- Q: the sweep tool
+# path Q's reused-Coach sweeps: a hyper the captured steps read as a float,
+# a key of the rebuild's graphs, and the learning rate (device scalars made
+# every epoch); and the forked sweep of a structural knob
+Q_SWEEPS = (("residual_weight", [0.5, 0.2]), ("sampling_step", [0, 1]), ("train.lr", [0.001, 0.003]))
+Q_FORKED = ("hyper.steps", [5, 3])
+
+
+def _recorded(coach, losses: list, seconds: list) -> None:
+    """Wrap ``coach``'s ``train_epoch`` and ``run``: each epoch's losses go
+    to ``losses``, each run's wall seconds (its captures and eval
+    included) to ``seconds``."""
+    train_epoch, run = coach.train_epoch, coach.run
+
+    def record_epoch(epoch, fence=False):
+        losses.append(train_epoch(epoch, fence))
+        return losses[-1]
+
+    def timed_run(*args, **kwargs):
+        t0 = time.perf_counter()
+        best = run(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return best
+
+    coach.train_epoch, coach.run = record_epoch, timed_run
+
+
+def _q_reused_vs_fresh(dev, cfg, host, param: str, values: list) -> dict:
+    """``_sweep_one`` of ``param`` over ``values``, one epoch each, on one
+    Coach (reset before the second value) against one fresh Coach a value:
+    rows (best metrics), epoch losses and the last value's parameters
+    bitwise equal; the two values' losses differ (the value reached the
+    steps)."""
+    import copy
+
+    import torch
+
+    from diffmm_tpu_torch.tools import sweep
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.train.optim import tree_leaves
+    from diffmm_tpu_torch.utils.logging import NullLog
+
+    reused_cfg = copy.deepcopy(cfg)
+    reused = Coach(reused_cfg, host, device=dev, log=NullLog())
+    losses, seconds = {"reused": [], "fresh": []}, {"reused": [], "fresh": []}
+    _recorded(reused, losses["reused"], seconds["reused"])
+    rows = sweep._sweep_one(reused, reused_cfg, NullLog(), param, values, epochs=1, fresh=False)
+    fresh_rows = []
+    for value in values:
+        fresh_cfg = copy.deepcopy(cfg)
+        obj, key = sweep._resolve(fresh_cfg, param)
+        setattr(obj, key, value)
+        fresh = Coach(fresh_cfg, host, device=dev, log=NullLog())
+        _recorded(fresh, losses["fresh"], seconds["fresh"])
+        fresh_rows.append({param: value, **fresh.run(epochs=1)})
+    leaves = lambda c: tree_leaves([c.gcn_params, c.dn_params, c.gcn_opt_state.mu])  # noqa: E731
+    rec = {"values": values, "rows": rows, "rows_equal_fresh": rows == fresh_rows,
+           "losses_equal_fresh": losses["reused"] == losses["fresh"],
+           "last_state_bitwise": all(torch.equal(a, b) for a, b in zip(leaves(reused), leaves(fresh))),
+           "losses_differ_by_value": losses["reused"][0] != losses["reused"][1],
+           "run_s": seconds}
+    check(rec["rows_equal_fresh"] and rec["losses_equal_fresh"] and rec["last_state_bitwise"]
+          and rec["losses_differ_by_value"],
+          f"Q: a reused-Coach sweep of {param} differs from fresh Coaches: {rec} (fresh rows {fresh_rows}, "
+          f"losses {losses})")
+    return rec
+
+
+def _sweep_cli(report_dir: str, *args) -> dict:
+    """``python -m diffmm_tpu_torch.tools.sweep`` on the card at path Q's
+    configuration (B's: data/tiktok_mini, conf/test.toml, batch 256), one
+    epoch: the JSON it writes, and its seconds."""
+    out = os.path.join(report_dir, "sweep_q.json")
+    cmd = [sys.executable, "-m", "diffmm_tpu_torch.tools.sweep", "-c", os.path.join(REPO, "conf", "test.toml"),
+           "--epochs", "1", "--set", "data.name=tiktok_mini", "--set", "train.batch=256",
+           "--data-root", os.path.join(REPO, "data"), "--out", out, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"Q: sweep {args}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    with open(out) as fh:
+        doc = json.load(fh)
+    os.remove(out)
+    return {"doc": doc, "seconds": seconds}
+
+
+def phase_path_q(dev, report_dir: str) -> dict:
+    """Path Q: the port's sweep tool on the card at path B's configuration
+    (dense form, full width). Each of Q_SWEEPS on a reused Coach against
+    fresh Coaches (``_q_reused_vs_fresh``), with every kernel counter set to
+    0 just before and read just after (K1-K4 launched, the unfused K4 not);
+    a first fresh Coach's first epoch (its graphs captured) beside its
+    second; then a ``--forked`` sweep of Q_FORKED, whose two rows each
+    equal a ``--run-once`` child of that value."""
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.utils.logging import NullLog
+
+    cfg, host = _tiktok_mini(sparse=False)
+    coach = Coach(cfg, host, device=dev, log=NullLog())
+    epoch_s = []
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        coach.train_epoch(epoch, fence=True)
+        epoch_s.append(time.perf_counter() - t0)
+    check(coach.dense_graphs, "Q: not the dense form")
+    del coach
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+    sweeps = {param: _q_reused_vs_fresh(dev, cfg, host, param, values) for param, values in Q_SWEEPS}
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
+    check(all(launches[k] > 0 for k in ("spmm_dual", K2_ENTRY, "denoise_layer2", "segsum"))
+          and launches["segsum_unfused"] == 0, f"Q launches {launches}")
+    param, values = Q_FORKED
+    forked = _sweep_cli(report_dir, "--forked", "--param", param, "--values", ",".join(map(str, values)))
+    once = [_sweep_cli(report_dir, "--run-once", "--set", f"{param}={v}") for v in values]
+    rows = forked["doc"]["results"]
+    rows_equal = [{k: v for k, v in row.items() if k != param} == o["doc"] for row, o in zip(rows, once)]
+    rec = {"first_epochs_s": epoch_s, "sweeps": sweeps, "launches": launches,
+           "forked": {"param": param, "rows": rows, "rows_equal_run_once": rows_equal,
+                      "seconds": forked["seconds"], "run_once_seconds": [o["seconds"] for o in once]}}
+    print(f"[path Q] first fresh Coach: epoch 0 {epoch_s[0]:.4f} s (graphs captured), epoch 1 {epoch_s[1]:.4f} s; "
+          + "; ".join(f"{p}: runs {r['run_s']}" for p, r in sweeps.items())
+          + f"; forked {forked['seconds']:.1f} s, run-once children {rec['forked']['run_once_seconds']}")
+    print(f"[path Q] {json.dumps(rec)}")
+    check([row[param] for row in rows] == values and all("error" not in row for row in rows) and all(rows_equal),
+          f"Q: forked sweep {rows} against run-once children {[o['doc'] for o in once]}")
     return rec
 
 
@@ -2875,6 +3134,7 @@ def main(argv=None) -> int:
                                     args.report_dir)
     del twin
     report["path_M"] = phase_path_m(dev, coach_e, args.report_dir)
+    report["path_Q"] = phase_path_q(dev, args.report_dir)
     report["profile_A"] = phase_profile(_rebuild_and_eval(coach_a), "A", args.report_dir)
     report["profile_C"] = phase_profile(_rebuild_and_eval(coach_c), "C", args.report_dir)
     report["profile_E_joint"] = phase_profile(_joint_phase_work(coach_e, 1), "E_joint", args.report_dir)

@@ -206,8 +206,8 @@ def check_slice_support(config: Config) -> None:
     (f32|bf16) and ``train.dense_store`` (int8|bf16|int4); a denoiser of any
     depth, ``hyper.use_knn_adj`` and ``train.donate_buffers`` take any
     value. The other settings' values are checked by the code that reads
-    them, as in the JAX package. Only the CLI's ``--mesh`` and
-    ``--distributed`` still refuse (ROADMAP.md A7)."""
+    them, as in the JAX package. The CLI's ``--mesh`` and ``--distributed``
+    check the mesh against the world size (``cli.py``)."""
     for name, allowed in (
         ("base.denoise_param_dtype", ("f32", "bf16")),
         ("train.rebuild_compute", ("f32", "bf16")),

@@ -1,7 +1,7 @@
 """Minimal HTTP serving front end over an exported recommendation index.
 
     python -m diffmm_tpu_torch.eval.serve_http index.npz --port 8188 [--warmup 10,20]
-    python -m diffmm_tpu_torch.eval.serve_http index.npz --device cpu
+    python -m diffmm_tpu_torch.eval.serve_http index.npz --device cpu [--approx]
     torchrun --nproc_per_node M -m diffmm_tpu_torch.eval.serve_http index.npz --model-shards M
 
     GET /health            -> {"status": "ok", "users": U, "items": I}
@@ -16,8 +16,11 @@ given; without a card the server stops with an error, it does not move to
 the CPU. Each request runs on a new host thread, which takes the index's
 device first; the first product on a thread also creates that thread's
 cuBLAS handle, a cost ``--warmup`` (run on the main thread) cannot take
-ahead. ``--approx`` refuses: the port has no approximate top-k (ROADMAP.md
-A5).
+ahead. ``--approx`` is the JAX package's ``approx_max_k`` (recall target
+0.95), which off the TPU is the exact top-k; the port serves that exact
+top-k (``eval/serving.py``), so ``--approx`` answers as the JAX package's
+server does on any backend but the TPU. It is a server-wide setting: under
+``--model-shards`` every rank takes it at startup.
 
 ``--model-shards M`` (JAX ``serve_http.py:92-124``) serves the catalog in
 M shards, one a rank of a group of M processes started by ``torchrun
@@ -52,12 +55,13 @@ class ShardedRecommender:
     collectives in the same order) it broadcasts the request's header
     ``(go=1, B, k, mask_seen)`` and user ids to the axis, whose other ranks
     run :func:`follow`, then runs its own part of ``recommend``.
-    :meth:`stop` sends ``go=0``."""
+    :meth:`stop` sends ``go=0``. ``approx`` is the server's, the same on
+    every rank (:func:`follow` takes it at startup)."""
 
-    def __init__(self, index: RecIndex, mesh):
+    def __init__(self, index: RecIndex, mesh, approx: bool = False):
         from diffmm_tpu_torch.parallel.mesh import MODEL_AXIS
 
-        self.index, self.mesh = index, mesh
+        self.index, self.mesh, self.approx = index, mesh, approx
         self.group = mesh.get_group(MODEL_AXIS)
         self.lock = threading.Lock()
 
@@ -70,7 +74,7 @@ class ShardedRecommender:
             dist.broadcast(header, dist.get_global_rank(self.group, 0), group=self.group)
             users = users.to(device=dev, dtype=torch.int64).contiguous()
             dist.broadcast(users, dist.get_global_rank(self.group, 0), group=self.group)
-            return recommend(self.index, users, k, mask_seen, self.mesh)
+            return recommend(self.index, users, k, mask_seen, mesh=self.mesh, approx=self.approx)
 
     def stop(self) -> None:
         import torch.distributed as dist
@@ -80,10 +84,10 @@ class ShardedRecommender:
             dist.broadcast(header, dist.get_global_rank(self.group, 0), group=self.group)
 
 
-def follow(index: RecIndex, mesh) -> int:
+def follow(index: RecIndex, mesh, approx: bool = False) -> int:
     """The loop of a model rank other than 0: take each broadcast request
-    and run its part of ``recommend``, until rank 0's stop. Returns the
-    number of requests served."""
+    and run its part of ``recommend`` (with the server's ``approx``), until
+    rank 0's stop. Returns the number of requests served."""
     import torch.distributed as dist
 
     from diffmm_tpu_torch.parallel.mesh import MODEL_AXIS
@@ -100,14 +104,15 @@ def follow(index: RecIndex, mesh) -> int:
             return served
         users = torch.empty(batch, dtype=torch.int64, device=dev)
         dist.broadcast(users, src, group=group)
-        recommend(index, users, k, bool(mask_seen), mesh)
+        recommend(index, users, k, bool(mask_seen), mesh=mesh, approx=approx)
         served += 1
 
 
-def make_handler(index: RecIndex, recommender=None):
-    """The request handler class over ``index``; ``recommender`` (a
-    :class:`ShardedRecommender`) answers in place of a direct
-    ``recommend``."""
+def make_handler(index: RecIndex, recommender=None, approx: bool = False):
+    """The request handler class over ``index`` (JAX ``make_handler``):
+    each request one ``recommend`` with ``approx``; ``recommender`` (a
+    :class:`ShardedRecommender`, which carries its own ``approx``) answers
+    in place of a direct ``recommend``."""
     user_num = int(index.u_final.shape[0])
     item_num = _catalog(index)
     dev = index.u_final.device
@@ -146,7 +151,7 @@ def make_handler(index: RecIndex, recommender=None):
             with on_dev:
                 users = torch.tensor([user], dtype=torch.int32, device=dev)
                 if recommender is None:
-                    ids, scores = recommend(index, users, k, mask_seen)
+                    ids, scores = recommend(index, users, k, mask_seen, approx=approx)
                 else:
                     ids, scores = recommender(users, k, mask_seen)
                 ids, scores = ids[0].tolist(), scores[0].tolist()
@@ -156,14 +161,15 @@ def make_handler(index: RecIndex, recommender=None):
 
 
 def make_server(index: RecIndex, host: str = "127.0.0.1", port: int = 8188,
-                warmup_ks: list[int] | None = None, recommender=None) -> ThreadingHTTPServer:
+                warmup_ks: list[int] | None = None, recommender=None,
+                approx: bool = False) -> ThreadingHTTPServer:
     """A server over ``index`` on ``(host, port)`` (port 0: any free one),
     after a warmup of ``warmup_ks`` when given (on a mesh every rank warms
     up at once, before rank 0 makes its server); ``serve_forever`` starts
-    it. ``recommender``: see :func:`make_handler`."""
+    it. ``recommender``, ``approx``: see :func:`make_handler`."""
     if warmup_ks and recommender is None:
-        warmup(index, warmup_ks)
-    return ThreadingHTTPServer((host, port), make_handler(index, recommender))
+        warmup(index, warmup_ks, approx=approx)
+    return ThreadingHTTPServer((host, port), make_handler(index, recommender, approx))
 
 
 def main(argv=None) -> int:
@@ -174,7 +180,8 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="cuda (the default; needs a card) or cpu")
     parser.add_argument("--approx", action="store_true",
-                        help="not ported: the port has no approximate top-k (ROADMAP.md A5)")
+                        help="the JAX package's approx_max_k (recall target 0.95); off the TPU "
+                        "that is the exact top-k, which the port serves")
     parser.add_argument("--model-shards", type=int, default=1, metavar="M",
                         help="serve the catalog in M shards over the M ranks of torchrun "
                         "--nproc_per_node M (exact distributed top-k; M must divide the catalog, "
@@ -182,15 +189,13 @@ def main(argv=None) -> int:
     parser.add_argument("--warmup", default=None, metavar="K1,K2,...",
                         help="run these k values once (both mask modes) before accepting requests")
     args = parser.parse_args(argv)
-    if args.approx:
-        raise NotImplementedError("--approx: the port has no approximate top-k (ROADMAP.md A5)")
     ks = [int(v) for v in args.warmup.split(",")] if args.warmup else None
     if args.model_shards > 1:
         return serve_sharded(args, ks)
     index = load_index(args.index, device=args.device)
     if ks:
         print(f"warming up k={ks} ...", flush=True)
-    server = make_server(index, args.host, args.port, ks)
+    server = make_server(index, args.host, args.port, ks, approx=args.approx)
     print(f"serving ({index.u_final.shape[0]}, {index.i_final.shape[0]}) index on "
           f"http://{args.host}:{server.server_address[1]} ({index.u_final.device})", flush=True)
     try:
@@ -228,11 +233,11 @@ def serve_sharded(args, ks: list[int] | None) -> int:
     if ks:
         if rank == 0:
             print(f"warming up k={ks} ...", flush=True)
-        warmup(index, ks, mesh)
+        warmup(index, ks, mesh, approx=args.approx)
     if rank != 0:
-        follow(index, mesh)
+        follow(index, mesh, approx=args.approx)
         return 0
-    recommender = ShardedRecommender(index, mesh)
+    recommender = ShardedRecommender(index, mesh, approx=args.approx)
     server = make_server(index, args.host, args.port, recommender=recommender)
     print(f"serving ({index.u_final.shape[0]}, {_catalog(index)}) index in {m} catalog shards on "
           f"http://{args.host}:{server.server_address[1]} ({index.u_final.device})", flush=True)

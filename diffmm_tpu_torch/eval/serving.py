@@ -5,9 +5,16 @@ embeddings with the train-seen lists as user-major CSR (O(nnz)), then
 answer per-user top-k queries with one matmul and an exact top-k, seen
 items masked like eval (reference `Main.py:410`). The npz format is the
 same, so an index exported by either package loads in the other. The JAX
-package's compile lock and ``approx`` top-k have no counterpart here (a
-request compiles nothing; :func:`warmup` runs each k once, so cuBLAS's
-and the allocator's first-use costs fall before the first request).
+package's compile lock has no counterpart here (a request compiles
+nothing; :func:`warmup` runs each k once, so cuBLAS's and the allocator's
+first-use costs fall before the first request).
+
+``approx=True`` is the JAX package's ``jax.lax.approx_max_k`` at
+``recall_target=0.95``. That function is a TPU bucketed top-k; on every
+other backend it returns the exact top-k (the ids and values of
+``lax.top_k``). Off the TPU, then, ``approx`` does not change what the JAX
+package serves, and the port computes that same function: the exact
+``torch.topk``, recall 1 against a contract of at least 0.95.
 
 On a mesh with a model axis (JAX ``_make_recommend_sharded``,
 ``place_index``, ``recommend(mesh=)``, ``serving.py:133-306``) each model
@@ -72,6 +79,7 @@ def _model_axis(mesh) -> tuple[int, int, object]:
 
 def recommend(
     index: RecIndex, users: torch.Tensor, k: int, mask_seen: bool = True, mesh=None,
+    approx: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-``k`` items (ids, scores) for a batch of user ids.
 
@@ -87,7 +95,12 @@ def recommend(
     top-k: exact, the replicated call's ids. A catalog the axis does not
     divide, or a padded k above the shard width, takes the replicated
     call, as in the JAX package; a placed index first brings its rows
-    together for it (a placed all-reduce)."""
+    together for it (a placed all-reduce).
+
+    ``approx``: the JAX package's ``approx_max_k`` (recall target 0.95),
+    replicated and per shard. Off the TPU that is the exact top-k, which
+    every top-k here already is (module docstring): the answer equals the
+    ``approx=False`` one."""
     item_num = _catalog(index)
     k = int(k)
     if not 1 <= k <= item_num:
@@ -153,20 +166,17 @@ def place_index(index: RecIndex, mesh) -> RecIndex:
     return index._replace(i_final=index.i_final[r * width:(r + 1) * width].clone(), item_num=item_num)
 
 
-def warmup(index: RecIndex, ks: list[int] | None = None, mesh=None) -> None:
+def warmup(index: RecIndex, ks: list[int] | None = None, mesh=None, approx: bool = False) -> None:
     """Run :func:`recommend` once for each ``k`` (default 20) and both mask
     modes on a single-user request and wait for the card (JAX ``warmup``,
     which compiles the variants): the first request of each k pays no
     first-use cost of its own. A new host thread still pays for its cuBLAS
     handle on its first product, which a warmup on another thread cannot
-    cover."""
+    cover. ``approx`` as the server's requests will take it."""
     users = torch.zeros((1,), dtype=torch.int32, device=index.u_final.device)
     for k in ks or [20]:
         for mask_seen in (True, False):
-            if mesh is None:
-                recommend(index, users, k, mask_seen)
-            else:
-                recommend(index, users, k, mask_seen, mesh)
+            recommend(index, users, k, mask_seen, mesh=mesh, approx=approx)
     if index.u_final.device.type == "cuda":
         torch.cuda.synchronize(index.u_final.device)
 

@@ -42,7 +42,8 @@ def test_module_walk_finds_the_training_slice():
                  "diffmm_tpu_torch.train.steps", "diffmm_tpu_torch.data.sampling",
                  "diffmm_tpu_torch.utils.profiling", "diffmm_tpu_torch.ops.gather",
                  "diffmm_tpu_torch.train.graphs", "diffmm_tpu_torch.utils.checkpoint",
-                 "diffmm_tpu_torch.ops.knn", "diffmm_tpu_torch.eval.serve_http"):
+                 "diffmm_tpu_torch.ops.knn", "diffmm_tpu_torch.eval.serve_http",
+                 "diffmm_tpu_torch.tools.sweep", "diffmm_tpu_torch.tools.serve_bench"):
         assert name in MODULES
 
 

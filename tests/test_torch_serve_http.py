@@ -122,9 +122,9 @@ def test_warmup_runs_each_k_and_mask_mode(monkeypatch, index):
     calls = []
     real = serving.recommend
 
-    def spy(idx, users, k, mask_seen=True):
+    def spy(idx, users, k, mask_seen=True, **kwargs):
         calls.append((tuple(users.shape), k, mask_seen))
-        return real(idx, users, k, mask_seen)
+        return real(idx, users, k, mask_seen, **kwargs)
 
     monkeypatch.setattr(serving, "recommend", spy)
     serving.warmup(index, [7, 20])
@@ -137,8 +137,6 @@ def test_warmup_runs_each_k_and_mask_mode(monkeypatch, index):
 def test_main_refuses_what_the_port_lacks(tmp_path, index, monkeypatch):
     path = str(tmp_path / "idx.npz")
     serving.save_index(index, path)
-    with pytest.raises(NotImplementedError, match="A5"):
-        serve_http.main([path, "--device", "cpu", "--approx"])
     # shards need their ranks (torchrun --nproc_per_node 2); none started here
     with pytest.raises(ValueError, match="--model-shards 2 needs 2 ranks"):
         serve_http.main([path, "--device", "cpu", "--model-shards", "2"])
