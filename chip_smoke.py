@@ -78,22 +78,35 @@ exit, no result line):
     a replayed epoch).
 14. resume: save after epoch 0, restore into a new Coach, train epoch 1:
     bitwise the twin's uninterrupted epoch 1.
-15. path I (after A): path A with ``train.dense_store="int4"`` (packed
+15. path R (the measuring programs, after H and before any profile):
+    (a) the port's bench (``diffmm_tpu_torch.bench.main --synthetic
+    tiktok``, in this process, 3 single epochs, fused chunks of 2): the
+    JAX bench's keys, every time above 0, the sparse rows on the CSR store,
+    the roofline fraction in (0, 1.05], each kernel launched (K1 in the
+    dense rows, K2/K3 in both rebuilds, K4 in the sparse rows and the loss
+    gathers); (b) a sparse Coach at tiktok's shape with bf16 messages, a
+    fused chunk of two epochs bitwise a twin's two single epochs; (c) one
+    sparse diffusion_block and joint_block with bf16 messages on the card
+    against the CPU (bf16 tolerance); (d) each probe of
+    ``diffmm_tpu_torch/tools/`` once in a subprocess at small counts
+    (scale_probe at the yelp shape, store_ab_probe, fused_overhead_probe,
+    joint_profile on both forms), its line parsed with the JAX tool's keys.
+16. path I (after A): path A with ``train.dense_store="int4"`` (packed
     blocks, K1's int4 read): edge buffers, embeddings and metrics bitwise
     A's.
-16. path J (after E): path E with ``train.dense_store="int4"``: its epoch-1
+17. path J (after E): path E with ``train.dense_store="int4"``: its epoch-1
     loss bitwise E's (K1's int4 plan is its int8 plan), its memory beside
     E's and the blocks' expected saving, a third epoch, the in-place block
     rebuild timed beside E's.
-17. path K (after G): path E's data with the KNN ablation (``hyper.
+18. path K (after G): path E's data with the KNN ablation (``hyper.
     use_knn_adj``, knn_topk 10), one epoch: no rebuild, ``rebuild_graphs``
     refuses, K1 and K4 launches a joint step as counted, the KNN graphs
     against their plain version (K4 prototypes, top-k outside ties).
-18. path L: path E's data, one epoch each with bf16 denoisers (K2/K3 as in
+19. path L: path E's data, one epoch each with bf16 denoisers (K2/K3 as in
     E) and with the bf16 rebuild of a [1024, 1024] denoiser (no K2/K3), on
     captured graphs, one more epoch of each with no host sync; path G's run
     at seed 1818 under each of G_KNOBS, Recall@20 recorded.
-19. path M (after resume): path E's index exported, loaded onto the card
+20. path M (after R): path E's index exported, loaded onto the card
     and served over HTTP (``eval/serve_http.py``) on 127.0.0.1: health,
     error paths, 200 requests each equal to a direct ``recommend``; their
     latencies beside the direct calls'; ``recommend(approx=True)`` equal
@@ -102,7 +115,7 @@ exit, no result line):
     (``python -m diffmm_tpu_torch.tools.serve_bench``, a subprocess on the
     card) against that index and a random one at the yelp shape, 2,000
     requests from 4 clients each, p50/p95/p99 and throughput printed.
-20. path Q (the sweep tool): path B's configuration (data/tiktok_mini,
+21. path Q (the sweep tool): path B's configuration (data/tiktok_mini,
     conf/test.toml at full width, batch 256, dense form); a reused-Coach
     sweep (``tools/sweep.py::_sweep_one``) of ``residual_weight``,
     ``sampling_step`` and ``train.lr``, two values and one epoch each,
@@ -110,12 +123,12 @@ exit, no result line):
     ``--forked`` sweep of ``hyper.steps`` 5,3 whose rows equal a
     ``--run-once`` child each; each run's seconds beside a first epoch's
     (its graph captures) and a second's.
-21. profiles (torch.profiler, after every path's host-clock times): A's
+22. profiles (torch.profiler, after every path's host-clock times): A's
     and C's rebuild + eval, one more joint phase of E at epoch 1's
     learning rate, replayed from its graph and run eagerly, and one more
     joint phase of F replayed; each with its idle share and the shares of
     PyTorch's ``index_select`` and of K4 in its device time.
-22. path N (the mesh, in one spawned NCCL rank): E's and F's data and
+23. path N (the mesh, in one spawned NCCL rank): E's and F's data and
     settings, two epochs, each with ``test_epoch``, on a 1x1 mesh, the steps
     captured with their all-reduces inside, bitwise the Coach without a
     mesh (losses, metrics, parameters, moments, edge buffers, generator),
@@ -124,7 +137,7 @@ exit, no result line):
     ``segsum_gather``, timed per rank, with its all-reduce, bound and
     library; ``recommend(mesh)`` at model 1 bitwise the plain call; F's
     blocks of path O; the gradient all-reduce's time a step.
-23. path O (two spawned gloo ranks on the one card, eager steps; a
+24. path O (two spawned gloo ranks on the one card, eager steps; a
     correctness path: its times are not speed figures): E's settings, one
     epoch and ``test_epoch``, twice (the ranks and the runs bitwise equal,
     the difference from N recorded); E's and F's settings, one
@@ -137,7 +150,7 @@ exit, no result line):
     ``recommend`` over E's index at model 2 (ids equal, scores within
     1e-5) and 20 requests to the two-shard HTTP server against direct
     calls; each rank's seconds, peak memory and Coach state.
-24. path P (model-axis training: two spawned gloo ranks on the one card, a
+25. path P (model-axis training: two spawned gloo ranks on the one card, a
     1x2 mesh, eager steps; a correctness path like O): E's settings, one
     diffusion_block and three joint_blocks from path N's state and draws
     (K1 on each rank's (U, I/2) block, K2's partial product summed over the
@@ -172,6 +185,9 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# the named shapes the bench synthesises too (fails here outside a checkout)
+from diffmm_tpu_torch.data.synthetic import SHAPES  # noqa: E402
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16, TF32 and f32 FLOP/s.
 # TF32 is the card's fastest rate for f32 operands: the bound of an f32
@@ -224,12 +240,11 @@ K4_CASE_FIELDS = ("ok", "ms", "unfused_ms", "plain_ms", "library_ms", "library_r
                   "launches_per_call", "launches_per_backward")
 # Path A's shape: tiktok's catalog at its density, its feature widths
 # (conf/test.toml's dataset; the full data is not in the repository)
-TIKTOK = {"user_num": 9308, "item_num": 6710, "density": 0.000953, "feat_dims": [128, 768, 128]}
+TIKTOK = SHAPES["tiktok"]
 # Path C's shape: yelp's catalog and feature widths (conf/yelp.toml), its
 # padded train edge count (307,180 edges + 20 sentinel pads), and the hub of
 # its rebuilt item directions (38,389 of 38,403 users on one item)
-YELP = {"user_num": 38403, "item_num": 20000, "density": 0.0004, "feat_dims": [4096, 1024],
-        "edges": 307200, "hub": 38389}
+YELP = {**SHAPES["yelp"], "edges": 307200, "hub": 38389}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1023,16 +1038,20 @@ def phase_reference(dev) -> dict:
     return rec
 
 
-def _train_step_reference(dev, cfg, form: str) -> dict:
+def _train_step_reference(dev, cfg, form: str, compute: str = "f32") -> dict:
     """One diffusion_block and one joint_block on the card and on the CPU
     from the same parameters, Adam states (after one CPU epoch, so the
     updates are smooth functions of the gradients) and injected draws:
     losses and updated parameters. Diffusion: f32 on both sides (cuBLAS
-    without TF32), rtol 1e-4 / atol 1e-5; joint: the sparse form f32, rtol
-    1e-4 / atol 1e-5, the dense form at its bf16 tolerance, rtol 1e-2 /
-    atol 1e-3. The card's joint step must launch K1 (dense) or K4 (sparse)
-    as often backward as forward, and K4 once for each loss gather's
-    backward (:func:`joint_step_launches`)."""
+    without TF32), rtol 1e-4 / atol 1e-5; joint: the sparse form with f32
+    messages, rtol 1e-4 / atol 1e-5; the dense form, and the sparse form
+    with bf16 messages (``compute``, ``train.segsum_compute``), at the bf16
+    tolerance, rtol 1e-2 / atol 1e-3: both sides round each propagation's
+    input to bf16, and an input that differs in its last f32 bits (the
+    sums' order) may round to the neighbouring bf16 value. The card's
+    joint step must launch K1 (dense) or K4 (sparse) as often backward as
+    forward, and K4 once for each loss gather's backward
+    (:func:`joint_step_launches`)."""
     import torch
 
     from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
@@ -1041,7 +1060,7 @@ def _train_step_reference(dev, cfg, form: str) -> dict:
     from diffmm_tpu_torch.train.coach import Coach
     from diffmm_tpu_torch.train.optim import tree_leaves
 
-    cfg.train.graph_form = form
+    cfg.train.graph_form, cfg.train.segsum_compute = form, compute
     host = make_synthetic_host_data(cfg, user_num=300, item_num=200, density=0.05, seed=5)
     cpu = Coach(cfg, host, device="cpu")
     cpu.train_epoch(0)
@@ -1064,9 +1083,7 @@ def _train_step_reference(dev, cfg, form: str) -> dict:
         hp = coach.hp()
         with torch.no_grad():
             feats = project_features(coach.gcn_params, coach.data.raw_feats)
-        for counts in _counters():
-            for k in counts:
-                counts[k] = 0
+        _zero_counters()
         diff = steps.diffusion_block(
             coach.schedule, coach.dn_params, coach.dn_opt_states, feats, coach.gcn_params["i_embs"],
             coach.data.train_store, users.to(dv), weights.to(dv), 1e-3, hp, I, t=t.to(dv), noise=noise.to(dv),
@@ -1078,18 +1095,19 @@ def _train_step_reference(dev, cfg, form: str) -> dict:
         )
         out.append((diff, joint, {k: v for counts in _counters() for k, v in counts.items()}))
     (d_c, j_c, _), (d_g, j_g, launches) = out
-    rec = {"launches": launches}
-    rec["diffusion_loss_max_abs_err"] = _check_close([d_g], [d_c], 1e-4, 1e-5, f"{form} diffusion losses")
+    label = f"{form} ({compute} messages)"
+    rec = {"launches": launches, "segsum_compute": compute}
+    rec["diffusion_loss_max_abs_err"] = _check_close([d_g], [d_c], 1e-4, 1e-5, f"{label} diffusion losses")
     rec["denoiser_max_abs_err"] = _check_close(
         [p for dn in gpu.dn_params for p in tree_leaves(dn)],
-        [p for dn in cpu.dn_params for p in tree_leaves(dn)], 1e-4, 1e-5, f"{form} denoisers after a step")
-    tol = (1e-2, 1e-3) if form == "dense" else (1e-4, 1e-5)
-    rec["joint_metrics_max_abs_err"] = _check_close([j_g], [j_c], *tol, f"{form} joint metrics")
+        [p for dn in cpu.dn_params for p in tree_leaves(dn)], 1e-4, 1e-5, f"{label} denoisers after a step")
+    tol = (1e-2, 1e-3) if form == "dense" or compute == "bf16" else (1e-4, 1e-5)
+    rec["joint_metrics_max_abs_err"] = _check_close([j_g], [j_c], *tol, f"{label} joint metrics")
     rec["gcn_max_abs_err"] = _check_close(tree_leaves(gpu.gcn_params), tree_leaves(cpu.gcn_params), *tol,
-                                          f"{form} GCN after a joint step")
+                                          f"{label} GCN after a joint step")
     want = joint_step_launches(form == "dense", M, cfg.base.cl_method)
     check(all(launches[k] == v for k, v in want.items()),
-          f"{form} joint step launches {launches}, want {want} (forward and backward, loss gathers)")
+          f"{label} joint step launches {launches}, want {want} (forward and backward, loss gathers)")
     rec["losses"] = {"diffusion": d_g.tolist(), "joint": j_g.tolist()}
     return rec
 
@@ -1139,6 +1157,13 @@ def _counters():
     from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual
 
     return (spmm_dual.LAUNCHES, denoise_mlp.LAUNCHES, segsum.LAUNCHES)
+
+
+def _zero_counters() -> None:
+    """Set every kernel's launch count to 0."""
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
 
 
 def tensor_numels(obj) -> set:
@@ -1219,9 +1244,7 @@ def drive_path(dev, cfg, host, label: str):
     fence("setup_s", t0)
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
+    _zero_counters()
     t0 = time.perf_counter()
     bufs = coach.rebuild_graphs()
     fence("rebuild_s", t0)
@@ -1294,14 +1317,11 @@ def drive_path(dev, cfg, host, label: str):
 
 def _tiktok_shape():
     from diffmm_tpu_torch.config import load_config
-    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.data.synthetic import synthesize_shape
 
     cfg = load_config(os.path.join(REPO, "conf", "test.toml"))
     t0 = time.perf_counter()
-    host = make_synthetic_host_data(
-        cfg, user_num=TIKTOK["user_num"], item_num=TIKTOK["item_num"], density=TIKTOK["density"],
-        feat_dims=TIKTOK["feat_dims"], seed=cfg.base.seed,
-    )
+    host = synthesize_shape(cfg, "tiktok")
     print(f"[path A] synthetic data in {time.perf_counter() - t0:.1f} s")
     return cfg, host
 
@@ -1389,15 +1409,12 @@ def phase_path_b(dev) -> dict:
 
 def _yelp_shape():
     from diffmm_tpu_torch.config import load_config
-    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.data.synthetic import synthesize_shape
 
     cfg = load_config(os.path.join(REPO, "conf", "yelp.toml"))
     cfg.train.graph_form = "sparse"  # the train store stays "auto"
     t0 = time.perf_counter()
-    host = make_synthetic_host_data(
-        cfg, user_num=YELP["user_num"], item_num=YELP["item_num"], density=YELP["density"],
-        modalities=["image", "text"], feat_dims=YELP["feat_dims"], seed=cfg.base.seed,
-    )
+    host = synthesize_shape(cfg, "yelp")
     print(f"[path C] synthetic data in {time.perf_counter() - t0:.1f} s")
     return cfg, host
 
@@ -1453,9 +1470,7 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
     coach._joint_phase = counted
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
+    _zero_counters()
     epochs_rec = []
     for epoch in range(epochs):
         coach.timer.reset()
@@ -2109,9 +2124,7 @@ def phase_path_q(dev, report_dir: str) -> dict:
         epoch_s.append(time.perf_counter() - t0)
     check(coach.dense_graphs, "Q: not the dense form")
     del coach
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
+    _zero_counters()
     sweeps = {param: _q_reused_vs_fresh(dev, cfg, host, param, values) for param, values in Q_SWEEPS}
     launches = {k: v for counts in _counters() for k, v in counts.items()}
     check(all(launches[k] > 0 for k in ("spmm_dual", K2_ENTRY, "denoise_layer2", "segsum"))
@@ -2300,9 +2313,7 @@ def phase_path_h(dev, host) -> tuple[dict, object]:
         return evals[-1]
 
     fused.train_epochs_fused, twin.train_epoch, twin.test_epoch = timed_chunk, single, evaluated
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
+    _zero_counters()
     best_f = fused.run(epochs=2)
     launches = {k: v for counts in _counters() for k, v in counts.items()}
     t0 = time.perf_counter()
@@ -2361,6 +2372,215 @@ def phase_resume(dev, host, twin, want_loss: dict, report_dir: str) -> dict:
     shutil.rmtree(ck, ignore_errors=True)
     rec = {"bitwise": same, "epoch1_loss": loss["Loss"]}
     print(f"[resume] {json.dumps(rec)}")
+    return rec
+
+
+# ------------------------------------------------------- R: the measuring programs
+# The JAX bench's line (bench.py:221-256): its keys, its detail's, and the
+# phases both Coaches time
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {
+    "headline_epoch_seconds", "headline_path", "epoch_seconds_median_steady", "fused_epoch_seconds_median",
+    "epoch_seconds_all", "phase_seconds_median_steady", "phase_seconds_fenced", "joint_hbm_roofline_fraction",
+    "eval_seconds_median", "sparse_epoch_seconds_median", "sparse_fused_epoch_seconds_median",
+    "sparse_train_store", "baseline", "baseline_epoch_seconds", "device",
+}
+BENCH_PHASES = {"neg_sampling", "diffusion", "rebuild", "joint"}
+# path R's bench counts: three single epochs (two steady), fused chunks of two
+R_BENCH_ENV = {"BENCH_EPOCHS": "3", "BENCH_FUSED": "2", "BENCH_SPARSE_FUSED": "2"}
+# the JAX tools' JSON keys: tools/scale_probe.py:58-66, 82-85 (no --scan);
+# tools/store_ab_probe.py:99-108; tools/joint_profile.py:148-174 (its
+# spmm_scatter_* rows time the XLA scatter, which the port does not have)
+SCALE_KEYS = {"config", "set", "backend", "shape", "nnz", "graph_form", "train_store", "epoch_s_all",
+              "epoch_s_median_steady"}
+STORE_AB_KEYS = {"config", "backend", "scan", "fused_epoch_s", "fenced_phase_s"}
+JOINT_KEYS = {"config", "backend", "graph_form", "dense_store", "inner_iters", "dispatch_overhead_ms",
+              "spmm_fwd_ms", "spmm_bwd_ms", "gcn_forward_ms", "joint_nocl_ms", "joint_step_ms",
+              "cl_plus_adam_ms"}
+JOINT_FORM_KEYS = {"dense": {"adj_pass_roofline_ms"},
+                   "sparse": {"spmm_modal_fwd_ms", "spmm_modal_bwd_ms", "sparse_pass_roofline_ms"}}
+# tools/fused_overhead_probe.py's lines
+OVERHEAD_LINES = {
+    "upload": r"upload probe: ([\d.]+) MB in ([\d.]+)s = ([\d.]+) MB/s",
+    "first_chunk": r"compile\+first chunk: ([\d.]+)s",
+    "chunk": r"chunk (\d): call\(incl\. host prep\+upload\+result fetch\)=([\d.]+)s  "
+             r"\+device drain=([\d.]+)s  -> ([\d.]+)s/epoch wall",
+}
+
+
+def _bench_times(line: dict) -> list[float]:
+    """Every time of the bench's line (and its rate)."""
+    d = line["detail"]
+    return ([line["value"], d["headline_epoch_seconds"], d["epoch_seconds_median_steady"],
+             d["fused_epoch_seconds_median"], d["eval_seconds_median"], d["sparse_epoch_seconds_median"],
+             d["sparse_fused_epoch_seconds_median"], *d["epoch_seconds_all"]]
+            + list(d["phase_seconds_median_steady"].values()) + list(d["phase_seconds_fenced"].values()))
+
+
+
+
+def _r_bench(dev) -> dict:
+    """(a) ``diffmm_tpu_torch.bench.main --synthetic tiktok`` in this
+    process at R_BENCH_ENV's counts, with every kernel counter set to 0
+    just before and read just after: the JAX bench's keys, every time above
+    0, the CSR store on the sparse rows, the roofline fraction in (0, 1.05];
+    K1 launched in the dense rows (none in the sparse), K2/K3 in both
+    rebuilds, K4 in the sparse rows and in the dense rows' loss gathers."""
+    import contextlib
+    import io
+
+    from diffmm_tpu_torch import bench
+
+    saved = {k: os.environ.get(k) for k in R_BENCH_ENV}
+    os.environ.update(R_BENCH_ENV)
+    out, sections = io.StringIO(), {}
+    _zero_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        status = bench.main(["--synthetic", "tiktok"], sections=sections)
+    seconds = time.perf_counter() - t0
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k)
+        else:
+            os.environ[k] = v
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"[path R] bench: {json.dumps(line)}")
+    d = line["detail"]
+    check(status == 0 and set(line) == BENCH_KEYS and set(d) == BENCH_DETAIL_KEYS,
+          f"R: bench keys {sorted(line)} / {sorted(d)}")
+    check(set(d["phase_seconds_median_steady"]) == BENCH_PHASES == set(d["phase_seconds_fenced"]),
+          f"R: bench phases {d['phase_seconds_median_steady']} {d['phase_seconds_fenced']}")
+    times = _bench_times(line)
+    check(all(isinstance(t, (int, float)) and t > 0 for t in times), f"R: bench times {times}")
+    check(d["sparse_train_store"] == "csr", f"R: sparse rows' store {d['sparse_train_store']}")
+    fraction = d["joint_hbm_roofline_fraction"]
+    check(fraction is not None and 0 < fraction <= 1.05, f"R: roofline fraction {fraction}")
+    check(line["vs_baseline"] is None and d["baseline_epoch_seconds"] is not None,
+          f"R: synthetic data has no baseline ratio: {line['vs_baseline']}")
+    dense, sparse = sections["dense"]["launches"], sections["sparse"]["launches"]
+    want = {"dense K1": dense["spmm_dual"], "dense K2": dense[K2_ENTRY], "dense K3": dense["denoise_layer2"],
+            "dense K4 (loss gathers)": dense["segsum"], "sparse K2": sparse[K2_ENTRY],
+            "sparse K3": sparse["denoise_layer2"], "sparse K4": sparse["segsum"]}
+    check(all(v > 0 for v in want.values()) and sparse["spmm_dual"] == 0
+          and launches["segsum_unfused"] == 0 and launches == {k: dense[k] + sparse[k] for k in launches},
+          f"R: bench launches {want}, sparse {sparse}, all {launches}")
+    return {"line": line, "seconds": seconds, "launches": launches, "sections": sections}
+
+
+def _r_sparse_bf16_fused(dev, host) -> dict:
+    """(b) A sparse Coach at tiktok's shape with bf16 messages: a fused
+    chunk of two epochs against a twin's two single epochs, losses and
+    state (parameters, moments, edge buffers, generator) bitwise, as path H
+    holds the dense form; K4 launched, K1 not."""
+    import torch
+
+    from diffmm_tpu_torch.config import load_config
+    from diffmm_tpu_torch.train.coach import Coach
+
+    def coach():
+        cfg = load_config(os.path.join(REPO, "conf", "test.toml"))
+        cfg.train.graph_form, cfg.train.segsum_compute = "sparse", "bf16"
+        return Coach(cfg, host, device=dev)
+
+    fused, twin = coach(), coach()
+    check(fused.train_store_form == "csr" and not fused.dense_graphs, "R: the sparse Coach's form")
+    _zero_counters()
+    t0 = time.perf_counter()
+    got = fused.train_epochs_fused(0, 2)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
+    want = [twin.train_epoch(e) for e in range(2)]
+    same = {"losses": got == want, "state": _bitwise(_state(fused), _state(twin))}
+    check(all(same.values()), f"R: sparse bf16 fused chunk vs single epochs: {same} {got} {want}")
+    check(launches["segsum"] > 0 and launches["spmm_dual"] == 0 and launches["segsum_unfused"] == 0,
+          f"R: sparse bf16 chunk launches {launches}")
+    return {"bitwise": same, "losses": got, "chunk_s": chunk_s, "launches": launches}
+
+
+def _r_probe(report_dir: str, label: str, module: str, *args) -> tuple[str, float]:
+    """One of the port's probes in a subprocess on the card; its output goes
+    to ``<report_dir>/probe_<label>.log``. Returns its stdout and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"diffmm_tpu_torch.tools.{module}", *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(report_dir, f"probe_{label}.log"), "w") as fh:
+        fh.write(proc.stdout + "\n--- stderr\n" + proc.stderr)
+    check(proc.returncode == 0, f"R: probe {label} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, seconds
+
+
+def _json_line(stdout: str) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def _r_probes(report_dir: str) -> dict:
+    """(d) Each probe once, at small counts, in a subprocess: its JSON line
+    parsed, with the JAX tool's keys (fused_overhead_probe's lines by their
+    patterns), and every time it prints above 0."""
+    import re
+
+    rec = {}
+    out, s = _r_probe(report_dir, "scale_yelp", "scale_probe", "-c", "conf/yelp.toml", "--synthetic", "yelp",
+                      "--set", "train.graph_form=sparse", "--epochs", "2")
+    line = _json_line(out)
+    check(set(line) == SCALE_KEYS and line["shape"] == [YELP["user_num"], YELP["item_num"]]
+          and line["train_store"] == "csr" and all(t > 0 for t in line["epoch_s_all"]),
+          f"R: scale_probe line {line}")
+    rec["scale_probe"] = {"line": line, "seconds": s}
+
+    out, s = _r_probe(report_dir, "store_ab", "store_ab_probe", "-c", "conf/tiktok_tuned.toml", "--synthetic",
+                      "tiktok", "--fenced", "1", "--chunks", "1", "--scan", "2")
+    line = _json_line(out)
+    check(set(line) == STORE_AB_KEYS and set(line["fused_epoch_s"]) == {"dense", "csr"}
+          and all(t > 0 for t in line["fused_epoch_s"].values())
+          and all(set(ph) == BENCH_PHASES for ph in line["fenced_phase_s"].values()),
+          f"R: store_ab_probe line {line}")
+    rec["store_ab_probe"] = {"line": line, "seconds": s}
+
+    out, s = _r_probe(report_dir, "fused_overhead", "fused_overhead_probe", "conf/tiktok_tuned.toml", "2",
+                      "--synthetic", "tiktok")
+    lines = out.strip().splitlines()
+    parsed = {"upload": re.fullmatch(OVERHEAD_LINES["upload"], lines[0]),
+              "first_chunk": re.fullmatch(OVERHEAD_LINES["first_chunk"], lines[1]),
+              "chunks": [re.fullmatch(OVERHEAD_LINES["chunk"], x) for x in lines[2:]]}
+    check(len(lines) == 5 and parsed["upload"] and parsed["first_chunk"] and all(parsed["chunks"]),
+          f"R: fused_overhead_probe lines {lines}")
+    line = {"upload_mb_s": float(parsed["upload"][3]), "first_chunk_s": float(parsed["first_chunk"][1]),
+            "chunks": [{"call_s": float(m[2]), "drain_s": float(m[3]), "epoch_wall_s": float(m[4])}
+                       for m in parsed["chunks"]]}
+    check(all(c["epoch_wall_s"] > 0 for c in line["chunks"]), f"R: fused_overhead_probe {line}")
+    rec["fused_overhead_probe"] = {"line": line, "seconds": s}
+
+    for form in ("dense", "sparse"):
+        sets = ["--set", "train.graph_form=sparse", "--set", "train.segsum_compute=bf16"] if form == "sparse" else []
+        out, s = _r_probe(report_dir, f"joint_{form}", "joint_profile", "-c", "conf/tiktok_tuned.toml",
+                          "--synthetic", "tiktok", "--inner", "8", *sets)
+        line = _json_line(out)
+        timed = [k for k in line if k.endswith("_ms") and k != "cl_plus_adam_ms"]
+        check(set(line) == JOINT_KEYS | JOINT_FORM_KEYS[form] and line["graph_form"] == form
+              and all(math.isfinite(line[k]) and line[k] > 0 for k in timed),
+              f"R: joint_profile {form} line {line}")
+        rec[f"joint_profile_{form}"] = {"line": line, "seconds": s}
+    print(f"[path R] probes: {json.dumps(rec)}")
+    return rec
+
+
+def phase_path_r(dev, host, report_dir: str) -> dict:
+    """Path R, the measuring programs: (a) the port's bench in this process,
+    (b) a sparse bf16 fused chunk against single epochs, (c) one sparse
+    diffusion and joint block with bf16 messages on the card against the
+    CPU, (d) each probe in a subprocess."""
+    t0 = time.perf_counter()
+    rec = {"bench": _r_bench(dev)}
+    rec["sparse_bf16_fused"] = _r_sparse_bf16_fused(dev, host)
+    rec["train_step_sparse_bf16"] = _train_step_reference(dev, _small_config(), "sparse", compute="bf16")
+    rec["probes"] = _r_probes(report_dir)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[path R] {json.dumps({k: v for k, v in rec.items() if k != 'probes'})}")
     return rec
 
 
@@ -2600,9 +2820,7 @@ def mesh_path_n(report_dir: str) -> dict:
         for kind in ("plain", "mesh"):
             coach = Coach(copy.deepcopy(cfg), host, device=dev, mesh=None if kind == "plain" else mesh)
             torch.cuda.synchronize()
-            for counts in _counters():
-                for k in counts:
-                    counts[k] = 0
+            _zero_counters()
             losses, metrics, walls = [], [], []
             for epoch in range(2):  # the first epoch captures; the second is steady
                 coach.timer.reset()
@@ -2934,9 +3152,7 @@ def mesh_path_p(report_dir: str) -> dict:
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
+    _zero_counters()
     t0 = time.perf_counter()
     losses = coach.train_epoch(0, fence=True)
     wall = time.perf_counter() - t0
@@ -3099,8 +3315,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
-    import diffmm_tpu_torch  # noqa: F401  (fails here outside a checkout)
 
     dev = torch.device("cuda", 0)
     os.makedirs(args.report_dir, exist_ok=True)
@@ -3133,6 +3347,7 @@ def main(argv=None) -> int:
     report["resume"] = phase_resume(dev, host_a, twin, report["path_H"]["single_losses"][1],
                                     args.report_dir)
     del twin
+    report["path_R"] = phase_path_r(dev, host_a, args.report_dir)
     report["path_M"] = phase_path_m(dev, coach_e, args.report_dir)
     report["path_Q"] = phase_path_q(dev, args.report_dir)
     report["profile_A"] = phase_profile(_rebuild_and_eval(coach_a), "A", args.report_dir)
@@ -3166,6 +3381,8 @@ def main(argv=None) -> int:
                **{f"launches_{p}": count(report[f"path_{p}"]["launches"]) for p in others},
                "launches_N": count(report["path_N"]["F" if name == "segsum" else "E"]["launches"]),
                "launches_P": count(p_launches),
+               # path R: the bench's dense and sparse rows together
+               "launches_R": count(report["path_R"]["bench"]["launches"]),
                **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}
         if name == "denoise_layer1":
@@ -3209,8 +3426,8 @@ def main(argv=None) -> int:
                                                 "prepare_ms")})
         cases = [k, *(extra["cases"].values() if name == "segsum" else extra.values())]
         row.update(extra)
-        row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0 and row["launches_P"] > 0 and not any(
-            row.get("launches_unfused", {}).values())
+        row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0 and row["launches_P"] > 0 and (
+            row["launches_R"] > 0) and not any(row.get("launches_unfused", {}).values())
         rows.append(row)
     ok = all(row["ok"] for row in rows)
     report["ok"] = ok

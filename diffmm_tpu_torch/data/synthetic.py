@@ -2,6 +2,11 @@
 
 Counterpart of ``diffmm_tpu/data/synthetic.py``: the same numpy draws in the
 same order, so one seed gives bit-identical arrays under both packages.
+
+:data:`SHAPES` names the datasets the measuring programs synthesise where the
+real files are not in the repository (``bench.py``, ``tools/``,
+``chip_smoke.py``), and :func:`host_data` gives a measuring run its data:
+a named shape, made explicitly, or the config's dataset.
 """
 
 from __future__ import annotations
@@ -9,7 +14,46 @@ from __future__ import annotations
 import numpy as np
 
 from diffmm_tpu_torch.config import Config
-from diffmm_tpu_torch.data.loader import HostData
+from diffmm_tpu_torch.data.loader import HostData, load_host_data
+
+# A dataset's catalog at its train density, with its modalities' feature
+# widths. tiktok: conf/test.toml's dataset. yelp: conf/yelp.toml's (307,180
+# train edges at this density and seed 125). sports: the structured
+# synthetic of tests/test_scale_accuracy.py (sports' 256,308 edges over the
+# catalog as its density, which keeps 7 a user, 249,186; rank-8 latent
+# preferences; its narrow features), which learns, so its Recall means
+# something.
+SHAPES = {
+    "tiktok": {"user_num": 9308, "item_num": 6710, "density": 0.000953,
+               "modalities": ["image", "text", "audio"], "feat_dims": [128, 768, 128]},
+    "yelp": {"user_num": 38403, "item_num": 20000, "density": 0.0004,
+             "modalities": ["image", "text"], "feat_dims": [4096, 1024]},
+    "sports": {"user_num": 35598, "item_num": 18357, "density": 256308 / (35598 * 18357),
+               "modalities": ["image", "text"], "feat_dims": [32, 32], "structure_rank": 8},
+}
+
+
+def synthesize_shape(config: Config, name: str) -> HostData:
+    """The named shape of :data:`SHAPES`, drawn from ``config.base.seed``."""
+    if name not in SHAPES:
+        raise ValueError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return make_synthetic_host_data(config, seed=config.base.seed, **SHAPES[name])
+
+
+def host_data(config: Config, shape: str | None = None, data_root: str | None = None) -> HostData:
+    """A measuring run's data: ``shape`` synthesised (:func:`synthesize_shape`)
+    when given, else the config's dataset (under ``data_root``, as
+    :func:`load_host_data` finds it), whose absence is an error that names
+    the ``--synthetic`` option (never a silent stand-in)."""
+    if shape is not None:
+        return synthesize_shape(config, shape)
+    try:
+        return load_host_data(config, data_root=data_root)
+    except FileNotFoundError as e:
+        raise SystemExit(
+            f"{e}\nThe {config.data.name!r} data is not here: --synthetic "
+            f"{{{'|'.join(SHAPES)}}} runs on data synthesised at a dataset's shape."
+        ) from e
 
 
 def make_synthetic_host_data(

@@ -5,7 +5,7 @@ JAX package's Coach, after tests/test_fused_epochs.py:39, 86, 99, 180, 206.
 The contract is the JAX one: a chunk draws the torch generator and the numpy
 stream exactly as its epochs one at a time would. On the CPU the two paths
 run the same operations in the same order, so they are held exactly equal
-(no tolerance): losses, parameters, Adam moments and counts, edge buffers,
+(no tolerance), on both graph forms and with the sparse form's bf16 messages: losses, parameters, Adam moments and counts, edge buffers,
 eval metrics, the generator's state and the numpy stream's. ``_chunk_size``
 gives the JAX Coach's answers on the same cases. The numpy stream after a
 fused chunk equals the JAX package's after its own chunk (``slow``: it
@@ -80,9 +80,13 @@ def assert_same_state(a, b):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("form", ["dense", "sparse"])
+@pytest.mark.parametrize("form", ["dense", "sparse", "sparse-bf16"])
 def test_fused_equals_single_epochs(form):
-    single, fused = _pair(_config(form))
+    """Also on the sparse form with bf16 messages (``train.segsum_compute``,
+    the JAX bench's sparse setting): the casts in the steps' backward run
+    alike in both paths."""
+    form, _, compute = form.partition("-")
+    single, fused = _pair(_config(form, segsum_compute=compute or "f32"))
     single.total_epochs = fused.total_epochs = 4
     want = [single.train_epoch(e) for e in range(3)]
     got = fused.train_epochs_fused(0, 3)

@@ -5,6 +5,7 @@ around a kernel launch (nor around a training step, whose backward
 launches the kernels), and importing it turns TF32 off for f32 matmuls."""
 
 import ast
+import importlib
 import os
 import pathlib
 import subprocess
@@ -43,7 +44,10 @@ def test_module_walk_finds_the_training_slice():
                  "diffmm_tpu_torch.utils.profiling", "diffmm_tpu_torch.ops.gather",
                  "diffmm_tpu_torch.train.graphs", "diffmm_tpu_torch.utils.checkpoint",
                  "diffmm_tpu_torch.ops.knn", "diffmm_tpu_torch.eval.serve_http",
-                 "diffmm_tpu_torch.tools.sweep", "diffmm_tpu_torch.tools.serve_bench"):
+                 "diffmm_tpu_torch.tools.sweep", "diffmm_tpu_torch.tools.serve_bench",
+                 "diffmm_tpu_torch.bench", "diffmm_tpu_torch.tools.scale_probe",
+                 "diffmm_tpu_torch.tools.store_ab_probe", "diffmm_tpu_torch.tools.fused_overhead_probe",
+                 "diffmm_tpu_torch.tools.joint_profile"):
         assert name in MODULES
 
 
@@ -89,6 +93,15 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch, tmp_path):
     assert not sparse.dense_graphs and sparse.train_store_form == "csr"
     sparse.rebuild_graphs()
     assert serving.build_index(sparse).u_final.device.type == "cpu"
+    # the bench and the probes stop before they load or make any data, with
+    # or without --synthetic
+    for module in ("bench", "tools.scale_probe", "tools.store_ab_probe", "tools.fused_overhead_probe",
+                   "tools.joint_profile"):
+        tool = importlib.import_module(f"diffmm_tpu_torch.{module}")
+        monkeypatch.setattr(tool, "host_data", lambda *a, **k: pytest.fail("data made without a device"))
+        for argv in ([], ["--synthetic", "tiktok"]):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                tool.main(argv)
 
 
 def test_kernel_wrappers_raise_off_cuda_and_cpu():
@@ -170,7 +183,8 @@ def test_training_path_catches_no_kernel_failure():
              PKG / "diffusion" / "gaussian.py", PKG / "models" / "gcn.py", PKG / "eval" / "serving.py",
              PKG / "ops" / "kernels" / "spmm_dual.py", PKG / "ops" / "kernels" / "segsum.py",
              PKG / "ops" / "gather.py", PKG / "train" / "graphs.py", PKG / "ops" / "knn.py",
-             PKG / "eval" / "serve_http.py", REPO / "chip_smoke.py"]
+             PKG / "eval" / "serve_http.py", PKG / "bench.py", PKG / "data" / "synthetic.py",
+             *sorted((PKG / "tools").glob("*.py")), REPO / "chip_smoke.py"]
     for path in paths:
         for name in _calls_inside_try(path, allowed=("KeyboardInterrupt",)):
             assert name not in reaches_a_kernel, f"{path}: {name} inside try"

@@ -10,8 +10,18 @@ the cross-layer CL noise is the JAX step's own draw, the six uniforms of
 default route (XLA scatter on the sparse form, two bf16 XLA matmuls on the
 dense form).
 
-Tolerances: the sparse form is f32 throughout, the same messages summed in
-another order: losses and updated parameters rtol 1e-4 / atol 1e-5. The
+The sparse form also runs with bf16 messages (``train.segsum_compute="bf16"``,
+the JAX bench's sparse setting), the JAX step built from a config with
+that setting as ``make_train_steps`` reads it: both sides round each
+propagation's input table (and, in the backward, its cotangent) to bf16 and
+sum in f32.
+
+Tolerances: the sparse form with f32 messages is f32 throughout, the same
+messages summed in another order: losses and updated parameters rtol 1e-4
+/ atol 1e-5. With bf16 messages an input that differs in its last f32 bits
+(the sums' order) may round to the neighbouring bf16 value on one side:
+the bf16 tolerance, rtol 1e-2 / atol 1e-3, and each parameter's update
+within a tenth of the step size (lr) of the JAX update. The
 dense form rounds z to bf16 on both sides, but the backwards round
 different operands (JAX rounds each product's sum, K1's VJP the
 cotangent), and 1-ulp differences in the degree scales can flip a
@@ -43,7 +53,7 @@ from diffmm_tpu_torch.train.optim import tree_leaves, tree_map
 U, I, B, LR = 50, 40, 16, 1e-3
 
 
-def _setup(form, cl_method):
+def _setup(form, cl_method, compute="f32"):
     cfgs = []
     for cls in (JConfig, TConfig):
         cfg = cls()
@@ -53,6 +63,7 @@ def _setup(form, cl_method):
         cfg.base.cl_method = cl_method
         cfg.train.batch = B
         cfg.train.graph_form = form
+        cfg.train.segsum_compute = compute
         cfg.hyper.sampling_step = 0
         cfgs.append(cfg)
     t_coach = TCoach(cfgs[1], t_synth(cfgs[1], user_num=U, item_num=I, seed=3), device="cpu")
@@ -90,9 +101,11 @@ def _cl_noise(key, d):
 
 
 @pytest.mark.parametrize("cl_method", [0, 1])
-@pytest.mark.parametrize("form", ["sparse", "dense"])
+@pytest.mark.parametrize("form", ["sparse", "dense", "sparse-bf16"])
 def test_joint_block_matches(rng, form, cl_method):
-    t_coach, steps, adj, modal_adjs, data, bufs = _setup(form, cl_method)
+    form, _, compute = form.partition("-")
+    compute = compute or "f32"
+    t_coach, steps, adj, modal_adjs, data, bufs = _setup(form, cl_method, compute)
     gcn = tree_map(lambda p: p.numpy().copy(), t_coach.gcn_params)
     state = _adam_state(rng, gcn)
     t_coach.load_params(gcn, [tree_map(lambda p: p.numpy().copy(), p) for p in t_coach.dn_params],
@@ -113,14 +126,15 @@ def test_joint_block_matches(rng, form, cl_method):
     t_metrics = ts.joint_block(
         t_coach.gcn_params, t_coach.gcn_opt_state, t_coach.data.adj, t_coach.modal_adjs,
         t_coach.data.raw_feats, torch.as_tensor(users), torch.as_tensor(pos), torch.as_tensor(neg),
-        LR, hp, cl_method, cl_noise=_cl_noise(key, 16),
+        LR, hp, cl_method, compute, cl_noise=_cl_noise(key, 16),
     )
     assert t_coach.gcn_opt_state.count == 2
-    tol = dict(rtol=1e-4, atol=1e-5) if form == "sparse" else dict(rtol=1e-2, atol=1e-3)
+    bf16 = form == "dense" or compute == "bf16"
+    tol = dict(rtol=1e-2, atol=1e-3) if bf16 else dict(rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(t_metrics.numpy(), np.asarray(j_metrics), **tol)
     for before, got, want in zip(tree_leaves(gcn), tree_leaves(t_coach.gcn_params),
                                  jax.tree_util.tree_leaves(j_params)):
         got, want = got.numpy(), np.asarray(want)
         np.testing.assert_allclose(got, want, **tol)
-        if form == "dense":
+        if bf16:
             np.testing.assert_allclose(got - before, want - before, rtol=0, atol=0.1 * LR)
