@@ -164,6 +164,21 @@ exit, no result line):
     mesh, whose ``test_epoch`` agrees with the mesh's; each rank's peak
     memory and Coach state beside path O's.
 
+26. path S (after Q, before the profiles; the web-scale configuration): (a)
+    one sparse Coach at the JAX ``tools/bigshard_demo.py``'s sparse settings,
+    200,000 x 100,000 at density 5e-5 (about 1.0 M edges), two modalities
+    with 32-wide features, latdim 64, one hidden layer of 64, 2 steps,
+    batch 512: one fenced ``train_epoch(0)`` and ``test_epoch`` on the card,
+    its counters set to 0 just before and read just after (K2/K3 in the
+    rebuild, K4 in every propagation and loss gather), the no-O(U·I) walk
+    (``utils/contracts.py``) over the Coach after both, the host's dense
+    matrix never built, the peak below U·I = 2.0e10 bytes, the CSR store's
+    bytes beside the dense matrix's; (b) the port's ``bigshard_demo`` in a
+    subprocess of 8 gloo ranks on the card, both JAX docstring commands
+    (the dense form at 60,000 x 30,000 on a 4x2 mesh: its five rows at x2,
+    K1 on each rank's (60,000, 15,000) block; the sparse form at (a)'s
+    shape: K2/K3 and K4's mesh form), each rank's peak and launches.
+
 Every path's K4 launches are the fused entry's: each path checks that the
 unfused entry launched no time.
 
@@ -180,6 +195,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1443,11 +1459,13 @@ def phase_path_d(dev) -> dict:
     return rec
 
 
-def drive_training(dev, cfg, host, label: str, epochs: int):
+def drive_training(dev, cfg, host, label: str, epochs: int, overflowing: tuple = ()):
     """``train_epoch(e, fence=True)`` for ``epochs`` epochs, then
     ``test_epoch``, with every kernel counter set to 0 just before and read
     just after; each epoch's joint phase counts its own launches (its
-    K1/K4 forward and backward). Returns the record and the warm Coach."""
+    K1/K4 forward and backward). Returns the record and the warm Coach.
+    Every loss must be finite but those named in ``overflowing``, which
+    must not be NaN (path S: see ``S_OVERFLOWING``)."""
     import torch
 
     from diffmm_tpu_torch.train.coach import Coach
@@ -1477,7 +1495,8 @@ def drive_training(dev, cfg, host, label: str, epochs: int):
         t0 = time.perf_counter()
         losses = coach.train_epoch(epoch, fence=True)
         wall = time.perf_counter() - t0
-        check(all(math.isfinite(v) for v in losses.values()), f"{label} epoch {epoch} losses {losses}")
+        check(all(math.isfinite(v) or (k in overflowing and not math.isnan(v)) for k, v in losses.items()),
+              f"{label} epoch {epoch} losses {losses}")
         epochs_rec.append({"epoch": epoch, "wall_s": wall, "phases_s": dict(coach.timer.totals),
                            "losses": losses, "joint_launches": joint_launches[-1]})
         print(f"[path {label}] epoch {epoch}: {json.dumps(epochs_rec[-1])}")
@@ -1661,13 +1680,11 @@ def _joint_phase_work(coach, epoch: int, graphed: bool = True):
     rate, on fresh negatives and a fresh permutation (the profiled part of
     a training path): replayed from the Coach's captured graph, or run
     eagerly (``graphed=False``)."""
-    from diffmm_tpu_torch.data.sampling import negative_sampling
     from diffmm_tpu_torch.train import steps
     from diffmm_tpu_torch.train.optim import cosine_lr
 
     cfg, data = coach.config, coach.data
-    negs = negative_sampling(data.train_rows, data.train_store, coach.host.item_num,
-                             generator=coach.generator)
+    negs = coach.sample_negatives()
     perm = coach._epoch_tables(epoch, 1)[0]["perm"]
     lr = cosine_lr(epoch, cfg.train.lr, coach.total_epochs)
     if graphed:
@@ -2143,6 +2160,126 @@ def phase_path_q(dev, report_dir: str) -> dict:
     print(f"[path Q] {json.dumps(rec)}")
     check([row[param] for row in rows] == values and all("error" not in row for row in rows) and all(rows_equal),
           f"Q: forked sweep {rows} against run-once children {[o['doc'] for o in once]}")
+    return rec
+
+
+# ------------------------------------------------------- S: the web-scale configuration
+# The JAX tool's sparse settings (tools/bigshard_demo.py:60-77, its docstring's
+# command): 200,000 x 100,000 at density 5e-5 (about 1.0 M train edges), two
+# modalities with 32-wide features, latdim 64, one hidden layer of 64, 2
+# diffusion steps, batch 512, seed 1 for the data and the Coach
+S_SHAPE = {"user_num": 200_000, "item_num": 100_000, "density": 5e-5, "modalities": ["image", "text"],
+           "feat_dims": [32, 32]}
+# the JAX docstring's two commands, run by the port's tool on gloo ranks
+S_DEMOS = {"dense": [], "sparse": ["--form", "sparse", "--users", "200000", "--items", "100000",
+                                   "--density", "5e-5", "--batch", "512", "--denoise-dim", "[64]"]}
+# The reference's diffusion-loss accounting (Main.py:174-185; JAX
+# diffmm_tpu/train/steps.py:249): acc = (acc + losses) / max(sum(losses),
+# 1e-12) per block. At 100,000 items a row's losses are about 1e-4, so acc
+# grows about 5,000x a block and overflows f32 to inf within S's 391 blocks,
+# in the JAX package as here (tests/test_torch_train_diffusion.py::
+# test_diffusion_accumulator_overflows_as_jax). Only the logged value
+# overflows: the step's gradient divides by the block's own detached sum.
+# S checks those two losses are not NaN, and the trained parameters finite.
+S_OVERFLOWING = ("image loss", "text loss")
+S_ROW = re.compile(r"^  (?P<label>.+?)\s+global\s+[\d.]+ MiB\s+per-device\s+[\d.]+ MiB\s+x(?P<f>\d+)\s+"
+                   r"\((?P<g>\d+) / (?P<l>\d+) bytes\)$")
+
+
+def _s_config():
+    from diffmm_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.base.latdim = 64
+    cfg.base.denoise_dim = "[64]"
+    cfg.base.seed = 1
+    cfg.hyper.steps = 2
+    cfg.train.graph_form = "sparse"
+    cfg.train.batch = cfg.train.test_batch = 512
+    return cfg
+
+
+def _s_one_card(dev) -> dict:
+    """(a) One fenced sparse epoch and its eval at 200,000 x 100,000 on the
+    card through the plain Coach (``drive_training``: every counter set to
+    0 just before, read just after), the no-O(U·I) walk over the Coach
+    after both, and its peak below U·I bytes."""
+    import torch
+
+    from diffmm_tpu_torch.data.membership import TrainCSR
+    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.train.optim import tree_leaves
+    from diffmm_tpu_torch.utils.contracts import assert_no_ui_arrays
+
+    cfg = _s_config()
+    t0 = time.perf_counter()
+    host = make_synthetic_host_data(cfg, seed=1, **S_SHAPE)
+    data_s = time.perf_counter() - t0
+    U, I = host.user_num, host.item_num
+    rec, coach = drive_training(dev, cfg, host, "S", epochs=1, overflowing=S_OVERFLOWING)
+    params = tree_leaves(coach.gcn_params) + [t for p in coach.dn_params for t in tree_leaves(p)]
+    check(all(bool(torch.isfinite(t).all()) for t in params), "S: non-finite parameters after the epoch")
+    store = coach.data.train_store
+    check(isinstance(store, TrainCSR) and rec["graph_form"] == "sparse", f"S form {rec['graph_form']}")
+    rec["arrays_walked"] = assert_no_ui_arrays(vars(coach), U, I, "S coach")
+    check(host._train_dense is None, "S: the host built its dense (U, I) matrix")
+    own_peak = rec["peak_mem_bytes"] - (rec["held_at_start_bytes"] - rec["coach_bytes"])
+    check(rec["peak_mem_bytes"] < U * I and own_peak < U * I,
+          f"S: peak {rec['peak_mem_bytes']} (own {own_peak}) bytes, not below U·I = {U * I}")
+    csr_bytes = sum(x.nbytes for x in (store.cols, store.offsets, store.degrees))
+    rec.update({"data_s": data_s, "own_peak_bytes": own_peak, "ui_bytes": U * I, "csr_store_bytes": csr_bytes,
+                "dense_store_gib": U * I / 2**30, "store_factor": U * I / csr_bytes,
+                "test_users": int(host.test_users.shape[0])})
+    del coach
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[path S] (a) {json.dumps({k: v for k, v in rec.items() if k != 'graphs'})}")
+    return rec
+
+
+def _s_demo(report_dir: str, form: str) -> dict:
+    """(b) The port's bigshard_demo, one form, in a subprocess of gloo ranks
+    on the card: its lines parsed, its ok line, the dense table's x2
+    factors (train_store included) with the bytes behind them, each rank's
+    peak and kernel launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "diffmm_tpu_torch.tools.bigshard_demo", *S_DEMOS[form]],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(report_dir, f"bigshard_{form}.log"), "w") as fh:
+        fh.write(proc.stdout + "\n--- stderr\n" + proc.stderr)
+    check(proc.returncode == 0, f"S: bigshard_demo --form {form} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    ok_line = "bigshard demo ok" if form == "dense" else "bigshard sparse demo ok"
+    check(ok_line in lines, f"S: no {ok_line!r} line")
+    peaks = [int(m.group(1)) for m in (re.match(r"^rank \d+ peak card memory: (\d+) bytes$", x) for x in lines) if m]
+    launches = [json.loads(x.split(": ", 1)[1]) for x in lines if re.match(r"^rank \d+ kernel launches: ", x)]
+    check(len(peaks) == len(launches) == 8 and all(p > 0 for p in peaks), f"S {form}: rank lines {peaks}")
+    timed = {m.group(1): float(m.group(2)) for m in (re.match(r"^(.+?): (\d+\.\d)s \(", x) for x in lines) if m}
+    rec = {"seconds": seconds, "peak_bytes": peaks, "launches": {k: sum(r[k] for r in launches) for k in launches[0]},
+           "block_s": timed, "lines": [x for x in lines if not x.startswith("rank ") and " - " not in x[:20]]}
+    if form == "dense":
+        rows = [S_ROW.match(x).groupdict() for x in lines if S_ROW.match(x)]
+        check(len(rows) == 5 and all(r["f"] == "2" and int(r["g"]) == 2 * int(r["l"]) for r in rows),
+              f"S: the dense table's factors {rows}")
+        rec["rows"] = rows
+        check(rec["launches"]["spmm_dual"] > 0, f"S dense: K1 launched {rec['launches']}")
+    else:
+        check(rec["launches"]["segsum"] > 0 and rec["launches"]["denoise_layer2"] > 0,
+              f"S sparse: launches {rec['launches']}")
+        check(any("membership store:" in x for x in lines), "S sparse: no membership store line")
+    print(f"[path S] (b) {form}: {json.dumps(rec)}")
+    return rec
+
+
+def phase_path_s(dev, report_dir: str) -> dict:
+    """Path S: the web-scale configuration, (a) one sparse epoch on one card,
+    (b) the bigshard demo's two commands on gloo ranks."""
+    t0 = time.perf_counter()
+    rec = {"one_card": _s_one_card(dev)}
+    rec["demo"] = {form: _s_demo(report_dir, form) for form in S_DEMOS}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[path S] {rec['seconds']:.1f} s")
     return rec
 
 
@@ -3073,7 +3210,7 @@ def _p_rebuild(coach, cfg, host) -> dict:
             parts = []
             for a in range(0, U, 1024):
                 x0 = gather_rows(coach.data.train_store, torch.arange(a, min(a + 1024, U), device=dev),
-                                 I)[:, split.lo:split.hi]
+                                 I, (split.lo, split.hi))
                 view = generate_view(coach.schedule, den, x0, 0, denoise_apply=apply, cols=(split.lo, split.hi))
                 parts.append(placed_all_reduce(view, split.lo, I, split.cat.group, dim=1))
             scores.append(torch.cat(parts))
@@ -3164,7 +3301,13 @@ def mesh_path_p(report_dir: str) -> dict:
     rec["E"] = {"losses": losses, "metrics": metrics, "digest": _digest(_state(coach)), "epoch_s": wall,
                 "phases_s": dict(coach.timer.totals), "launches": launches,
                 "epoch_peak_bytes": torch.cuda.max_memory_allocated(dev), "held_at_start_bytes": held,
-                "coach_state_bytes": coach_state_bytes(coach)}
+                "coach_state_bytes": coach_state_bytes(coach),
+                # the dense train store's columns on the model axis (JAX _place_train_store)
+                "train_store_shape": list(coach.data.train_store.shape),
+                "train_store_bytes": coach.data.train_store.nbytes}
+    check(rec["E"]["train_store_shape"] == [host.user_num, coach.split.hi - coach.split.lo]
+          and 2 * (coach.split.hi - coach.split.lo) == host.item_num,
+          f"P: a rank's train store {rec['E']['train_store_shape']}, not its catalog columns")
     directory = [tempfile.mkdtemp() if rank == 0 else None]
     dist.broadcast_object_list(directory, src=0)
     coach.ckpt = CheckpointManager(directory[0])
@@ -3289,6 +3432,7 @@ def _check_path_p(p, n, o, seconds: float) -> dict:
         "P_epoch_peak_bytes": [r["E"]["epoch_peak_bytes"] for r in p],
         "O_epoch_peak_bytes": [e["epoch_peak_bytes"] for e in o_e],
         "P_coach_state_bytes": [r["E"]["coach_state_bytes"] for r in p],
+        "P_train_store_bytes": [r["E"]["train_store_bytes"] for r in p],
         "O_coach_state_bytes": [e["coach_state_bytes"] for e in o_e],
         "P_path_peak_bytes": [r["peak_mem_bytes"] for r in p],
         "O_path_peak_bytes": [r["peak_mem_bytes"] for r in o],
@@ -3350,6 +3494,7 @@ def main(argv=None) -> int:
     report["path_R"] = phase_path_r(dev, host_a, args.report_dir)
     report["path_M"] = phase_path_m(dev, coach_e, args.report_dir)
     report["path_Q"] = phase_path_q(dev, args.report_dir)
+    report["path_S"] = phase_path_s(dev, args.report_dir)
     report["profile_A"] = phase_profile(_rebuild_and_eval(coach_a), "A", args.report_dir)
     report["profile_C"] = phase_profile(_rebuild_and_eval(coach_c), "C", args.report_dir)
     report["profile_E_joint"] = phase_profile(_joint_phase_work(coach_e, 1), "E_joint", args.report_dir)
@@ -3362,8 +3507,8 @@ def main(argv=None) -> int:
 
     # each kernel's launches come from this slice's path that runs it: K1-K3
     # from E (dense-form training), K4 from F (sparse-form training); the
-    # other paths' beside them, and path P's (model-axis training, E's
-    # settings on a 1x2 mesh). K2's launches are those of both its entries:
+    # other paths' beside them, path P's (model-axis training, E's settings
+    # on a 1x2 mesh) and path S's (the web-scale configuration). K2's launches are those of both its entries:
     # the tanh epilogue one device runs (K2_ENTRY) and the partial product a
     # mesh runs (K2_MESH_ENTRY)
     k2_entries = (K2_ENTRY, K2_MESH_ENTRY)
@@ -3383,6 +3528,9 @@ def main(argv=None) -> int:
                "launches_P": count(p_launches),
                # path R: the bench's dense and sparse rows together
                "launches_R": count(report["path_R"]["bench"]["launches"]),
+               # path S: the one-card web-scale epoch and both demos' ranks
+               "launches_S": count(report["path_S"]["one_card"]["launches"]) + sum(
+                   count(d["launches"]) for d in report["path_S"]["demo"].values()),
                **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}
         if name == "denoise_layer1":
@@ -3427,7 +3575,7 @@ def main(argv=None) -> int:
         cases = [k, *(extra["cases"].values() if name == "segsum" else extra.values())]
         row.update(extra)
         row["ok"] = all(bool(c["ok"]) for c in cases) and launches > 0 and row["launches_P"] > 0 and (
-            row["launches_R"] > 0) and not any(row.get("launches_unfused", {}).values())
+            row["launches_R"] > 0) and row["launches_S"] > 0 and not any(row.get("launches_unfused", {}).values())
         rows.append(row)
     ok = all(row["ok"] for row in rows)
     report["ok"] = ok

@@ -359,15 +359,19 @@ def to_device(
     train_store: str = "dense",
     with_sparse_adj: bool = False,
     batch: int = 1024,
+    store_cols: tuple[int, int] | None = None,
 ) -> DeviceData:
     """Place the host arrays on ``device`` (JAX ``to_device``).
 
     ``train_store``: "dense" places the (U, I) int8 matrix (reference
-    `DataHandler.py:128`); "csr" a ``TrainCSR`` over the same padded
-    columns, offsets and degrees placed here, with the head/tail split
-    planned for rebuild blocks of ``batch`` users; the host's dense matrix
-    is then never built. ``with_sparse_adj`` builds the sparse-form main
-    adjacency from the host edges."""
+    `DataHandler.py:128`), or only its catalog columns ``store_cols = (lo,
+    hi)``, (U, hi - lo), cut on the host (a rank's range on the model axis,
+    ``parallel/sharding.py::catalog_range``; JAX ``_place_train_store``);
+    "csr" a ``TrainCSR`` over the same padded columns, offsets and degrees
+    placed here, whole whatever ``store_cols`` says, with the head/tail
+    split planned for rebuild blocks of ``batch`` users; the host's dense
+    matrix is then never built. ``with_sparse_adj`` builds the sparse-form
+    main adjacency from the host edges."""
     rows_p, cols_p = pad_edges(host.train_rows, host.train_cols, host.user_num, host.item_num)
 
     def put(a):
@@ -377,7 +381,10 @@ def to_device(
     degrees_dev = put(host.user_degrees)
     offsets_dev = put(host.csr_offsets)
     if train_store == "dense":
-        store = put(host.train_dense)
+        dense = host.train_dense
+        if store_cols is not None and tuple(store_cols) != (0, host.item_num):
+            dense = np.ascontiguousarray(dense[:, store_cols[0]:store_cols[1]])
+        store = put(dense)
     elif train_store == "csr":
         k_cut, heavy_ids = plan_head_tail(host.user_degrees, host.k_max, block=batch)
         store = make_train_csr(cols_dev, offsets_dev, degrees_dev, host.k_max, k_cut, heavy_ids)

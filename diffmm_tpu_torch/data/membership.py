@@ -8,6 +8,12 @@ tensors the loader already holds, so the sparse graph form carries no
 built by one scatter of the users' spans. Both stores give bit-identical
 0/1 rows, and the same answers from the membership test
 (:func:`contains`) of negative sampling.
+
+On a model axis that divides the catalog a rank holds only its catalog
+columns ``[lo, hi)`` of the dense store, (U, hi - lo) (``to_device``'s
+``store_cols``; JAX ``_place_train_store``): its readers take the rank's
+range (``cols``), and :func:`contains` answers for that range alone. The
+CSR store stays whole on every rank, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,17 +77,38 @@ def _scatter_ones(rows: torch.Tensor, row_idx: torch.Tensor, items: torch.Tensor
     rows.view(-1).scatter_reduce_(0, flat.reshape(-1), valid.reshape(-1).to(rows.dtype), "amax")
 
 
-def gather_rows(store, users: torch.Tensor, item_num: int) -> torch.Tensor:
-    """(B, item_num) f32 0/1 train rows for a user batch.
+def dense_rows(store: torch.Tensor, users: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The users' rows of a dense store over the catalog range ``[lo, hi)``,
+    in the store's type: a whole (U, I) store's rows are cut to the range; a
+    store that holds only the range, (U, hi - lo), gives its rows whole."""
+    rows = store.index_select(0, users.long())
+    return rows if rows.shape[1] == hi - lo else rows[:, lo:hi]
 
-    Dense store: one row gather + cast. CSR store: span gather + one
-    scatter into (B, item_num) zeros. With a head/tail plan (``k_cut <
-    k_max``) the span gather runs k_cut lanes for the whole block plus a
-    (min(n_heavy, B), k_max - k_cut) fixup for the block's heavy users, as
-    in the JAX package: the same positions, the same value, so the rows are
-    bit-identical either way."""
+
+def gather_rows(store, users: torch.Tensor, item_num: int,
+                cols: tuple[int, int] | None = None) -> torch.Tensor:
+    """(B, hi - lo) f32 0/1 train rows for a user batch over the catalog
+    range ``cols = (lo, hi)`` (default: the whole catalog).
+
+    Dense store: one row gather + cast (:func:`dense_rows`; a store cut to
+    the rank's columns holds exactly ``cols``). CSR store: span gather +
+    one scatter into (B, item_num) zeros, then the range. With a head/tail
+    plan (``k_cut < k_max``) the span gather runs k_cut lanes for the whole
+    block plus a (min(n_heavy, B), k_max - k_cut) fixup for the block's
+    heavy users, as in the JAX package: the same positions, the same value,
+    so the rows are bit-identical either way."""
+    lo, hi = (0, item_num) if cols is None else cols
     if not isinstance(store, TrainCSR):
-        return store.index_select(0, users.long()).to(torch.float32)
+        if store.shape[1] not in (item_num, hi - lo):
+            raise ValueError(f"a dense store of {store.shape[1]} columns holds neither the catalog "
+                             f"({item_num}) nor the range [{lo}, {hi})")
+        return dense_rows(store, users, lo, hi).to(torch.float32)
+    rows = _csr_rows(store, users, item_num)
+    return rows if (lo, hi) == (0, item_num) else rows[:, lo:hi]
+
+
+def _csr_rows(store: TrainCSR, users: torch.Tensor, item_num: int) -> torch.Tensor:
+    """(B, item_num) f32 0/1 rows of a CSR store (:func:`gather_rows`)."""
     users = users.long()
     b = users.shape[0]
     split = store.heavy_ids is not None and store.k_cut < store.k_max
@@ -104,7 +131,7 @@ def gather_rows(store, users: torch.Tensor, item_num: int) -> torch.Tensor:
     return rows
 
 
-def contains(store, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+def contains(store, users: torch.Tensor, items: torch.Tensor, lo: int | None = None) -> torch.Tensor:
     """Per-lane membership test: is ``(users[e], items[e])`` a train edge?
 
     Dense store: one 2-D gather. CSR store: a fixed-depth lower-bound
@@ -112,12 +139,20 @@ def contains(store, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     rounds (every lane converges: spans hold at most k_max items), as in
     the JAX package. User ids past the last user (the edge pads) are
     clamped to it, as the JAX dense gather clamps them; their answers are
-    never used."""
+    never used.
+
+    ``lo``: the first column of a dense store cut to a rank's catalog
+    columns; it answers for those columns only, and an item outside them is
+    no hit here (``data/sampling.py`` ORs the model axis's answers)."""
     csr = isinstance(store, TrainCSR)
     users = users.long().clamp_max((store.degrees if csr else store).shape[0] - 1)
     items = items.long()
     if not csr:
-        return store[users, items] != 0
+        if lo is None:
+            return store[users, items] != 0
+        loc = items - lo
+        inside = (loc >= 0) & (loc < store.shape[1])
+        return (store[users, loc.clamp(0, store.shape[1] - 1)] != 0) & inside
     lo = store.offsets[users].long()
     end = hi = lo + store.degrees[users].long()
     last = store.cols.shape[0] - 1

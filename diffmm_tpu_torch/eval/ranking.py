@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from diffmm_tpu_torch.data.membership import TrainCSR, gather_item_lists, gather_rows
+from diffmm_tpu_torch.data.membership import TrainCSR, dense_rows, gather_item_lists, gather_rows
 
 
 class EvalBatchSums(NamedTuple):
@@ -43,9 +43,10 @@ def _plain_score_topk(u, i_final, train_store, users, topk):
 
 def local_mask(train_store, users: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """(B, hi - lo) f32: 1 where a user of ``users`` has a train item of the
-    catalog range ``[lo, hi)``. A dense store's columns are sliced; a CSR
-    store's seen lists are gathered whole and the items of the range kept
-    (JAX ``local_mask_csr``)."""
+    catalog range ``[lo, hi)``. A dense store's rows of the range (a store
+    cut to the rank's columns holds just them, ``membership.dense_rows``);
+    a CSR store's seen lists are gathered whole and the items of the range
+    kept (JAX ``local_mask_csr``)."""
     width = hi - lo
     if isinstance(train_store, TrainCSR):
         seen, valid = gather_item_lists(train_store, users)
@@ -53,7 +54,7 @@ def local_mask(train_store, users: torch.Tensor, lo: int, hi: int) -> torch.Tens
         loc = torch.where(valid & (loc >= 0) & (loc < width), loc, width)  # out of range: dropped
         mask = torch.zeros((users.shape[0], width + 1), dtype=torch.float32, device=users.device)
         return mask.scatter_(1, loc, 1.0)[:, :width]
-    return train_store.index_select(0, users.long())[:, lo:hi].to(torch.float32)
+    return dense_rows(train_store, users, lo, hi).to(torch.float32)
 
 
 def make_score_topk(topk: int, mesh=None):
@@ -69,8 +70,9 @@ def make_score_topk(topk: int, mesh=None):
     the replicated call's (ties at the -1e8 mask floor may order
     differently; masked items are train items, never test items).
 
-    A dense store's columns are sliced; a CSR store's seen lists are
-    gathered whole and each rank keeps the items of its range (JAX
+    A dense store's columns are sliced (or are the rank's own, where the
+    store is cut on the model axis); a CSR store's seen lists are gathered
+    whole and each rank keeps the items of its range (JAX
     ``local_mask_csr``). ``i_final`` is the whole (I, d) table. A catalog
     the axis does not divide, or shards thinner than k, take the replicated
     branch, as in the JAX package (``ranking.py:83-86``)."""

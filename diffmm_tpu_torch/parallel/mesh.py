@@ -110,15 +110,25 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1):
         raise RuntimeError("make_mesh needs a process group: call init_distributed() first")
     world = dist.get_world_size()
     n = world if n_devices is None else int(n_devices)
-    if n > world:
-        raise ValueError(f"requested {n} devices, only {world} available")
-    if n < world:
-        raise ValueError(f"the mesh spans every rank: requested {n} devices of a world of {world}")
-    if n % model_parallel:
-        raise ValueError(f"model_parallel={model_parallel} must divide {n} devices")
+    refusal = mesh_refusal(n, world, model_parallel)
+    if refusal:
+        raise ValueError(refusal)
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (n // model_parallel, model_parallel),
                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def mesh_refusal(n_devices: int, world: int, model_parallel: int) -> str | None:
+    """Why :func:`make_mesh` refuses ``n_devices`` of a world of ``world``
+    ranks with ``model_parallel`` on the model axis, or None where it
+    builds the mesh (a launcher asks before it starts any rank)."""
+    if n_devices > world:
+        return f"requested {n_devices} devices, only {world} available"
+    if n_devices < world:
+        return f"the mesh spans every rank: requested {n_devices} devices of a world of {world}"
+    if model_parallel < 1 or n_devices % model_parallel:
+        return f"model_parallel={model_parallel} must divide {n_devices} devices"
+    return None
 
 
 def single_device_mesh():

@@ -6,8 +6,8 @@ ranks hold tensors of their own and take their part by index:
 
 * **replicated**: the narrow parameters (``u_embs``, the projections, the
   modality weights, the denoisers' time and hidden layers) and their Adam
-  moments, the normalisation vectors, the features, the schedule, the train
-  store, the rebuilt edge buffers.
+  moments, the normalisation vectors, the features, the schedule, the CSR
+  train store, the rebuilt edge buffers.
 * **data axis** (:class:`Shard` ``span`` of a block's rows): the rows of
   every diffusion, rebuild and eval block (JAX ``shard_batch`` and
   ``shard_blocks``).
@@ -23,7 +23,11 @@ ranks hold tensors of their own and take their part by index:
   (``i_embs`` rows, the first in-layer's input rows, the last out-layer's
   columns and bias), with their Adam moments (:func:`place_adam_state`),
   and so are the dense form's (U, I) blocks: each rank builds its (U, I/m)
-  block (``ops/graph.py``).
+  block (``ops/graph.py``). The dense (U, I) int8 train store keeps a
+  rank's catalog columns too (JAX ``_place_train_store``: the largest
+  array of the dense regime), cut on the host (``data/loader.py::
+  to_device``'s ``store_cols``, :func:`catalog_range`); its readers take
+  the rank's range (``data/membership.py``).
 
 How a step cuts its work is a :class:`Split` (:func:`make_split`): on a
 catalog the model axis divides, a diffusion or rebuild block's rows over
@@ -116,7 +120,8 @@ def catalog_spec(last_dim: int, mesh) -> str:
 
 def shard_device_data(data, mesh):
     """``data`` (``data/loader.DeviceData``) with the sparse-form main
-    adjacency given this rank's edge range; every tensor stays whole."""
+    adjacency given this rank's edge range; every tensor stays as it is (a
+    dense train store was cut by ``to_device``)."""
     if data.adj is None or not hasattr(data.adj, "shard"):
         return data
     return data._replace(adj=data.adj._replace(shard=edge_shard(mesh)))

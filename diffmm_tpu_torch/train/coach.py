@@ -43,11 +43,12 @@ which is the one-device function (JAX ``coach.py:206-221, 303-306,
 442-460``). The catalog-wide state is split over the model axis as JAX's
 ``NamedSharding``s split it (``parallel/sharding.py``): each rank holds its
 rows of ``i_embs``, its catalog range of each denoiser's first in-layer and
-its columns of the last out-layer, with their Adam moments, and on the
-dense form its (U, I/m) column block of every adjacency; the rest is
-replicated. Each rank takes its part of every diffusion, rebuild, joint and
-eval block (a :class:`~diffmm_tpu_torch.parallel.sharding.Split`; the batch
-sizes must divide over the data axis), sums its range of the sparse form's
+its columns of the last out-layer, with their Adam moments, its (U, I/m)
+columns of a dense train store, and on the dense form its (U, I/m) column
+block of every adjacency; the rest is replicated (a CSR store too). Each
+rank takes its part of every diffusion, rebuild, joint and eval block (a
+:class:`~diffmm_tpu_torch.parallel.sharding.Split`; the batch sizes must
+divide over the data axis), sums its range of the sparse form's
 edges (K4's mesh forms), and the steps' collectives make the rest global
 (``train/steps.py``). The steps are captured CUDA graphs under NCCL, with
 their collectives inside; under gloo (named for CPU ranks and for ranks
@@ -77,6 +78,7 @@ import torch.distributed as dist
 from diffmm_tpu_torch.config import Config, check_slice_support
 from diffmm_tpu_torch.convert import tree_to
 from diffmm_tpu_torch.data.loader import EDGE_ALIGN, HostData, to_device
+from diffmm_tpu_torch.data.membership import TrainCSR
 from diffmm_tpu_torch.data.sampling import negative_sampling
 from diffmm_tpu_torch.diffusion.schedule import make_schedule
 from diffmm_tpu_torch.eval.ranking import dcg_table, eval_epoch
@@ -87,6 +89,7 @@ from diffmm_tpu_torch.ops.topk import make_csr_gather_layout, plan_rebuild_bucke
 from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
 from diffmm_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
 from diffmm_tpu_torch.parallel.sharding import (
+    catalog_range,
     check_batch_divisibility,
     edge_shard,
     gather_adam_state,
@@ -126,6 +129,14 @@ _DENSE_STORES = {"int8": (torch.int8, 1.0), "bf16": (torch.bfloat16, 2.0), "int4
 _PARAM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 _LOSS_NAMES = {"image": "image loss", "text": "text loss", "audio": "audio loss"}
+
+
+def resolve_dense_store(name: str) -> tuple[torch.dtype, float]:
+    """``train.dense_store``'s block storage type and bytes a cell (JAX
+    ``resolve_dense_store``)."""
+    if name not in _DENSE_STORES:
+        raise ValueError(f"train.dense_store must be {'|'.join(_DENSE_STORES)}, got {name!r}")
+    return _DENSE_STORES[name]
 
 
 def dense_graph_budget_bytes(device: torch.device, state_bytes: int = 0) -> int:
@@ -247,7 +258,7 @@ class Coach:
         # the KNN ablation's modality graphs replace the rebuild
         self.knn = bool(config.hyper.use_knn_adj)
 
-        self.dense_store_dtype, bytes_per_cell = _DENSE_STORES[config.train.dense_store]
+        self.dense_store_dtype, bytes_per_cell = resolve_dense_store(config.train.dense_store)
         budget = DENSE_GRAPH_BUDGET_BYTES
         if config.train.graph_form == "auto":
             if config.train.dense_budget_gb > 0:
@@ -286,9 +297,12 @@ class Coach:
             self.train_store_form = store
         else:
             raise ValueError(f"train.train_store must be auto|dense|csr, got {store!r}")
+        # a dense train store keeps a rank's catalog columns only (JAX
+        # _place_train_store: the largest array of the dense regime)
         self.data = to_device(
             host, self.device, self.train_store_form,
             with_sparse_adj=not self.dense_graphs, batch=config.train.batch,
+            store_cols=None if mesh is None else catalog_range(host.item_num, mesh),
         )
         if mesh is not None:
             self.data = shard_device_data(self.data, mesh)
@@ -555,8 +569,7 @@ class Coach:
 
         # phase 0: negative sampling (reference Main.py:137)
         with self.timer.phase("neg_sampling", fence_dev):
-            negs = negative_sampling(data.train_rows, data.train_store, self.host.item_num,
-                                     generator=self.generator)
+            negs = self.sample_negatives()
         # phase 1: diffusion training (reference Main.py:144-192)
         with self.timer.phase("diffusion", fence_dev):
             modal_acc = steps.diffusion_epoch(
@@ -577,6 +590,18 @@ class Coach:
         with self.timer.phase("joint", fence_dev):
             joint_acc = self._joint_phase(tables["perm"], negs, tables["gcn_scalars"], hp)
         return modal_acc, joint_acc
+
+    def sample_negatives(self) -> torch.Tensor:
+        """One negative item per padded train edge from the Coach's
+        generator (phase 0). Where the model axis cuts the dense train store
+        each rank tests its own columns and the axis ORs the answers
+        (``data/sampling.py``): the negatives of the whole store."""
+        store, split = self.data.train_store, self.split
+        cut = None
+        if split is not None and split.cat is not None and not isinstance(store, TrainCSR):
+            cut = (split.lo, split.cat.group)
+        return negative_sampling(self.data.train_rows, store, self.host.item_num,
+                                 generator=self.generator, cut=cut)
 
     def train_epoch(self, epoch: int, fence: bool = False) -> dict[str, float]:
         """One training epoch: negative sampling, diffusion training, graph

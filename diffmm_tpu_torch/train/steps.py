@@ -37,7 +37,8 @@ step's one loss, and so are its gradients:
 
 * a diffusion block's rows go over ``split.rows`` and, where the model
   axis cuts the catalog, its catalog columns over the model axis: the
-  rank's x0, noise and denoiser shards, the catalog products summed over
+  rank's x0 (from its columns of the dense train store, which holds no
+  others), noise and denoiser shards, the catalog products summed over
   the axis before anything nonlinear (``models/denoise.py``), the row
   losses the rank's columns' shares (``diffusion/gaussian.py``);
 * a joint block's rows go over the world (``split.world``): the step
@@ -217,7 +218,7 @@ def diffusion_block(
                      for _ in range(n_modal)]
             t, noise = (torch.stack(d) for d in zip(*draws))
         users, weights, t, noise = users[a:b], weights[a:b], t[:, a:b], noise[:, a:b, lo:hi]
-    x0 = gather_rows(train_store, users, item_num)[:, lo:hi]
+    x0 = gather_rows(train_store, users, item_num, (lo, hi))
     i_embs = i_embs if split is None else local_leaf(i_embs, split.gcn_place["i_embs"], split)
     live = [_trainable(p) for p in dn_params_list]
     with torch.enable_grad():
@@ -327,7 +328,7 @@ def rebuild_block_tables(
     batch = users.shape[0]
     lo, hi = _cols(split, item_num)
     a, b = (0, batch) if split is None else split.rows.span(batch)
-    x0 = gather_rows(train_store, users[a:b], item_num)[:, lo:hi]
+    x0 = gather_rows(train_store, users[a:b], item_num, (lo, hi))
     tables = []
     for params in denoisers:
         raw = None

@@ -47,7 +47,8 @@ def test_module_walk_finds_the_training_slice():
                  "diffmm_tpu_torch.tools.sweep", "diffmm_tpu_torch.tools.serve_bench",
                  "diffmm_tpu_torch.bench", "diffmm_tpu_torch.tools.scale_probe",
                  "diffmm_tpu_torch.tools.store_ab_probe", "diffmm_tpu_torch.tools.fused_overhead_probe",
-                 "diffmm_tpu_torch.tools.joint_profile"):
+                 "diffmm_tpu_torch.tools.joint_profile", "diffmm_tpu_torch.tools.bigshard_demo",
+                 "diffmm_tpu_torch.utils.contracts"):
         assert name in MODULES
 
 

@@ -99,3 +99,67 @@ def test_store_from_jax_loader(mini):
     assert (got.k_max, got.k_cut) == (store.k_max, store.k_cut)
     for name in ("cols", "offsets", "degrees", "heavy_ids"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), getattr(store, name).numpy())
+
+
+def _tiny_coach(form: str):
+    """tests/conftest.py's tiny configuration (50 x 40, seed 3) on the CPU,
+    in ``form``, fused chunks of two epochs."""
+    from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.utils.logging import NullLog
+
+    cfg = TConfig()
+    cfg.base.seed = 7
+    cfg.base.latdim = 16
+    cfg.base.denoise_dim = "[32]"
+    cfg.train.batch = 16
+    cfg.train.test_batch = 8
+    cfg.train.epoch = 3
+    cfg.hyper.steps = 5
+    cfg.train.graph_form = form
+    cfg.train.epoch_scan = 2
+    host = make_synthetic_host_data(cfg, user_num=50, item_num=40, seed=3)
+    host._train_dense = None  # a small shape's synthetic data keeps its dense matrix
+    return Coach(cfg, host, device="cpu", log=NullLog())
+
+
+def test_sparse_form_has_no_ui_array():
+    """The web-scale contract (the twin of tests/test_membership.py:205-229):
+    a sparse-form Coach holds no O(U·I) array, on the card or on the host,
+    after a single epoch, an eval and a fused chunk with its evals. The
+    walk covers the Coach's data, store, adjacencies, parameters, Adam
+    states, edge buffers, captured-step buffers and host data."""
+    from diffmm_tpu_torch.utils.contracts import assert_no_ui_arrays
+
+    coach = _tiny_coach("sparse")
+    assert isinstance(coach.data.train_store, tm.TrainCSR)
+    coach.train_epoch(0)
+    coach.test_epoch()
+    coach.train_epochs_fused(1, 2, "test")
+    assert assert_no_ui_arrays(vars(coach), 50, 40, "coach") > 50
+    assert coach.host._train_dense is None, "host dense matrix was materialized"
+
+
+def test_ui_walk_fails_on_the_dense_form():
+    """The control: a dense-form Coach holds its (U, I) train store and
+    blocks, and the walk fails on them, naming where (so the walk above is
+    not vacuous); so does a plain object's attribute, a NamedTuple's field
+    and a numpy array of U·I elements in another shape."""
+    import collections
+
+    from diffmm_tpu_torch.utils.contracts import assert_no_ui_arrays
+
+    coach = _tiny_coach("dense")
+    with pytest.raises(AssertionError, match=r"coach\['data'\]\.train_store.*\(50, 40\)"):
+        assert_no_ui_arrays(vars(coach), 50, 40, "coach")
+
+    class Holder:
+        def __init__(self, x):
+            self.x = x
+
+    pair = collections.namedtuple("Pair", "a b")
+    with pytest.raises(AssertionError, match=r"root\.x\.b"):
+        assert_no_ui_arrays(Holder(pair(torch.zeros(3), np.zeros(2000, np.int8))), 50, 40, "root")
+    held = Holder(None)
+    held.x = [held, {"ok": torch.zeros((49, 40))}]  # a cycle, walked once
+    assert assert_no_ui_arrays(held, 50, 40, "root") == 1

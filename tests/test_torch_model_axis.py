@@ -109,7 +109,7 @@ def _rebuild(coach, inp) -> dict:
     split = coach.split
     lo, hi = (0, I) if split is None else (split.lo, split.hi)
     denoisers, apply = ts.rebuild_forward(coach.dn_params, "f32", None, split)
-    x0 = gather_rows(coach.data.train_store, torch.arange(U), I)[:, lo:hi]
+    x0 = gather_rows(coach.data.train_store, torch.arange(U), I, (lo, hi))
     raw = torch.randn((U, I), generator=torch.Generator().manual_seed(9))
     scores = []
     for den in denoisers:

@@ -172,3 +172,27 @@ def test_diffusion_epoch_accumulator_quirk(monkeypatch):
     for losses in seq:
         want = (want + losses) / max(float(losses.sum()), 1e-12)
     torch.testing.assert_close(acc, want, rtol=0, atol=0)
+
+
+def test_diffusion_accumulator_overflows_as_jax(monkeypatch):
+    """At a web-scale catalog a block's diffusion losses are about 1e-4, and
+    the reference's accounting (``Main.py:174-185``) multiplies the
+    accumulator by about 1 / sum(losses) a block: within a few dozen blocks
+    it overflows f32 to inf. The JAX package's ``_diffusion_epoch`` carries
+    the same expression (``diffmm_tpu/train/steps.py:249``), so both report
+    inf for the same losses, block for block."""
+    import jax.numpy as jnp
+
+    seq = [torch.tensor([1.2e-4, 0.9e-4]) * (1 + 0.01 * b) for b in range(40)]
+    it = iter(seq)
+    monkeypatch.setattr(ts, "diffusion_block", lambda *a, **k: next(it))
+    n = len(seq)
+    acc = ts.diffusion_epoch(None, [{}, {}], [AdamState(0, [], []), AdamState(0, [], [])],
+                             {"modal_proj": [], "i_embs": None}, [], None,
+                             torch.zeros((n, 4), dtype=torch.int32), torch.ones((n, 4)), 1e-3, {}, 5)
+    j_acc = jnp.zeros(2, jnp.float32)
+    for losses in seq:
+        j = jnp.asarray(losses.numpy())
+        j_acc = (j_acc + j) / jnp.maximum(jnp.sum(j), 1e-12)
+    assert torch.isinf(acc).all() and np.isinf(np.asarray(j_acc)).all()
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(j_acc))
