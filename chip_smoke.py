@@ -393,6 +393,7 @@ def phase_kernels(dev) -> dict:
     out.update(_spmm_dual_shard_cases(dev, mask, z_u, z_i))
 
     out.update(_denoise_cases(dev, gen))
+    out.update(_s_shape_cases(dev))
     out.update(_segsum_cases(dev, gen))
     out.update(_segsum_backward_cases(dev, gen))
     out.update(_gather_backward_cases(dev, gen))
@@ -688,6 +689,96 @@ def _denoise_cases(dev, gen) -> dict:
             lambda: dm.layer2_plain(h, w2, b2), lambda: h.double() @ w2.double() + b2.double(),
             lambda: torch.addmm(b2, h, w2), (B * H + H * K + K + B * K) * 4, prep_ms["w2"])
         del x, w1x, h, w2, b2, w1p, w2p
+    return out
+
+
+def _s_shape_cases(dev) -> dict:
+    """K1-K3 at path S's shapes, on data of their own stream. K1 (int8) on
+    the dense demo's rank block: the columns [15,000, 30,000) of the
+    60,000 x 30,000 catalog at density 0.0015, built in place from the
+    whole unique edges as the demo builds it, d 64 (the demo's GCN forward:
+    no backward). K2 with its tanh epilogue at S (a)'s rebuild, (512,
+    100,000, 64), and as its partial product there and on the sparse demo's
+    rank block, (128, 50,000, 64): 128 of the block's 512 rows over the
+    data axis of 4, 50,000 of the 100,000 columns over the model axis of 2.
+    K3 at (512, 64, 100,000) and (128, 64, 50,000). K1 against its plain
+    version within TOL, bitwise across two launches, one launch a call; K2
+    and K3 as :func:`_gemm_case` holds them."""
+    import torch
+
+    from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
+    from diffmm_tpu_torch.ops.kernels import denoise_mlp as dm
+    from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    U, I, d = 60_000, 30_000, 64
+    flat = torch.unique(torch.randint(0, U * I, (int(U * I * 0.0015),), generator=gen, device=dev))
+    rows, cols = (flat // I).to(torch.int32), (flat % I).to(torch.int32)
+    lo, hi = I // 2, I
+    mat = build_dense_bi_adj_device(rows, cols, U, I, torch.int8, cols=(lo, hi)).mat
+    del flat, rows, cols
+    z_u = torch.randn((U, d), generator=gen, device=dev)
+    z_i = torch.randn((hi - lo, d), generator=gen, device=dev)
+    before = sd.LAUNCHES["spmm_dual"]
+    yu, yi = sd.spmm_dual(mat, z_u, z_i)
+    launches = sd.LAUNCHES["spmm_dual"] - before
+    yu2, yi2 = sd.spmm_dual(mat, z_u, z_i)
+    pu, pi = sd.spmm_dual_plain(mat, z_u, z_i)
+    torch.cuda.synchronize()
+    rtol, atol = TOL["spmm_dual"]
+    err = max(max_err(yu, pu), max_err(yi, pi))
+    bitwise = torch.equal(yu, yu2) and torch.equal(yi, yi2)
+    ok = (torch.allclose(yu, pu, rtol=rtol, atol=atol) and torch.allclose(yi, pi, rtol=rtol, atol=atol)
+          and bitwise and launches == 1)
+    check(ok, f"spmm_dual_s_shard: max_abs_err {err}, bitwise {bitwise}, launches {launches}")
+    del yu, yi, yu2, yi2, pu, pi
+    m16 = mat.to(torch.bfloat16)
+    zu16, zi16 = z_u.to(torch.bfloat16), z_i.to(torch.bfloat16)
+    n_bytes = mat.numel() * mat.element_size() + 2 * (U + hi - lo) * d * 4
+    b, by = bound_ms(n_bytes, 2 * 2 * U * (hi - lo) * d, BF16_FLOPS)
+    p = sd.plan(U, hi - lo, d, "int8", dev)
+    rec = {
+        "ok": ok, "store": "int8", "shape": [U, hi - lo, d], "columns": [lo, hi], "edges_in_block": int(
+            (mat != 0).sum()), "max_abs_err": err, "bitwise_across_launches": bitwise,
+        "launches_per_call": launches,
+        "plan": {"cluster": p.cluster, "col_blocks": p.col_blocks, "row_blocks": p.row_blocks,
+                 "rows": p.rows, "groups": p.groups},
+        "scratch_bytes": p.partial_bytes(U, hi - lo, d), "m_bytes": mat.numel() * mat.element_size(),
+        "ms": time_ms(lambda: sd.spmm_dual(mat, z_u, z_i), 20),
+        "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, z_u, z_i), 5),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": time_ms(lambda: (m16 @ zi16, m16.T @ zu16), 20),
+    }
+    del m16, mat, z_u, z_i
+    out["spmm_dual_s_shard"] = rec
+    print(f"[kernels] spmm_dual_s_shard: {json.dumps(rec)}")
+
+    H = 64
+    for B, K, whole_k, suffix in ((512, 100_000, 100_000, "_s"), (128, 50_000, 100_000, "_s_shard")):
+        x = torch.randn((B, K), generator=gen, device=dev)
+        w1x = torch.randn((K, H), generator=gen, device=dev) * math.sqrt(2.0 / (whole_k + 10 + H))
+        tp = torch.randn((B, H), generator=gen, device=dev) * 0.1
+        h = torch.tanh(torch.randn((B, H), generator=gen, device=dev))
+        w2 = torch.randn((H, K), generator=gen, device=dev) * math.sqrt(2.0 / (H + whole_k))
+        b2 = torch.randn((K,), generator=gen, device=dev) * 0.001
+        w1p, w2p = dm.prepare_weight(w1x), dm.prepare_weight(w2)
+        prep_ms = {"w1x": time_ms(lambda: dm.prepare_weight(w1x), 5),
+                   "w2": time_ms(lambda: dm.prepare_weight(w2), 5)}
+        if suffix == "_s":  # one device: the tanh epilogue
+            out[K2_ENTRY + suffix] = _gemm_case(
+                K2_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1(x, w1p, tp),
+                lambda: dm.layer1_plain(x, w1x, tp), lambda: torch.tanh(x.double() @ w1x.double() + tp.double()),
+                lambda: torch.tanh(torch.addmm(tp, x, w1x)), (B * K + K * H + 2 * B * H) * 4, prep_ms["w1x"])
+        out[K2_MESH_ENTRY + suffix] = _gemm_case(
+            K2_MESH_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1_partial(x, w1p),
+            lambda: dm.layer1_partial_plain(x, w1x), lambda: x.double() @ w1x.double(),
+            lambda: torch.matmul(x, w1x), (B * K + K * H + B * H) * 4, prep_ms["w1x"])
+        out["denoise_layer2" + suffix] = _gemm_case(
+            "denoise_layer2" + suffix, (B, H, K), lambda: dm.denoise_layer2(h, w2p, b2),
+            lambda: dm.layer2_plain(h, w2, b2), lambda: h.double() @ w2.double() + b2.double(),
+            lambda: torch.addmm(b2, h, w2), (B * H + H * K + K + B * K) * 4, prep_ms["w2"])
+        del x, w1x, tp, h, w2, b2, w1p, w2p
     return out
 
 
@@ -2175,12 +2266,14 @@ S_DEMOS = {"dense": [], "sparse": ["--form", "sparse", "--users", "200000", "--i
                                    "--density", "5e-5", "--batch", "512", "--denoise-dim", "[64]"]}
 # The reference's diffusion-loss accounting (Main.py:174-185; JAX
 # diffmm_tpu/train/steps.py:249): acc = (acc + losses) / max(sum(losses),
-# 1e-12) per block. At 100,000 items a row's losses are about 1e-4, so acc
-# grows about 5,000x a block and overflows f32 to inf within S's 391 blocks,
-# in the JAX package as here (tests/test_torch_train_diffusion.py::
-# test_diffusion_accumulator_overflows_as_jax). Only the logged value
-# overflows: the step's gradient divides by the block's own detached sum.
-# S checks those two losses are not NaN, and the trained parameters finite.
+# 1e-12) per block, so acc grows by 1 / sum(losses) a block wherever a
+# block's losses sum below 1, and over S's 391 blocks it overflows f32 to
+# inf, in the JAX package's own diffusion_epoch as here (tests/
+# test_torch_train_diffusion.py::test_diffusion_accumulator_overflows_as_jax).
+# Only the logged value overflows: the step's gradient divides by the
+# block's own detached sum. S checks those two losses are not NaN, and the
+# blocks' own losses (their sums' range, the blocks below 1, the last
+# block's) and the trained parameters finite.
 S_OVERFLOWING = ("image loss", "text loss")
 S_ROW = re.compile(r"^  (?P<label>.+?)\s+global\s+[\d.]+ MiB\s+per-device\s+[\d.]+ MiB\s+x(?P<f>\d+)\s+"
                    r"\((?P<g>\d+) / (?P<l>\d+) bytes\)$")
@@ -2199,15 +2292,61 @@ def _s_config():
     return cfg
 
 
+def _s_k4_cases(coach) -> dict:
+    """K4 on S (a)'s own graphs after its epoch: the train graph's user
+    direction (200,000 segments over the 100,000 x 64 item table) and item
+    direction (100,000 segments over the 200,000 x 64 user table), the
+    rebuilt graphs' stacked user direction (both modalities, one launch)
+    and the first rebuilt graph's item direction; then a hub cut into
+    256-edge pieces at S's shape: the train edge count over 100,000 item
+    segments, one of them holding 198,000 edges (99% of the users; yelp's
+    rebuilt hub holds 38,389 of 38,403), over the user table. Tables drawn
+    from a stream of their own; each case as :func:`_k4_case` holds it."""
+    import torch
+
+    from diffmm_tpu_torch.ops.kernels import segsum as sg
+
+    dev = coach.device
+    adj, modal = coach.data.adj, coach.modal_adjs
+    gen = torch.Generator(device=dev).manual_seed(14)
+    nnz = adj.ui_cols.numel()
+    hub_ids = hub_segment_ids(gen, adj.item_num, nnz, 20, adj.user_num * 99 // 100, dev)
+    hub_offsets = sg.segment_offsets(hub_ids, adj.item_num)
+    hub_src = torch.randint(0, adj.user_num, (nnz,), generator=gen, device=dev).to(torch.int32)
+    hub_src[int(hub_offsets[-1]):] = adj.user_num  # the pads' index: one past the table
+    out = {}
+    for case, n_rows, src, offsets in (
+            ("user", adj.item_num, adj.ui_cols, adj.ui_offsets),
+            ("item", adj.user_num, adj.iu_cols, adj.iu_offsets),
+            ("stacked", adj.item_num, [m.ui_cols for m in modal], modal[0].ui_offsets),
+            ("modal_item", adj.user_num, modal[0].iu_cols, modal[0].iu_offsets),
+            ("item_hub", adj.user_num, hub_src, hub_offsets)):
+        srcs = [src] if isinstance(src, torch.Tensor) else list(src)
+        tables = torch.randn((len(srcs), n_rows, 64), generator=gen, device=dev)
+        table, arg = (tables[0], srcs[0]) if len(srcs) == 1 else (tables, srcs)
+        rec = _k4_case(table, arg, offsets, iters=20)
+        check(rec["ok"], f"S K4 {case}: {rec}")
+        out[case] = rec
+        print(f"[path S] K4 {case}: {json.dumps(rec)}")
+    return out
+
+
 def _s_one_card(dev) -> dict:
     """(a) One fenced sparse epoch and its eval at 200,000 x 100,000 on the
     card through the plain Coach (``drive_training``: every counter set to
     0 just before, read just after), the no-O(U·I) walk over the Coach
-    after both, and its peak below U·I bytes."""
+    after both, and its peak below U·I bytes. The logged diffusion losses
+    may overflow (``S_OVERFLOWING``), so the diffusion blocks' own losses,
+    which nothing accumulates, are read instead (the last block's, the
+    smallest and largest block sum, the blocks summing below 1: copies the
+    diffusion step writes, captured with it) and must be finite and
+    positive, as must the trained parameters. Then K4 on the Coach's graphs
+    (:func:`_s_k4_cases`)."""
     import torch
 
     from diffmm_tpu_torch.data.membership import TrainCSR
     from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.train import steps
     from diffmm_tpu_torch.train.optim import tree_leaves
     from diffmm_tpu_torch.utils.contracts import assert_no_ui_arrays
 
@@ -2216,7 +2355,27 @@ def _s_one_card(dev) -> dict:
     host = make_synthetic_host_data(cfg, seed=1, **S_SHAPE)
     data_s = time.perf_counter() - t0
     U, I = host.user_num, host.item_num
+    last = torch.full((len(S_SHAPE["modalities"]),), float("nan"), device=dev)
+    sums = torch.tensor([math.inf, -math.inf], device=dev)  # the smallest and largest block sum
+    below_one = torch.zeros((), dtype=torch.int32, device=dev)  # blocks whose sum grows the accumulator
+    block = steps.diffusion_block
+
+    def recorded(*args, **kwargs):
+        losses = block(*args, **kwargs)
+        total = losses.sum()
+        last.copy_(losses)
+        sums.copy_(torch.stack([torch.minimum(sums[0], total), torch.maximum(sums[1], total)]))
+        below_one.add_((total < 1).to(torch.int32))
+        return losses
+
+    steps.diffusion_block = recorded
     rec, coach = drive_training(dev, cfg, host, "S", epochs=1, overflowing=S_OVERFLOWING)
+    steps.diffusion_block = block
+    rec.update({"last_diffusion_block_losses": last.tolist(), "diffusion_block_sum_range": sums.tolist(),
+                "diffusion_blocks_below_one": int(below_one)})
+    check(all(math.isfinite(v) and v > 0 for v in rec["last_diffusion_block_losses"] + rec[
+        "diffusion_block_sum_range"]), f"S: the diffusion blocks' own losses {rec['last_diffusion_block_losses']}, "
+          f"sums {rec['diffusion_block_sum_range']}")
     params = tree_leaves(coach.gcn_params) + [t for p in coach.dn_params for t in tree_leaves(p)]
     check(all(bool(torch.isfinite(t).all()) for t in params), "S: non-finite parameters after the epoch")
     store = coach.data.train_store
@@ -2230,10 +2389,11 @@ def _s_one_card(dev) -> dict:
     rec.update({"data_s": data_s, "own_peak_bytes": own_peak, "ui_bytes": U * I, "csr_store_bytes": csr_bytes,
                 "dense_store_gib": U * I / 2**30, "store_factor": U * I / csr_bytes,
                 "test_users": int(host.test_users.shape[0])})
+    print(f"[path S] (a) {json.dumps({k: v for k, v in rec.items() if k != 'graphs'})}")
+    rec["k4"] = _s_k4_cases(coach)
     del coach
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[path S] (a) {json.dumps({k: v for k, v in rec.items() if k != 'graphs'})}")
     return rec
 
 
@@ -3303,9 +3463,11 @@ def mesh_path_p(report_dir: str) -> dict:
                 "epoch_peak_bytes": torch.cuda.max_memory_allocated(dev), "held_at_start_bytes": held,
                 "coach_state_bytes": coach_state_bytes(coach),
                 # the dense train store's columns on the model axis (JAX _place_train_store)
-                "train_store_shape": list(coach.data.train_store.shape),
-                "train_store_bytes": coach.data.train_store.nbytes}
+                "train_store_shape": list(coach.data.train_store.block.shape),
+                "train_store_cols": [coach.data.train_store.lo, coach.data.train_store.hi],
+                "train_store_bytes": coach.data.train_store.block.nbytes}
     check(rec["E"]["train_store_shape"] == [host.user_num, coach.split.hi - coach.split.lo]
+          and rec["E"]["train_store_cols"] == [coach.split.lo, coach.split.hi]
           and 2 * (coach.split.hi - coach.split.lo) == host.item_num,
           f"P: a rank's train store {rec['E']['train_store_shape']}, not its catalog columns")
     directory = [tempfile.mkdtemp() if rank == 0 else None]
@@ -3541,7 +3703,8 @@ def main(argv=None) -> int:
                      "int4_store": kernels["spmm_dual_int4"],
                      "int4_backward": kernels["spmm_dual_int4_backward"],
                      "model_axis_shard_int8": kernels["spmm_dual_shard_int8"],
-                     "model_axis_shard_int4": kernels["spmm_dual_shard_int4"]}
+                     "model_axis_shard_int4": kernels["spmm_dual_shard_int4"],
+                     "S_dense_demo_shard": kernels["spmm_dual_s_shard"]}
         elif name == "segsum":
             # the fused entry on every path; its other cases in brief (in full in the report)
             row["unfused_ms"] = k["unfused_ms"]
@@ -3550,6 +3713,9 @@ def main(argv=None) -> int:
             extra = {"cases": {key: {f: rec[f] for f in K4_CASE_FIELDS if f in rec}
                                for key, rec in kernels.items()
                                if key.startswith("segsum_") and key != "segsum_user"}}
+            # path S (a)'s own graphs and a hub at its shape
+            extra["cases"].update({f"S_{key}": {f: rec[f] for f in K4_CASE_FIELDS if f in rec}
+                                   for key, rec in report["path_S"]["one_card"]["k4"].items()})
             # the mesh forms (sharded_sorted_segment_sum, sharded_ranked_segment_sum):
             # one launch over a rank's edge slice and an all-reduce
             row["mesh_form"] = {"replaces": ["diffmm_tpu/ops/pallas/segsum.py:455",
@@ -3563,11 +3729,16 @@ def main(argv=None) -> int:
                      "partial": kernels[K2_MESH_ENTRY],
                      "partial_yelp_shape": kernels[K2_MESH_ENTRY + "_yelp"],
                      "model_axis_shard": kernels[K2_MESH_ENTRY + "_shard"],
-                     "model_axis_yelp_shard": kernels[K2_MESH_ENTRY + "_yelp_shard"]}
+                     "model_axis_yelp_shard": kernels[K2_MESH_ENTRY + "_yelp_shard"],
+                     "S_shape": kernels[K2_ENTRY + "_s"],
+                     "partial_S_shape": kernels[K2_MESH_ENTRY + "_s"],
+                     "partial_S_sparse_demo_shard": kernels[K2_MESH_ENTRY + "_s_shard"]}
         else:
             extra = {"yelp_shape": kernels[name + "_yelp"],
                      "model_axis_shard": kernels[name + "_shard"],
-                     "model_axis_yelp_shard": kernels[name + "_yelp_shard"]}
+                     "model_axis_yelp_shard": kernels[name + "_yelp_shard"],
+                     "S_shape": kernels[name + "_s"],
+                     "S_sparse_demo_shard": kernels[name + "_s_shard"]}
         if name.startswith("denoise"):
             row.update({key: k[key] for key in ("bound_design_ms", "bound_design", "bound_f32_fma_ms",
                                                 "max_err_vs_f64", "plain_max_err_vs_f64",

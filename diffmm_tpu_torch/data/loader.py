@@ -25,7 +25,7 @@ import scipy.sparse as sp
 import torch
 
 from diffmm_tpu_torch.config import Config
-from diffmm_tpu_torch.data.membership import make_train_csr, plan_head_tail
+from diffmm_tpu_torch.data.membership import DenseShard, make_train_csr, plan_head_tail
 from diffmm_tpu_torch.ops.graph import build_bi_adj_host
 
 # Modality layout per dataset (reference `DataHandler.py:33-37`)
@@ -211,7 +211,7 @@ class DeviceData(NamedTuple):
     train_cols: torch.Tensor
     user_degrees: torch.Tensor
     csr_offsets: torch.Tensor
-    train_store: object  # (U, I) int8 tensor or membership.TrainCSR
+    train_store: object  # (U, I) int8 tensor, membership.DenseShard or membership.TrainCSR
     raw_feats: list[torch.Tensor]
     test_users: torch.Tensor
     test_items: torch.Tensor
@@ -364,8 +364,9 @@ def to_device(
     """Place the host arrays on ``device`` (JAX ``to_device``).
 
     ``train_store``: "dense" places the (U, I) int8 matrix (reference
-    `DataHandler.py:128`), or only its catalog columns ``store_cols = (lo,
-    hi)``, (U, hi - lo), cut on the host (a rank's range on the model axis,
+    `DataHandler.py:128`), or a ``membership.DenseShard`` of its catalog
+    columns ``store_cols = (lo, hi)`` where they are not the whole catalog,
+    cut on the host (a rank's range on the model axis,
     ``parallel/sharding.py::catalog_range``; JAX ``_place_train_store``);
     "csr" a ``TrainCSR`` over the same padded columns, offsets and degrees
     placed here, whole whatever ``store_cols`` says, with the head/tail
@@ -381,10 +382,11 @@ def to_device(
     degrees_dev = put(host.user_degrees)
     offsets_dev = put(host.csr_offsets)
     if train_store == "dense":
-        dense = host.train_dense
-        if store_cols is not None and tuple(store_cols) != (0, host.item_num):
-            dense = np.ascontiguousarray(dense[:, store_cols[0]:store_cols[1]])
-        store = put(dense)
+        lo, hi = (0, host.item_num) if store_cols is None else store_cols
+        if (lo, hi) == (0, host.item_num):
+            store = put(host.train_dense)
+        else:
+            store = DenseShard(put(np.ascontiguousarray(host.train_dense[:, lo:hi])), lo, hi)
     elif train_store == "csr":
         k_cut, heavy_ids = plan_head_tail(host.user_degrees, host.k_max, block=batch)
         store = make_train_csr(cols_dev, offsets_dev, degrees_dev, host.k_max, k_cut, heavy_ids)

@@ -10,15 +10,17 @@ built by one scatter of the users' spans. Both stores give bit-identical
 (:func:`contains`) of negative sampling.
 
 On a model axis that divides the catalog a rank holds only its catalog
-columns ``[lo, hi)`` of the dense store, (U, hi - lo) (``to_device``'s
-``store_cols``; JAX ``_place_train_store``): its readers take the rank's
-range (``cols``), and :func:`contains` answers for that range alone. The
-CSR store stays whole on every rank, as in the JAX package.
+columns ``[lo, hi)`` of the dense store, a :class:`DenseShard` that
+carries its range (``to_device``'s ``store_cols``; JAX
+``_place_train_store``): its readers take a range inside it, and
+:func:`contains` answers for its columns alone. The CSR store stays whole
+on every rank, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,6 +51,16 @@ class TrainCSR:
     heavy_ids: torch.Tensor | None = None
 
 
+class DenseShard(NamedTuple):
+    """A rank's catalog columns ``[lo, hi)`` of the dense (U, I) int8 train
+    store: ``block`` is (U, hi - lo). A whole dense store is the (U, I)
+    tensor itself."""
+
+    block: torch.Tensor
+    lo: int
+    hi: int
+
+
 def _span_lanes(cols: torch.Tensor, off: torch.Tensor, deg: torch.Tensor, lo: int, hi: int):
     """Items and lane mask for lanes ``[lo, hi)`` of each span: the one
     clamped span gather every consumer shares. Positions past the edge
@@ -77,12 +89,16 @@ def _scatter_ones(rows: torch.Tensor, row_idx: torch.Tensor, items: torch.Tensor
     rows.view(-1).scatter_reduce_(0, flat.reshape(-1), valid.reshape(-1).to(rows.dtype), "amax")
 
 
-def dense_rows(store: torch.Tensor, users: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """The users' rows of a dense store over the catalog range ``[lo, hi)``,
-    in the store's type: a whole (U, I) store's rows are cut to the range; a
-    store that holds only the range, (U, hi - lo), gives its rows whole."""
-    rows = store.index_select(0, users.long())
-    return rows if rows.shape[1] == hi - lo else rows[:, lo:hi]
+def dense_rows(store, users: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The users' rows of a dense store (the (U, I) tensor or a
+    :class:`DenseShard`) over the catalog range ``[lo, hi)``, in the
+    store's type. A range the store does not hold is refused."""
+    block, first = (store.block, store.lo) if isinstance(store, DenseShard) else (store, 0)
+    if lo < first or hi > first + block.shape[1]:
+        raise ValueError(f"the dense store holds the columns [{first}, {first + block.shape[1]}), "
+                         f"not [{lo}, {hi})")
+    rows = block.index_select(0, users.long())
+    return rows if (lo - first, hi - first) == (0, block.shape[1]) else rows[:, lo - first:hi - first]
 
 
 def gather_rows(store, users: torch.Tensor, item_num: int,
@@ -90,18 +106,14 @@ def gather_rows(store, users: torch.Tensor, item_num: int,
     """(B, hi - lo) f32 0/1 train rows for a user batch over the catalog
     range ``cols = (lo, hi)`` (default: the whole catalog).
 
-    Dense store: one row gather + cast (:func:`dense_rows`; a store cut to
-    the rank's columns holds exactly ``cols``). CSR store: span gather +
-    one scatter into (B, item_num) zeros, then the range. With a head/tail
-    plan (``k_cut < k_max``) the span gather runs k_cut lanes for the whole
-    block plus a (min(n_heavy, B), k_max - k_cut) fixup for the block's
-    heavy users, as in the JAX package: the same positions, the same value,
-    so the rows are bit-identical either way."""
+    Dense store: one row gather + cast (:func:`dense_rows`). CSR store:
+    span gather + one scatter into (B, item_num) zeros, then the range.
+    With a head/tail plan (``k_cut < k_max``) the span gather runs k_cut
+    lanes for the whole block plus a (min(n_heavy, B), k_max - k_cut) fixup
+    for the block's heavy users, as in the JAX package: the same positions,
+    the same value, so the rows are bit-identical either way."""
     lo, hi = (0, item_num) if cols is None else cols
     if not isinstance(store, TrainCSR):
-        if store.shape[1] not in (item_num, hi - lo):
-            raise ValueError(f"a dense store of {store.shape[1]} columns holds neither the catalog "
-                             f"({item_num}) nor the range [{lo}, {hi})")
         return dense_rows(store, users, lo, hi).to(torch.float32)
     rows = _csr_rows(store, users, item_num)
     return rows if (lo, hi) == (0, item_num) else rows[:, lo:hi]
@@ -131,7 +143,7 @@ def _csr_rows(store: TrainCSR, users: torch.Tensor, item_num: int) -> torch.Tens
     return rows
 
 
-def contains(store, users: torch.Tensor, items: torch.Tensor, lo: int | None = None) -> torch.Tensor:
+def contains(store, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     """Per-lane membership test: is ``(users[e], items[e])`` a train edge?
 
     Dense store: one 2-D gather. CSR store: a fixed-depth lower-bound
@@ -141,18 +153,17 @@ def contains(store, users: torch.Tensor, items: torch.Tensor, lo: int | None = N
     clamped to it, as the JAX dense gather clamps them; their answers are
     never used.
 
-    ``lo``: the first column of a dense store cut to a rank's catalog
-    columns; it answers for those columns only, and an item outside them is
-    no hit here (``data/sampling.py`` ORs the model axis's answers)."""
+    A :class:`DenseShard` answers for its columns only: an item outside
+    them is no hit here (``data/sampling.py`` ORs the model axis's
+    answers)."""
+    if isinstance(store, DenseShard):
+        inside = (items >= store.lo) & (items < store.hi)
+        return contains(store.block, users, (items.long() - store.lo).clamp(0, store.hi - store.lo - 1)) & inside
     csr = isinstance(store, TrainCSR)
     users = users.long().clamp_max((store.degrees if csr else store).shape[0] - 1)
     items = items.long()
     if not csr:
-        if lo is None:
-            return store[users, items] != 0
-        loc = items - lo
-        inside = (loc >= 0) & (loc < store.shape[1])
-        return (store[users, loc.clamp(0, store.shape[1] - 1)] != 0) & inside
+        return store[users, items] != 0
     lo = store.offsets[users].long()
     end = hi = lo + store.degrees[users].long()
     last = store.cols.shape[0] - 1

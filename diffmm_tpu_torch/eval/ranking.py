@@ -43,10 +43,10 @@ def _plain_score_topk(u, i_final, train_store, users, topk):
 
 def local_mask(train_store, users: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """(B, hi - lo) f32: 1 where a user of ``users`` has a train item of the
-    catalog range ``[lo, hi)``. A dense store's rows of the range (a store
-    cut to the rank's columns holds just them, ``membership.dense_rows``);
-    a CSR store's seen lists are gathered whole and the items of the range
-    kept (JAX ``local_mask_csr``)."""
+    catalog range ``[lo, hi)``. A dense store's rows of the range
+    (``membership.dense_rows``: of the (U, I) tensor or of a rank's
+    ``DenseShard``); a CSR store's seen lists are gathered whole and the
+    items of the range kept (JAX ``local_mask_csr``)."""
     width = hi - lo
     if isinstance(train_store, TrainCSR):
         seen, valid = gather_item_lists(train_store, users)

@@ -167,6 +167,7 @@ def run_dense(args, mesh, dev, say) -> None:
     eval block."""
     from diffmm_tpu_torch.config import Config
     from diffmm_tpu_torch.data.loader import to_device
+    from diffmm_tpu_torch.data.membership import DenseShard
     from diffmm_tpu_torch.models.denoise import init_denoise_params
     from diffmm_tpu_torch.models.gcn import gcn_mm, init_gcn_params
     from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
@@ -200,7 +201,9 @@ def run_dense(args, mesh, dev, say) -> None:
     dns = [shard_params(p, split.dn_place, split) for p in dns]
     w_in, w_out = dns[0]["in_layers"][0]["w"], dns[0]["out_layers"][-1]["w"]
     n = split.hi - split.lo
-    local = {"adj": adj.mat.numel() * adj.mat.element_size(), "store": data.train_store.nbytes,
+    store = data.train_store  # a DenseShard where the model axis cuts the catalog
+    local = {"adj": adj.mat.numel() * adj.mat.element_size(),
+             "store": (store.block if isinstance(store, DenseShard) else store).nbytes,
              "i_embs": gcn["i_embs"].nbytes, "w1x": w_in[:n].nbytes, "w_out": w_out.nbytes}
     labels = {
         "adj": f"dense adjacency (U, I) {str(adj.mat.dtype).removeprefix('torch.')}",
@@ -224,7 +227,7 @@ def run_dense(args, mesh, dev, say) -> None:
     say(f"sharded GCN forward over {args.users}x{args.items}: {_clock(dev) - t0:.1f}s ({FIRST_RUN})")
     t0 = _clock(dev)
     with torch.no_grad():
-        sums = _eval_block(out.u_final, out.i_final, data.train_store, split, 64, dev)
+        sums = _eval_block(out.u_final, out.i_final, store, split, 64, dev)
     say(f"distributed-top-k eval block: {_clock(dev) - t0:.1f}s ({FIRST_RUN})")
     assert all(bool(torch.isfinite(x).all()) for x in (out.u_final, out.i_final, sums)), "non-finite output"
     say("bigshard demo ok")

@@ -78,7 +78,7 @@ import torch.distributed as dist
 from diffmm_tpu_torch.config import Config, check_slice_support
 from diffmm_tpu_torch.convert import tree_to
 from diffmm_tpu_torch.data.loader import EDGE_ALIGN, HostData, to_device
-from diffmm_tpu_torch.data.membership import TrainCSR
+from diffmm_tpu_torch.data.membership import DenseShard
 from diffmm_tpu_torch.data.sampling import negative_sampling
 from diffmm_tpu_torch.diffusion.schedule import make_schedule
 from diffmm_tpu_torch.eval.ranking import dcg_table, eval_epoch
@@ -594,14 +594,12 @@ class Coach:
     def sample_negatives(self) -> torch.Tensor:
         """One negative item per padded train edge from the Coach's
         generator (phase 0). Where the model axis cuts the dense train store
-        each rank tests its own columns and the axis ORs the answers
-        (``data/sampling.py``): the negatives of the whole store."""
-        store, split = self.data.train_store, self.split
-        cut = None
-        if split is not None and split.cat is not None and not isinstance(store, TrainCSR):
-            cut = (split.lo, split.cat.group)
+        (a ``DenseShard``) each rank tests its own columns and the axis ORs
+        the answers (``data/sampling.py``): the negatives of the whole store."""
+        store = self.data.train_store
+        group = self.split.cat.group if isinstance(store, DenseShard) else None
         return negative_sampling(self.data.train_rows, store, self.host.item_num,
-                                 generator=self.generator, cut=cut)
+                                 generator=self.generator, group=group)
 
     def train_epoch(self, epoch: int, fence: bool = False) -> dict[str, float]:
         """One training epoch: negative sampling, diffusion training, graph

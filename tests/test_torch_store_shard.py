@@ -5,14 +5,17 @@ give what the whole store gives.
 
 On gloo ranks of the meshes of tests/test_torch_model_axis.py (1x2 and 2x2,
 paired with JAX's ``make_mesh(2|8, model_parallel=2)``):
-* a rank's ``data.train_store`` is (U, I/2), byte for byte the JAX shard
-  of the same columns (``jax.device_put`` with JAX's own
-  ``catalog_sharded_or_replicated``);
+* a rank's ``data.train_store`` is a ``DenseShard`` of its columns, (U,
+  I/2), byte for byte the JAX shard of the same columns (``jax.device_put``
+  with JAX's own ``catalog_sharded_or_replicated``);
 * the Coach's negatives (every rank tests its columns, the model axis ORs
-  the answers), the diffusion rows and the eval masks are bitwise those of
-  the whole store at world size 1, and so are the negatives of injected
-  draws on a dense catalog, where most lanes collide for several rounds;
-* the CSR store stays whole on every rank, as in the JAX package.
+  the answers with one all-reduce a round), the diffusion rows and the eval
+  masks are bitwise those of the whole store at world size 1, and so are
+  the negatives of injected draws on a dense catalog, where most lanes
+  collide for several rounds;
+* the CSR store stays whole on every rank, as in the JAX package;
+* on a mesh whose model axis is 1 (1x1, 2x1) the store stays the whole
+  (U, I) tensor and the negatives cost no collective.
 
 JAX is imported inside the tests only: the spawned ranks import this module
 to find their function, and need torch alone.
@@ -33,14 +36,33 @@ def _draws(n: int) -> np.ndarray:
     return np.random.default_rng(5).integers(0, I, (ROUNDS, n)).astype(np.int64)
 
 
-def _dense_half(coach) -> torch.Tensor:
+def _dense_half(coach):
     """A store where half the catalog is a train item of every user: the
-    draws collide round after round."""
+    draws collide round after round. On a mesh the rank's ``DenseShard``."""
+    from diffmm_tpu_torch.data.membership import DenseShard
+
     store = torch.zeros((U, I), dtype=torch.int8)
     store[:, ::2] = 1
     store[:, 1] = 1
-    lo, hi = (0, I) if coach.split is None else (coach.split.lo, coach.split.hi)
-    return store[:, lo:hi].contiguous()
+    if coach.split is None:
+        return store
+    lo, hi = coach.split.lo, coach.split.hi
+    return DenseShard(store[:, lo:hi].contiguous(), lo, hi)
+
+
+def _counted_collectives():
+    """Count the all-reduces of ``data/sampling.py`` in this process."""
+    from diffmm_tpu_torch.data import sampling
+
+    calls = []
+    reduce = sampling.all_reduce_sum_
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return reduce(*args, **kwargs)
+
+    sampling.all_reduce_sum_ = counted
+    return calls
 
 
 def _readers(coach) -> dict:
@@ -53,7 +75,7 @@ def _readers(coach) -> dict:
 
     split, store = coach.split, coach.data.train_store
     lo, hi = (0, I) if split is None else (split.lo, split.hi)
-    cut = None if split is None else (split.lo, split.cat.group)
+    group = None if split is None else split.cat.group
     users = torch.arange(U)
     rows = coach.data.train_rows
     return {
@@ -61,7 +83,7 @@ def _readers(coach) -> dict:
         "rows": gather_rows(store, users, I, (lo, hi)).numpy(),
         "mask": local_mask(store, users, lo, hi).numpy(),
         "draw_negatives": negative_sampling(rows, _dense_half(coach), I,
-                                            draws=torch.as_tensor(_draws(rows.shape[0])), cut=cut).numpy(),
+                                            draws=torch.as_tensor(_draws(rows.shape[0])), group=group).numpy(),
         "cols": (lo, hi),
     }
 
@@ -72,8 +94,12 @@ def _rank_store(model: int) -> dict:
     torch.set_num_threads(1)
     mesh = make_mesh(model_parallel=model)
     coach = _coach(_config("dense", 0), mesh)
+    calls = _counted_collectives()
     out = _readers(coach)
-    out["store"] = coach.data.train_store.numpy().copy()
+    out["sampling_collectives"] = len(calls)  # the Coach's negatives and the injected draws'
+    store = coach.data.train_store
+    out["store"] = store.block.numpy().copy()
+    out["store_cols"] = (store.lo, store.hi)
     csr = _coach(_config("sparse", 1), mesh).data.train_store
     out["csr_cols_shape"] = tuple(csr.cols.shape)
     return out
@@ -111,6 +137,7 @@ def test_rank_holds_its_columns_as_jax_places_them(ranks, whole, mesh):
     for out in ranks[mesh]:
         lo, hi = out["cols"]
         assert hi - lo == I // 2 and out["store"].shape == (U, I // 2) and out["store"].dtype == np.int8
+        assert out["store_cols"] == (lo, hi)
         np.testing.assert_array_equal(out["store"], j_shards[(lo, hi)])
         np.testing.assert_array_equal(out["store"], coach.host.train_dense[:, lo:hi])
 
@@ -125,6 +152,7 @@ def test_readers_are_bitwise_the_whole_store(ranks, whole, mesh):
     assert collided > 0.3  # most lanes needed a second round or more
     for out in ranks[mesh]:
         lo, hi = out["cols"]
+        assert out["sampling_collectives"] == 2 * ROUNDS  # one OR of the axis's answers a round, twice
         np.testing.assert_array_equal(out["negatives"], one["negatives"])
         np.testing.assert_array_equal(out["draw_negatives"], one["draw_negatives"])
         np.testing.assert_array_equal(out["rows"], one["rows"][:, lo:hi])
@@ -138,19 +166,54 @@ def test_csr_store_stays_whole(ranks, whole):
         assert all(out["csr_cols_shape"] == want for out in outs)
 
 
+def _rank_undivided(model: int) -> dict:
+    """A dense Coach on a mesh whose model axis does not cut the catalog:
+    its store's type and shape, and the collectives of its negatives."""
+    from diffmm_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    coach = _coach(_config("dense", 0), make_mesh(model_parallel=model))
+    calls = _counted_collectives()
+    negatives = coach.sample_negatives().numpy()
+    store = coach.data.train_store
+    return {"whole_tensor": isinstance(store, torch.Tensor) and tuple(store.shape) == (U, I),
+            "sampling_collectives": len(calls), "negatives": negatives}
+
+
+@pytest.mark.parametrize("world,model", [(1, 1), (2, 1)], ids=["1x1", "2x1"])
+def test_undivided_mesh_keeps_the_store_whole_without_collectives(whole, world, model):
+    """A model axis of 1 leaves the store the whole (U, I) tensor, and
+    sampling the negatives runs no all-reduce: only a cut store pays."""
+    _, one = whole
+    for out in run_ranks(_rank_undivided, world, (model,)):
+        assert out["whole_tensor"] and out["sampling_collectives"] == 0
+        np.testing.assert_array_equal(out["negatives"], one["negatives"])
+
+
 def test_readers_of_a_cut_store_on_one_process():
-    """A store of the columns [lo, hi): ``contains`` answers for those
-    columns only, ``gather_rows`` takes the range as it is and refuses a
-    store of neither width."""
-    from diffmm_tpu_torch.data.membership import contains, gather_rows
+    """A ``DenseShard`` of the columns [lo, hi): ``contains`` answers for
+    those columns only; ``gather_rows`` and ``local_mask`` take any range
+    inside them and refuse one outside; ``negative_sampling`` takes such a
+    store with a group only, and a whole store only without one."""
+    from diffmm_tpu_torch.data.membership import DenseShard, contains, gather_rows
+    from diffmm_tpu_torch.data.sampling import negative_sampling
+    from diffmm_tpu_torch.eval.ranking import local_mask
 
     whole = torch.as_tensor((np.random.default_rng(1).random((6, 10)) < 0.5).astype(np.int8))
-    cut = whole[:, 4:8].contiguous()
+    cut = DenseShard(whole[:, 4:8].contiguous(), 4, 8)
     users = torch.arange(6).repeat_interleave(10)
     items = torch.arange(10).repeat(6)
     inside = (items >= 4) & (items < 8)
-    assert torch.equal(contains(cut, users, items, 4), contains(whole, users, items) & inside)
-    assert torch.equal(gather_rows(cut, torch.arange(6), 10, (4, 8)), whole[:, 4:8].float())
-    assert torch.equal(gather_rows(whole, torch.arange(6), 10, (4, 8)), whole[:, 4:8].float())
-    with pytest.raises(ValueError, match="holds neither"):
-        gather_rows(cut, torch.arange(6), 10)
+    assert torch.equal(contains(cut, users, items), contains(whole, users, items) & inside)
+    rows = torch.arange(6)
+    for lo, hi in ((4, 8), (5, 7)):
+        assert torch.equal(gather_rows(cut, rows, 10, (lo, hi)), whole[:, lo:hi].float())
+        assert torch.equal(gather_rows(whole, rows, 10, (lo, hi)), whole[:, lo:hi].float())
+        assert torch.equal(local_mask(cut, rows, lo, hi), whole[:, lo:hi].float())
+    for cols in (None, (0, 4), (3, 7), (6, 9)):  # the same width at another place is refused too
+        with pytest.raises(ValueError, match=r"holds the columns \[4, 8\)"):
+            gather_rows(cut, rows, 10, cols)
+    with pytest.raises(ValueError, match="DenseShard"):
+        negative_sampling(users.int(), cut, 10)
+    with pytest.raises(ValueError, match="DenseShard"):
+        negative_sampling(users.int(), whole, 10, group=object())

@@ -175,24 +175,45 @@ def test_diffusion_epoch_accumulator_quirk(monkeypatch):
 
 
 def test_diffusion_accumulator_overflows_as_jax(monkeypatch):
-    """At a web-scale catalog a block's diffusion losses are about 1e-4, and
-    the reference's accounting (``Main.py:174-185``) multiplies the
-    accumulator by about 1 / sum(losses) a block: within a few dozen blocks
-    it overflows f32 to inf. The JAX package's ``_diffusion_epoch`` carries
-    the same expression (``diffmm_tpu/train/steps.py:249``), so both report
-    inf for the same losses, block for block."""
-    import jax.numpy as jnp
+    """The reference's accounting (``Main.py:174-185``) multiplies the
+    accumulator by 1 / sum(losses) a block, so where the blocks' losses sum
+    below 1 it overflows f32 to inf over enough blocks, as it does in the
+    web-scale epoch (``chip_smoke.py`` path S, 391 blocks); sums near 2e-4,
+    as here, overflow within 40. The JAX package's own ``diffusion_epoch`` (its
+    scan, ``diffmm_tpu/train/steps.py:249``) is driven with the same block
+    losses: its row gather made to hand each row its block's index and its
+    ``training_losses`` to give that block's loss of the modality it is
+    called for. Both accumulators are bitwise equal after 3 blocks (finite)
+    and after 40 (inf)."""
+    import diffmm_tpu.train.steps as js
 
-    seq = [torch.tensor([1.2e-4, 0.9e-4]) * (1 + 0.01 * b) for b in range(40)]
-    it = iter(seq)
-    monkeypatch.setattr(ts, "diffusion_block", lambda *a, **k: next(it))
-    n = len(seq)
-    acc = ts.diffusion_epoch(None, [{}, {}], [AdamState(0, [], []), AdamState(0, [], [])],
-                             {"modal_proj": [], "i_embs": None}, [], None,
-                             torch.zeros((n, 4), dtype=torch.int32), torch.ones((n, 4)), 1e-3, {}, 5)
-    j_acc = jnp.zeros(2, jnp.float32)
-    for losses in seq:
-        j = jnp.asarray(losses.numpy())
-        j_acc = (j_acc + j) / jnp.maximum(jnp.sum(j), 1e-12)
-    assert torch.isinf(acc).all() and np.isinf(np.asarray(j_acc)).all()
-    np.testing.assert_array_equal(acc.numpy(), np.asarray(j_acc))
+    t_coach, j_data, j_steps = _setup("dense")
+    M, B = t_coach.n_modal, 2  # two rows of one value: their mean is the value, exactly
+    seq = (np.linspace(1.2e-4, 0.9e-4, M, dtype=np.float32)[None, :]
+           * (1 + 0.01 * np.arange(40, dtype=np.float32))[:, None]).astype(np.float32)
+    table, traced = jnp.asarray(seq), []
+
+    def block_losses(schedule, params, x0, *args, **kwargs):
+        m = len(traced) % M  # _modal_losses calls it once a modality, in order
+        traced.append(m)
+        return table[x0[:, 0].astype(jnp.int32), m]
+
+    monkeypatch.setattr(js, "gather_rows", lambda store, users, item_num: users[:, None].astype(jnp.float32))
+    monkeypatch.setattr(js, "training_losses", block_losses)
+    gcn = tree_map(lambda p: p.numpy().copy(), t_coach.gcn_params)
+    dn = [tree_map(lambda p: p.numpy().copy(), p) for p in t_coach.dn_params]
+    hp = {k: jnp.float32(v) for k, v in t_coach.hp().items()}
+    for n in (3, 40):
+        states = [_adam_state(np.random.default_rng(0), p) for p in dn]
+        users = jnp.repeat(jnp.arange(n, dtype=jnp.int32)[:, None], B, axis=1)
+        _, _, j_acc = j_steps.diffusion_epoch(dn, states, gcn, j_data.raw_feats, j_data.train_store, users,
+                                              jnp.ones((n, B), jnp.float32), jax.random.split(jax.random.PRNGKey(0), n),
+                                              jnp.float32(1e-3), hp)
+        it = iter(torch.as_tensor(seq[:n]))
+        monkeypatch.setattr(ts, "diffusion_block", lambda *a, **k: next(it))
+        acc = ts.diffusion_epoch(None, [{}] * M, [AdamState(0, [], []) for _ in range(M)],
+                                 {"modal_proj": [], "i_embs": None}, [], None,
+                                 torch.zeros((n, 4), dtype=torch.int32), torch.ones((n, 4)), 1e-3, {}, 5)
+        assert traced and len(traced) % M == 0  # the JAX scan went through the block losses above
+        assert bool(torch.isinf(acc).all()) == (n == 40) and np.isinf(np.asarray(j_acc)).all() == (n == 40)
+        np.testing.assert_array_equal(acc.numpy(), np.asarray(j_acc))
