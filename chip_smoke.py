@@ -18,7 +18,9 @@ exit, no result line):
    K2/K3 ``denoise_mlp`` at B 1,024, H 1,024 and I 6,710 and 20,000 (K2 as
    the rebuild runs it, its partial product ``kNone``, and with its tanh
    epilogue), and on the model axis's shards, K2's partial at K 3,355 and
-   10,000, K3 at N 3,355 and 10,000, on weights prepared once (also
+   10,000, K3 at N 3,355 and 10,000, and at path S's shapes (hidden 64:
+   K3 in the strip form, held bitwise against the gemm form and timed
+   beside it), on weights prepared once (also
    bitwise across two launches and within twice the plain f32 product's
    error against float64); K4 ``segsum_gather`` (the gather-fused sorted
    segment sum) at the yelp shape: the user direction, n 38,403, nnz
@@ -173,8 +175,10 @@ exit, no result line):
     rebuild, K4 in every propagation and loss gather), the no-O(U·I) walk
     (``utils/contracts.py``) over the Coach after both, the host's dense
     matrix never built, the peak below U·I = 2.0e10 bytes, the CSR store's
-    bytes beside the dense matrix's; (b) the port's ``bigshard_demo`` in a
-    subprocess of 8 gloo ranks on the card, both JAX docstring commands
+    bytes beside the dense matrix's, K3's launches in the strip form (hidden
+    64), then one more rebuild under the profiler; (b) the port's
+    ``bigshard_demo`` in a subprocess of 8 gloo ranks on the card, both JAX
+    docstring commands
     (the dense form at 60,000 x 30,000 on a 4x2 mesh: its five rows at x2,
     K1 on each rank's (60,000, 15,000) block; the sparse form at (a)'s
     shape: K2/K3 and K4's mesh form), each rank's peak and launches.
@@ -581,16 +585,25 @@ def _spmm_dual_backward(dev, gen, mat, I: int) -> dict:
 
 
 def _gemm_case(name: str, shape, kern, plain, exact, lib_call, n_bytes: int, prep_ms: float) -> dict:
-    """One K2/K3 case: the kernel against its plain version within TOL,
-    bitwise across two launches, within twice the plain f32 product's max
-    error against float64; its times beside three bounds: the function's
-    (``bound_ms``: its 2·B·K·N products at the TF32 rate, the card's fastest
-    for f32 operands), the design's (3xTF32, three TF32 products per f32
-    one) and the f32 FMA rate's."""
+    """One K2/K3 case: ``kern(form)`` launches the kernel in ``form`` (None:
+    the form its shape takes, ``denoise_form``). The kernel against its
+    plain version within TOL, bitwise across two launches, within twice the
+    plain f32 product's max error against float64; where its shape takes
+    the strip form, also bitwise the gemm form on the same inputs, whose
+    time stands beside its own. Its times beside three bounds: the
+    function's (``bound_ms``: its 2·B·K·N products at the TF32 rate, the
+    card's fastest for f32 operands, or its bytes at the HBM rate, the
+    larger), the design's (3xTF32, three TF32 products per f32 one) and the
+    f32 FMA rate's; the kernel's and the library's also as replays of a
+    captured call (``graph_ms``)."""
     import torch
 
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_form
+    from diffmm_tpu_torch.tools.joint_profile import graphed
+
     B, K, N = shape
-    got, again, want = kern(), kern(), plain()
+    form = denoise_form(K)
+    got, again, want = kern(None), kern(None), plain()
     ref = exact()
     torch.cuda.synchronize()
     rtol, atol = TOL["denoise_layer2" if name.startswith("denoise_layer2") else "denoise_layer1"]
@@ -598,19 +611,24 @@ def _gemm_case(name: str, shape, kern, plain, exact, lib_call, n_bytes: int, pre
     err_f64, plain_f64 = max_err(got.double(), ref), max_err(want.double(), ref)
     del ref
     bitwise = torch.equal(got, again)
-    ok = torch.allclose(got, want, rtol=rtol, atol=atol) and bitwise and err_f64 <= 2 * plain_f64
-    check(ok, f"{name}: max_abs_err {err} vs plain, {err_f64} vs f64 (plain "
-              f"{plain_f64}), bitwise across launches: {bitwise}")
+    # the strip form does the gemm form's arithmetic step for step
+    same_as_gemm = form == "gemm" or torch.equal(got, kern("gemm"))
+    ok = (torch.allclose(got, want, rtol=rtol, atol=atol) and bitwise and err_f64 <= 2 * plain_f64
+          and same_as_gemm)
+    check(ok, f"{name} ({form} form): max_abs_err {err} vs plain, {err_f64} vs f64 (plain "
+              f"{plain_f64}), bitwise across launches: {bitwise}, bitwise the gemm form: {same_as_gemm}")
     flops = 2 * B * K * N
     b, by = bound_ms(n_bytes, flops, TF32_FLOPS)
     rec = {
         "ok": ok,
+        "form": form,
         "shape": [B, K, N],
         "max_abs_err": err,
         "max_err_vs_f64": err_f64,
         "plain_max_err_vs_f64": plain_f64,
         "bitwise_across_launches": bitwise,
-        "ms": time_ms(kern, 20),
+        "bitwise_vs_gemm_form": same_as_gemm,
+        "ms": time_ms(lambda: kern(None), 20),
         "plain_ms": time_ms(plain, 20),
         "bound_ms": b,
         "bound_by": by,
@@ -620,6 +638,14 @@ def _gemm_case(name: str, shape, kern, plain, exact, lib_call, n_bytes: int, pre
         "library_ms": time_ms(lib_call, 20),
         "prepare_ms": prep_ms,
     }
+    # the device's time beside the eager one (replays of one captured call):
+    # at a short kernel the wrapper's host work can set the eager time
+    dev = got.device
+    rec["graph_ms"] = time_ms(graphed(lambda: kern(None), dev), 20)
+    rec["library_graph_ms"] = time_ms(graphed(lib_call, dev), 20)
+    rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
+    if form == "strip":
+        rec["gemm_form_ms"] = time_ms(lambda: kern("gemm"), 20)
     print(f"[kernels] {name}: {json.dumps(rec)}")
     return rec
 
@@ -654,15 +680,15 @@ def _denoise_cases(dev, gen) -> dict:
         full = dm.denoise_layer2(dm.denoise_layer1(x, w1x, tp), w2, b2)
         want_full = dm.layer2_plain(h, w2, b2)
         out[K2_ENTRY + suffix] = _gemm_case(
-            K2_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1(x, w1p, tp),
+            K2_ENTRY + suffix, (B, K, H), lambda form: dm.denoise_layer1(x, w1p, tp, form),
             lambda: dm.layer1_plain(x, w1x, tp), lambda: torch.tanh(x.double() @ w1x.double() + tp.double()),
             lambda: torch.tanh(torch.addmm(tp, x, w1x)), (B * K + K * H + 2 * B * H) * 4, prep_ms["w1x"])
         out[K2_MESH_ENTRY + suffix] = _gemm_case(
-            K2_MESH_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1_partial(x, w1p),
+            K2_MESH_ENTRY + suffix, (B, K, H), lambda form: dm.denoise_layer1_partial(x, w1p, form),
             lambda: dm.layer1_partial_plain(x, w1x), lambda: x.double() @ w1x.double(),
             lambda: torch.matmul(x, w1x), (B * K + K * H + B * H) * 4, prep_ms["w1x"])
         out["denoise_layer2" + suffix] = _gemm_case(
-            "denoise_layer2" + suffix, (B, H, K), lambda: dm.denoise_layer2(h, w2p, b2),
+            "denoise_layer2" + suffix, (B, H, K), lambda form: dm.denoise_layer2(h, w2p, b2, form),
             lambda: dm.layer2_plain(h, w2, b2), lambda: h.double() @ w2.double() + b2.double(),
             lambda: torch.addmm(b2, h, w2), (B * H + H * K + K + B * K) * 4, prep_ms["w2"])
         err = max_err(full, want_full)
@@ -681,11 +707,11 @@ def _denoise_cases(dev, gen) -> dict:
         prep_ms = {"w1x": time_ms(lambda: dm.prepare_weight(w1x), 5),
                    "w2": time_ms(lambda: dm.prepare_weight(w2), 5)}
         out[K2_MESH_ENTRY + suffix] = _gemm_case(
-            K2_MESH_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1_partial(x, w1p),
+            K2_MESH_ENTRY + suffix, (B, K, H), lambda form: dm.denoise_layer1_partial(x, w1p, form),
             lambda: dm.layer1_partial_plain(x, w1x), lambda: x.double() @ w1x.double(),
             lambda: torch.matmul(x, w1x), (B * K + K * H + B * H) * 4, prep_ms["w1x"])
         out["denoise_layer2" + suffix] = _gemm_case(
-            "denoise_layer2" + suffix, (B, H, K), lambda: dm.denoise_layer2(h, w2p, b2),
+            "denoise_layer2" + suffix, (B, H, K), lambda form: dm.denoise_layer2(h, w2p, b2, form),
             lambda: dm.layer2_plain(h, w2, b2), lambda: h.double() @ w2.double() + b2.double(),
             lambda: torch.addmm(b2, h, w2), (B * H + H * K + K + B * K) * 4, prep_ms["w2"])
         del x, w1x, h, w2, b2, w1p, w2p
@@ -767,15 +793,15 @@ def _s_shape_cases(dev) -> dict:
                    "w2": time_ms(lambda: dm.prepare_weight(w2), 5)}
         if suffix == "_s":  # one device: the tanh epilogue
             out[K2_ENTRY + suffix] = _gemm_case(
-                K2_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1(x, w1p, tp),
+                K2_ENTRY + suffix, (B, K, H), lambda form: dm.denoise_layer1(x, w1p, tp, form),
                 lambda: dm.layer1_plain(x, w1x, tp), lambda: torch.tanh(x.double() @ w1x.double() + tp.double()),
                 lambda: torch.tanh(torch.addmm(tp, x, w1x)), (B * K + K * H + 2 * B * H) * 4, prep_ms["w1x"])
         out[K2_MESH_ENTRY + suffix] = _gemm_case(
-            K2_MESH_ENTRY + suffix, (B, K, H), lambda: dm.denoise_layer1_partial(x, w1p),
+            K2_MESH_ENTRY + suffix, (B, K, H), lambda form: dm.denoise_layer1_partial(x, w1p, form),
             lambda: dm.layer1_partial_plain(x, w1x), lambda: x.double() @ w1x.double(),
             lambda: torch.matmul(x, w1x), (B * K + K * H + B * H) * 4, prep_ms["w1x"])
         out["denoise_layer2" + suffix] = _gemm_case(
-            "denoise_layer2" + suffix, (B, H, K), lambda: dm.denoise_layer2(h, w2p, b2),
+            "denoise_layer2" + suffix, (B, H, K), lambda form: dm.denoise_layer2(h, w2p, b2, form),
             lambda: dm.layer2_plain(h, w2, b2), lambda: h.double() @ w2.double() + b2.double(),
             lambda: torch.addmm(b2, h, w2), (B * H + H * K + K + B * K) * 4, prep_ms["w2"])
         del x, w1x, tp, h, w2, b2, w1p, w2p
@@ -1463,7 +1489,7 @@ def phase_profile(work, label: str, report_dir: str) -> dict:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     counts = {e.key: e.count for e in kernels}
     # the port's own kernels, whether or not they make the top rows
-    own = ("dual_kernel", "gemm_3xtf32", "splitk_sum", "segsum_kernel", "segsum_plan")
+    own = ("dual_kernel", "gemm_3xtf32", "strip_3xtf32", "splitk_sum", "segsum_kernel", "segsum_plan")
 
     def share(*names):
         return sum(v for k, v in dev_us.items() if any(name in k for name in names)) / 1e6 / busy
@@ -2331,7 +2357,7 @@ def _s_k4_cases(coach) -> dict:
     return out
 
 
-def _s_one_card(dev) -> dict:
+def _s_one_card(dev, report_dir: str) -> dict:
     """(a) One fenced sparse epoch and its eval at 200,000 x 100,000 on the
     card through the plain Coach (``drive_training``: every counter set to
     0 just before, read just after), the no-O(U·I) walk over the Coach
@@ -2341,11 +2367,14 @@ def _s_one_card(dev) -> dict:
     smallest and largest block sum, the blocks summing below 1: copies the
     diffusion step writes, captured with it) and must be finite and
     positive, as must the trained parameters. Then K4 on the Coach's graphs
-    (:func:`_s_k4_cases`)."""
+    (:func:`_s_k4_cases`), and a profile of one more rebuild (its device
+    time by kernel, its idle share): S runs last of the host-clock paths in
+    this process."""
     import torch
 
     from diffmm_tpu_torch.data.membership import TrainCSR
     from diffmm_tpu_torch.data.synthetic import make_synthetic_host_data
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_form
     from diffmm_tpu_torch.train import steps
     from diffmm_tpu_torch.train.optim import tree_leaves
     from diffmm_tpu_torch.utils.contracts import assert_no_ui_arrays
@@ -2389,8 +2418,15 @@ def _s_one_card(dev) -> dict:
     rec.update({"data_s": data_s, "own_peak_bytes": own_peak, "ui_bytes": U * I, "csr_store_bytes": csr_bytes,
                 "dense_store_gib": U * I / 2**30, "store_factor": U * I / csr_bytes,
                 "test_users": int(host.test_users.shape[0])})
+    # the kernel forms of the rebuild's launches, by their contraction depths
+    hidden = coach.dn_params[0]["out_layers"][0]["w"].shape[0]
+    rec["denoise_forms"] = {"denoise_layer1": denoise_form(I), "denoise_layer2": denoise_form(hidden)}
+    check(rec["denoise_forms"]["denoise_layer2"] == "strip" and rec["launches"]["denoise_layer2"] > 0,
+          f"S: K3 at hidden {hidden} ran {rec['launches']['denoise_layer2']} launches in the "
+          f"{rec['denoise_forms']['denoise_layer2']} form, not the strip form")
     print(f"[path S] (a) {json.dumps({k: v for k, v in rec.items() if k != 'graphs'})}")
     rec["k4"] = _s_k4_cases(coach)
+    rec["profile_rebuild"] = phase_profile(coach.rebuild_graphs, "S_rebuild", report_dir)
     del coach
     gc.collect()
     torch.cuda.empty_cache()
@@ -2436,7 +2472,7 @@ def phase_path_s(dev, report_dir: str) -> dict:
     """Path S: the web-scale configuration, (a) one sparse epoch on one card,
     (b) the bigshard demo's two commands on gloo ranks."""
     t0 = time.perf_counter()
-    rec = {"one_card": _s_one_card(dev)}
+    rec = {"one_card": _s_one_card(dev, report_dir)}
     rec["demo"] = {form: _s_demo(report_dir, form) for form in S_DEMOS}
     rec["seconds"] = time.perf_counter() - t0
     print(f"[path S] {rec['seconds']:.1f} s")

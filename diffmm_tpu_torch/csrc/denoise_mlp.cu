@@ -23,15 +23,22 @@
 // b = b_hi + b_lo, a*b = a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, dropping only
 // a_lo*b_lo (about 2^-22 relative).
 //
+// Two forms of one 3xTF32 GEMM, picked by the host from the contraction
+// depth alone (ops/kernels/denoise_mlp.py::denoise_form): the gemm form
+// (gemm_3xtf32) for a deep contraction, the strip form (strip_3xtf32) for
+// one of at most 64 (K3 at a hidden width of 64, web scale's).
+//
 // Bound at the rebuild's shape (B 1,024, H 1,024, I 6,710 / 20,000): the
 // function is 2 x B x I x H = 14.1 / 41.9 GFLOP of f32 products per launch,
 // 0.028 / 0.085 ms at 495 TFLOP/s, the card's fastest rate for f32
 // operands (TF32); it moves about 63 / 172 MB, 0.019 / 0.051 ms at
 // 3.35 TB/s, so it is compute-bound. This design does three TF32 products
 // per f32 one: its own bound is 0.085 / 0.254 ms (f32 FMA on the CUDA
-// cores: 0.210 / 0.626 ms).
+// cores: 0.210 / 0.626 ms). At H 64 the same function is store-bound:
+// K3 at (B 512, H 64, N 100,000) writes 204.8 MB of its 230.9 MB, 0.069 ms
+// at 3.35 TB/s, against 0.040 ms for its 3 x 6.6 GFLOP of TF32 products.
 //
-// Design. A block owns a 128 x BN output tile, two warpgroups of 64 rows
+// The gemm form. A block owns a 128 x BN output tile, two warpgroups of 64 rows
 // (BN 128, or 104 where that takes no more waves of blocks:
 // denoise_tile_n).
 // - A ring of kStages weight tiles (hi and lo, 32 deep, BN x 128 bytes) in
@@ -65,8 +72,32 @@
 //   them in a fixed order and applies the epilogue. No atomics anywhere:
 //   the result is the same bits from run to run.
 // - The epilogue (tanhf, not tanh.approx: its 2^-11 error would break the
-//   tolerance) is applied from registers, stores masked at the ragged B
-//   and N edges.
+//   tolerance) is a template parameter, applied from registers, stores
+//   masked at the ragged B and N edges.
+//
+// The strip form (K <= 64: one or two 32-deep slabs). A tile's wgmma chain
+// is two steps, so a tile's time is its store, and the gemm form (one
+// 128 KB ring a block, one block an SM, no overlap of a tile's store with
+// anything, 4-byte stores in wgmma's fragment layout) ran at 20% of the
+// bound there (0.348 ms on an H100 SXM at 700 W, where this form takes
+// 0.130 ms, 53%; chip_smoke.py, PERF.md). Instead:
+// - A persistent grid, one block an SM, each block a contiguous run of the
+//   (column strip, 128-row tile) units, row tiles fastest. A strip's whole
+//   weight (BN 128 columns, hi and lo, at most 64 KB) is loaded once by
+//   bulk copies and serves every row tile of the run; the strip's bias
+//   goes to shared memory beside it.
+// - The arithmetic is the gemm form's, step for step (the same wgmmas in
+//   the same order, the same rounded add a slab, the same epilogue add):
+//   the two forms give the same bits.
+// - A's fragments of the next tile (h's rows, L2-resident) are loaded
+//   while this tile's output leaves.
+// - Each warpgroup stages its 64 x 128 tile in shared memory (rows padded
+//   to 136 floats, so a warp's float2 writes of 4 rows meet no bank
+//   conflict), two buffers, so one tile's store overlaps the next tile's
+//   products. Where the output rows are 16-byte aligned (N % 4 == 0) each
+//   row leaves as one bulk copy (cp.async.bulk, shared to global, issued by
+//   one thread a row); else the warps store it with 16-byte vectors and a
+//   scalar head and tail a row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,6 +117,17 @@ constexpr int kWidths[2] = {128, 104};
 // shared memory of a block: the ring (hi and lo tiles of BN rows of 128
 // bytes) + slack to align it to 1,024
 constexpr int smem_bytes(int bn) { return kStages * 2 * bn * kBK * 4 + 1024; }
+
+// The strip form: strips of kStripN columns, a weight of at most
+// kStripMaxKt slabs, each warpgroup's 64-row tile staged in rows of
+// kStageLd floats, two buffers a warpgroup
+constexpr int kStripN = 128;
+constexpr int kStripMaxKt = 2;
+constexpr int kStageLd = kStripN + 8;
+constexpr int kStageFloats = 64 * kStageLd;
+constexpr int kSlabBytes = kStripN * kBK * 4;  // one half (hi or lo) of a slab
+// the weight (1,024-aligned for the swizzle), 2 x 2 staging buffers, the bias
+constexpr int kStripSmem = 1024 + kStripMaxKt * 2 * kSlabBytes + 4 * kStageFloats * 4 + kStripN * 4;
 
 // kNone stores the raw product: K2's partial x_s @ W1x_s over one catalog
 // shard of a model axis, whose tanh can only follow the sum over the shards
@@ -145,6 +187,33 @@ __device__ __forceinline__ uint32_t tf32_hi(float f) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
+}
+
+// bytes from shared src to global dst (both 16-byte aligned, bytes a
+// multiple of 16), in this thread's current bulk group
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// until all but this thread's newest N bulk groups have read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// orders this thread's shared-memory writes before later bulk copies' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// the 128 threads of warpgroup wg (barriers 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -284,9 +353,11 @@ __device__ __forceinline__ void load_a(float (&v)[8], const float* __restrict__ 
 
 // E is the (M, N) addend of kTanhAddend or the (N,) bias of kBias; kNone
 // reads no E.
-__device__ __forceinline__ float epilogue(float v, const float* E, int m, int n, int N, int epi) {
-  if (epi == kNone) return v;
-  return epi == kTanhAddend ? tanhf(v + E[(size_t)m * N + n]) : v + E[n];
+template <Epilogue EPI>
+__device__ __forceinline__ float epilogue(float v, const float* E, int m, int n, int N) {
+  if constexpr (EPI == kNone) return v;
+  else if constexpr (EPI == kTanhAddend) return tanhf(v + E[(size_t)m * N + n]);
+  else return v + E[n];
 }
 
 // C (M, N) = epilogue(A (M, K) @ W (K, N)) over the contraction tiles of
@@ -294,11 +365,11 @@ __device__ __forceinline__ float epilogue(float v, const float* E, int m, int n,
 // part[z] (M, N) instead. Wp is W prepared (see the top of the file). A
 // block computes rows [128 blockIdx.x, + 128) and columns [BN blockIdx.y,
 // + BN).
-template <int V, int BN>
+template <int V, int BN, Epilogue EPI>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_3xtf32(const float* __restrict__ A, const float* __restrict__ Wp,
                 const float* __restrict__ E, float* __restrict__ C, float* __restrict__ part,
-                int M, int N, int K, int kt_split, int epi) {
+                int M, int N, int K, int kt_split) {
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
   extern __shared__ unsigned char dyn_smem[];
@@ -428,52 +499,246 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int j = 0; j < kAcc; ++j) {
     const int m = (j % 4) < 2 ? r0 : r1;
     const int n = n0 + 8 * (j / 4) + 2 * q + j % 2;
-    if (m < M && n < N) dst[(size_t)m * N + n] = split ? acc[j] : epilogue(acc[j], E, m, n, N, epi);
+    if (m < M && n < N) dst[(size_t)m * N + n] = split ? acc[j] : epilogue<EPI>(acc[j], E, m, n, N);
   }
 }
 
 // C = epilogue(sum over z, in order, of part[z]).
+template <Epilogue EPI>
 __global__ void splitk_sum(const float* __restrict__ part, const float* __restrict__ E,
-                           float* __restrict__ C, int M, int N, int splits, int epi) {
+                           float* __restrict__ C, int M, int N, int splits) {
   const long long mn = (long long)M * N;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
        i += (long long)gridDim.x * blockDim.x) {
     float s = part[i];
     for (int z = 1; z < splits; ++z) s += part[z * mn + i];
-    C[i] = epilogue(s, E, (int)(i / N), (int)(i % N), N, epi);
+    C[i] = epilogue<EPI>(s, E, (int)(i / N), (int)(i % N), N);
   }
 }
 
-template <int V, int BN>
+// One (M, N, K) product in the strip form (K <= 32 * KT): the units (column
+// strip, 128-row tile), row tiles fastest, in contiguous runs of nearly
+// equal length, one run a block (gridDim.x <= units). bulk: the output's
+// rows are 16-byte aligned (N % 4 == 0, C aligned) and leave by bulk
+// copies.
+template <int V, int KT, Epilogue EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+    strip_3xtf32(const float* __restrict__ A, const float* __restrict__ Wp,
+                 const float* __restrict__ E, float* __restrict__ C, int M, int N, int K,
+                 int bulk) {
+  __shared__ __align__(8) uint64_t full;
+  extern __shared__ unsigned char dyn_smem[];
+  const uint32_t raw = smem_u32(dyn_smem);
+  const uint32_t wsm = (raw + 1023u) & ~1023u;  // the swizzle needs 1,024
+  float* stage = reinterpret_cast<float*>(dyn_smem + (wsm - raw) + kStripMaxKt * 2 * kSlabBytes);
+  float* bias = stage + 4 * kStageFloats;
+
+  const int Np = (N + kPadN - 1) / kPadN * kPadN;
+  const int row_tiles = (M + kBM - 1) / kBM;
+  const long long units = (long long)((N + kStripN - 1) / kStripN) * row_tiles;
+  const long long u0 = blockIdx.x * units / gridDim.x;
+  const long long u1 = (blockIdx.x + 1) * units / gridDim.x;
+  const size_t half = (size_t)((K + kBK - 1) / kBK) * Np * kBK;  // floats of the hi or lo half
+
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  // a thread's fragment rows within its warpgroup's 64, as in the gemm form
+  const int rw0 = 16 * (wt / 32) + g, rw1 = rw0 + 8;
+
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&full), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  float v[KT][2][8];  // A's raw values of the next unit (rows rw0, rw1)
+  auto load = [&](long long u) {
+    const int r = (int)(u % row_tiles) * kBM + 64 * wg;
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      load_a<V>(v[t][0], A, r + rw0, M, t * kBK + 8 * q, K);
+      load_a<V>(v[t][1], A, r + rw1, M, t * kBK + 8 * q, K);
+    }
+  };
+  Frag f[KT];
+  float acc[64], tile_acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = tile_acc[j] = 0.0f;
+  int phase = 0, buf = 0;
+  long long strip = -1;
+  if (u0 < u1) load(u0);
+  for (long long u = u0; u < u1; ++u) {
+    const int n0 = (int)(u / row_tiles) * kStripN;
+    const int m0 = (int)(u % row_tiles) * kBM + 64 * wg;  // this warpgroup's rows
+    if (u / row_tiles != strip) {
+      strip = u / row_tiles;
+      __syncthreads();  // every warp is done with the last strip's weight and bias
+      if (threadIdx.x == 0) {
+        const int bytes = min(kStripN, Np - n0) * kBK * 4;
+        const uint32_t bar = smem_u32(&full);
+        mbar_expect_tx(bar, 2 * KT * bytes);
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          const float* src = Wp + ((size_t)t * Np + n0) * kBK;
+          bulk_load(wsm + 2 * t * kSlabBytes, src, bytes, bar);
+          bulk_load(wsm + (2 * t + 1) * kSlabBytes, src + half, bytes, bar);
+        }
+      }
+      const int c = threadIdx.x;
+      if (c < kStripN) bias[c] = EPI == kBias && n0 + c < N ? E[n0 + c] : 0.0f;
+      __syncthreads();
+      mbar_wait(smem_u32(&full), phase);
+      phase ^= 1;
+    }
+    // split the fragments in registers, as the gemm form's split_into
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float a[4] = {v[t][0][2 * s], v[t][1][2 * s], v[t][0][2 * s + 1], v[t][1][2 * s + 1]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          f[t].hi[s][j] = tf32_hi(a[j]);
+          f[t].lo[s][j] = __float_as_uint(a[j] - __uint_as_float(f[t].hi[s][j]));
+        }
+      }
+      frag_fence(f[t]);
+    }
+    // the gemm form's step, slab by slab
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const uint32_t bhi = wsm + 2 * t * kSlabBytes, blo = bhi + kSlabBytes;
+      reg_fence(tile_acc);
+      frag_fence(f[t]);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        Wgmma<kStripN>::run(tile_acc, f[t].hi[s], sw128_desc(blo + 32 * s), s > 0);
+        Wgmma<kStripN>::run(tile_acc, f[t].lo[s], sw128_desc(bhi + 32 * s), 1);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        Wgmma<kStripN>::run(tile_acc, f[t].hi[s], sw128_desc(bhi + 32 * s), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(tile_acc);
+      frag_fence(f[t]);
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[j] = (t == 0 ? 0.0f : acc[j]) + tile_acc[j];
+    }
+    if (u + 1 < u1) load(u + 1);  // in flight while this tile leaves
+
+    // the tile into this warpgroup's staging buffer, once the bulk copies
+    // that read it two tiles ago are done reading
+    float* st = stage + (2 * wg + buf) * kStageFloats;
+    if (bulk && wt < 64) bulk_wait_read<1>();
+    wg_sync(wg);
+#pragma unroll
+    for (int j = 0; j < 64; j += 2) {
+      const int rw = (j % 4) < 2 ? rw0 : rw1;
+      const int c = 8 * (j / 4) + 2 * q;
+      float2 o;
+      if constexpr (EPI == kBias) {
+        o = make_float2(acc[j] + bias[c], acc[j + 1] + bias[c + 1]);
+      } else if constexpr (EPI == kTanhAddend) {
+        const int m = m0 + rw, n = n0 + c;
+        o.x = m < M && n < N ? epilogue<EPI>(acc[j], E, m, n, N) : 0.0f;
+        o.y = m < M && n + 1 < N ? epilogue<EPI>(acc[j + 1], E, m, n + 1, N) : 0.0f;
+      } else {
+        o = make_float2(acc[j], acc[j + 1]);
+      }
+      *reinterpret_cast<float2*>(st + rw * kStageLd + c) = o;
+    }
+    if (bulk) fence_proxy_async();
+    wg_sync(wg);
+    const int rows = min(64, M - m0), cols = min(kStripN, N - n0);
+    if (bulk) {
+      if (wt < rows) bulk_store(C + (size_t)(m0 + wt) * N + n0, smem_u32(st + wt * kStageLd), cols * 4);
+      if (wt < 64) bulk_commit();
+    } else {
+      // a warp a row: a scalar head up to C's next 16-byte boundary, 16-byte
+      // vectors, a scalar tail
+      for (int r = wt / 32; r < rows; r += 4) {
+        float* dst = C + (size_t)(m0 + r) * N + n0;
+        const float* src = st + r * kStageLd;
+        const int head = min(cols, (int)((4 - ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3));
+        if (lane < head) dst[lane] = src[lane];
+        const int body = (cols - head) / 4;
+        for (int i = lane; i < body; i += 32) {
+          const float* s4 = src + head + 4 * i;
+          *reinterpret_cast<float4*>(dst + head + 4 * i) = make_float4(s4[0], s4[1], s4[2], s4[3]);
+        }
+        const int tail = head + 4 * body + lane;
+        if (tail < cols && lane < 4) dst[tail] = src[tail];
+      }
+    }
+    buf ^= 1;
+  }
+  if (bulk && wt < 64) bulk_wait_all();
+}
+
+template <int V, int BN, Epilogue EPI>
 cudaError_t launch_gemm(dim3 grid, cudaStream_t s, const float* A, const float* Wp, const float* E,
-                        float* C, float* part, int M, int N, int K, int kt_split, int epi) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_3xtf32<V, BN>,
+                        float* C, float* part, int M, int N, int K, int kt_split) {
+  cudaError_t err = cudaFuncSetAttribute(gemm_3xtf32<V, BN, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(BN));
   if (err != cudaSuccess) return err;
-  gemm_3xtf32<V, BN><<<grid, kThreads, smem_bytes(BN), s>>>(A, Wp, E, C, part, M, N, K, kt_split,
-                                                            epi);
+  gemm_3xtf32<V, BN, EPI><<<grid, kThreads, smem_bytes(BN), s>>>(A, Wp, E, C, part, M, N, K,
+                                                                 kt_split);
   return cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, Epilogue EPI>
 cudaError_t launch_width(dim3 grid, cudaStream_t s, const float* A, const float* Wp,
-                         const float* E, float* C, float* part, int M, int N, int K, int kt_split,
-                         int epi) {
+                         const float* E, float* C, float* part, int M, int N, int K,
+                         int kt_split) {
   const unsigned long long a = reinterpret_cast<unsigned long long>(A);
   if (K % 4 == 0 && a % 16 == 0)
-    return launch_gemm<4, BN>(grid, s, A, Wp, E, C, part, M, N, K, kt_split, epi);
+    return launch_gemm<4, BN, EPI>(grid, s, A, Wp, E, C, part, M, N, K, kt_split);
   if (K % 2 == 0 && a % 8 == 0)
-    return launch_gemm<2, BN>(grid, s, A, Wp, E, C, part, M, N, K, kt_split, epi);
-  return launch_gemm<1, BN>(grid, s, A, Wp, E, C, part, M, N, K, kt_split, epi);
+    return launch_gemm<2, BN, EPI>(grid, s, A, Wp, E, C, part, M, N, K, kt_split);
+  return launch_gemm<1, BN, EPI>(grid, s, A, Wp, E, C, part, M, N, K, kt_split);
+}
+
+template <int V, int KT, Epilogue EPI>
+cudaError_t launch_strip_kt(int blocks, cudaStream_t s, const float* A, const float* Wp,
+                            const float* E, float* C, int M, int N, int K) {
+  cudaError_t err = cudaFuncSetAttribute(strip_3xtf32<V, KT, EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kStripSmem);
+  if (err != cudaSuccess) return err;
+  const int bulk = N % 4 == 0 && reinterpret_cast<unsigned long long>(C) % 16 == 0;
+  strip_3xtf32<V, KT, EPI><<<blocks, kThreads, kStripSmem, s>>>(A, Wp, E, C, M, N, K, bulk);
+  return cudaGetLastError();
+}
+
+template <Epilogue EPI>
+cudaError_t launch_strip(int blocks, cudaStream_t s, const float* A, const float* Wp,
+                         const float* E, float* C, int M, int N, int K) {
+  const bool v4 = K % 4 == 0 && reinterpret_cast<unsigned long long>(A) % 16 == 0;
+  if (K <= kBK)
+    return v4 ? launch_strip_kt<4, 1, EPI>(blocks, s, A, Wp, E, C, M, N, K)
+              : launch_strip_kt<1, 1, EPI>(blocks, s, A, Wp, E, C, M, N, K);
+  return v4 ? launch_strip_kt<4, 2, EPI>(blocks, s, A, Wp, E, C, M, N, K)
+            : launch_strip_kt<1, 2, EPI>(blocks, s, A, Wp, E, C, M, N, K);
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// blocks > 0: the strip form on that many blocks (K <= 64; splits and
+// tile_n unused); 0: the gemm form.
+template <Epilogue EPI>
 int launch(const float* A, const float* Wp, const float* E, float* C, float* part, int M, int N,
-           int K, int splits, int tile_n, int epi, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || (tile_n != kWidths[0] && tile_n != kWidths[1]))
-    return (int)cudaErrorInvalidValue;
+           int K, int splits, int tile_n, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || K <= 0 || blocks < 0) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    const long long units = (long long)cdiv(N, kStripN) * cdiv(M, kBM);
+    if (K > kStripMaxKt * kBK || blocks > units) return (int)cudaErrorInvalidValue;
+    return (int)launch_strip<EPI>(blocks, s, A, Wp, E, C, M, N, K);
+  }
+  if (splits < 1 || (tile_n != kWidths[0] && tile_n != kWidths[1]))
+    return (int)cudaErrorInvalidValue;
   const int Kt = cdiv(K, kBK);
   const int kt_split = cdiv(Kt, splits);
   const int nz = cdiv(Kt, kt_split);
@@ -481,12 +746,12 @@ int launch(const float* A, const float* Wp, const float* E, float* C, float* par
   const dim3 grid(cdiv(M, kBM), cdiv(N, tile_n), nz);
   const cudaError_t err =
       tile_n == kWidths[0]
-          ? launch_width<kWidths[0]>(grid, s, A, Wp, E, C, part, M, N, K, kt_split, epi)
-          : launch_width<kWidths[1]>(grid, s, A, Wp, E, C, part, M, N, K, kt_split, epi);
+          ? launch_width<kWidths[0], EPI>(grid, s, A, Wp, E, C, part, M, N, K, kt_split)
+          : launch_width<kWidths[1], EPI>(grid, s, A, Wp, E, C, part, M, N, K, kt_split);
   if (err != cudaSuccess || nz == 1) return (int)err;
   const long long mn = (long long)M * N;
   const long long want = (mn + 255) / 256;
-  splitk_sum<<<(int)(want < 4096 ? want : 4096), 256, 0, s>>>(part, E, C, M, N, nz, epi);
+  splitk_sum<EPI><<<(int)(want < 4096 ? want : 4096), 256, 0, s>>>(part, E, C, M, N, nz);
   return (int)cudaGetLastError();
 }
 
@@ -503,10 +768,11 @@ int denoise_splits(int M, int N, int K, int n_sm) {
   return s > 1 ? s : 1;
 }
 
-// Tile width for an (M, N) output: 104 where it takes no more waves of
-// n_sm blocks than 128, else 128 (always 128 with splits > 1, which were
-// counted at 128). A tile's time is mostly its fixed chain of 32-deep
-// steps, not its width, so the waves set the time. On an H100 SXM (132
+// The gemm form's tile width for an (M, N) output: 104 where it takes no
+// more waves of n_sm blocks than 128, else 128 (always 128 with splits >
+// 1, which were counted at 128). At a deep contraction a tile's time is
+// mostly its fixed chain of 32-deep steps, not its width, so the waves set
+// the time (at 64 deep and less the store does: the strip form). On an H100 SXM (132
 // SMs, 700 W) at B 1,024, an earlier revision of K3 took at N 6,710
 // 0.203 ms at 128 and 0.190 ms at 104 (4 waves each), and at N 20,000
 // 0.472 ms at 128 (10 waves) and 0.501 ms at 104 (12 waves)
@@ -519,27 +785,28 @@ int denoise_tile_n(int M, int N, int splits, int n_sm) {
 }
 
 // K2: h (B, H) = tanh(x (B, K) @ w1x (K, H) + tp (B, H)), w1p the prepared
-// w1x, in blocks tile_n wide (denoise_tile_n). part: (splits, B, H) f32
+// w1x: the gemm form in blocks tile_n wide (denoise_tile_n), or with
+// blocks > 0 the strip form on that many blocks. part: (splits, B, H) f32
 // scratch when splits > 1 (the contraction is cut into at most `splits`
 // ranges of whole 32-deep tiles).
 int denoise_layer1(const float* x, const float* w1p, const float* tp, float* h, float* part,
-                   int B, int K, int H, int splits, int tile_n, void* stream) {
-  return launch(x, w1p, tp, h, part, B, H, K, splits, tile_n, kTanhAddend, stream);
+                   int B, int K, int H, int splits, int tile_n, int blocks, void* stream) {
+  return launch<kTanhAddend>(x, w1p, tp, h, part, B, H, K, splits, tile_n, blocks, stream);
 }
 
 // K2's partial: s (B, H) = x (B, K) @ w1x (K, H), the raw f32 product (the
 // kNone epilogue), for a catalog shard of K rows of W1x; the caller sums
-// the shards' s and applies tanh(s + tp). tile_n and part as for K2.
+// the shards' s and applies tanh(s + tp). The other arguments as for K2.
 int denoise_layer1_partial(const float* x, const float* w1p, float* s, float* part, int B, int K,
-                           int H, int splits, int tile_n, void* stream) {
-  return launch(x, w1p, nullptr, s, part, B, H, K, splits, tile_n, kNone, stream);
+                           int H, int splits, int tile_n, int blocks, void* stream) {
+  return launch<kNone>(x, w1p, nullptr, s, part, B, H, K, splits, tile_n, blocks, stream);
 }
 
 // K3: out (B, N) = h (B, H) @ w2 (H, N) + b2 (N,), w2p the prepared w2;
-// tile_n and part as for K2.
+// the other arguments as for K2.
 int denoise_layer2(const float* h, const float* w2p, const float* b2, float* out, float* part,
-                   int B, int H, int N, int splits, int tile_n, void* stream) {
-  return launch(h, w2p, b2, out, part, B, N, H, splits, tile_n, kBias, stream);
+                   int B, int H, int N, int splits, int tile_n, int blocks, void* stream) {
+  return launch<kBias>(h, w2p, b2, out, part, B, N, H, splits, tile_n, blocks, stream);
 }
 
 }  // extern "C"

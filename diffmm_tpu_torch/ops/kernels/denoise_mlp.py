@@ -19,7 +19,12 @@ epilogue and the tanh after it are the same f32 add and ``tanhf``, so a
 mesh of one rank computes what one device does, bit for bit. The hand
 kernels are ``csrc/denoise_mlp.cu``: 3xTF32
 products on the tensor cores, whose source note gives their design and
-bound. They take the weights in their own layout, :class:`KernelWeight`,
+bound. Each entry runs one of two forms of the kernel, picked by
+:func:`denoise_form` from the contraction depth alone: the gemm form for a
+deep contraction (the rebuild's K2 over the catalog, K3 at a hidden width
+of 1,024), the strip form for one of at most 64 (K3 at web scale's hidden
+width of 64), where the output's store sets the time; both compute the
+same bits. They take the weights in their own layout, :class:`KernelWeight`,
 made by :func:`prepare_weight`: transposed, padded, split into TF32 hi and
 lo halves and swizzled. The weights do not change during a rebuild, so the
 rebuild prepares each denoiser once (:func:`prepare_denoiser`) and
@@ -49,6 +54,26 @@ LAUNCHES = {"denoise_layer1": 0, "denoise_layer1_partial": 0, "denoise_layer2": 
 
 KT = 32  # contraction depth of a kernel tile (kBK in csrc/denoise_mlp.cu)
 NT = 128  # N padding of the prepared weights (kPadN)
+STRIP_MAX_K = 64  # the strip form's deepest contraction (kStripMaxKt slabs)
+STRIP_N = 128  # the strip form's strip width (kStripN)
+FORMS = ("gemm", "strip")
+
+
+def denoise_form(k: int) -> str:
+    """The kernel form for a product over a contraction ``k`` deep:
+    ``"strip"`` where ``k <= 64``, ``"gemm"`` otherwise. At 64 deep and
+    less a tile's products are two 32-deep steps and its store sets its
+    time, so the strip form (a persistent grid that stages each tile in
+    shared memory and stores it while the next one computes) runs; deeper,
+    the tensor cores set it, and the gemm form (split-K, a weight ring) runs.
+    The two forms compute the same bits; the choice is by shape alone."""
+    return "strip" if k <= STRIP_MAX_K else "gemm"
+
+
+def strip_blocks(m: int, n: int, n_sm: int) -> int:
+    """The strip form's persistent grid for an (m, n) output: one block an
+    SM, at most one a (strip, 128-row tile) unit."""
+    return min(n_sm, -(-n // STRIP_N) * -(-m // 128))
 
 
 def layer1_plain(x: torch.Tensor, w1x: torch.Tensor, temb_proj: torch.Tensor) -> torch.Tensor:
@@ -129,9 +154,9 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.denoise_layer1, lib.denoise_layer2):
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
-        lib.denoise_layer1_partial.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.denoise_layer1_partial.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.denoise_layer1_partial.restype = i
         for fn in (lib.denoise_splits, lib.denoise_tile_n):
             fn.argtypes = [i, i, i, i]
@@ -141,12 +166,17 @@ def _lib():
 
 
 @functools.cache
-def _plan(m: int, n: int, k: int, device: torch.device) -> tuple[int, int]:
-    """The kernel's split-K count and tile width for an (M, K) x (K, N)
-    product on this card (ctypes calls once per shape)."""
-    lib, n_sm = _lib(), sm_count(device)
+def _plan(m: int, n: int, k: int, form: str, device: torch.device) -> tuple[int, int, int]:
+    """``(splits, tile_n, blocks)`` for an (M, K) x (K, N) product in
+    ``form`` on this card: the gemm form's split-K count and tile width
+    (ctypes calls once per shape) and blocks 0, or the strip form's
+    persistent grid (``blocks`` > 0)."""
+    n_sm = sm_count(device)
+    if form == "strip":
+        return 1, STRIP_N, strip_blocks(m, n, n_sm)
+    lib = _lib()
     splits = lib.denoise_splits(m, n, k, n_sm)
-    return splits, lib.denoise_tile_n(m, n, splits, n_sm)
+    return splits, lib.denoise_tile_n(m, n, splits, n_sm), 0
 
 
 def _on_cuda(what: str, t: torch.Tensor) -> bool:
@@ -186,19 +216,31 @@ def _weight(what: str, name: str, w, k: int, n: int, device: torch.device) -> Ke
     return w
 
 
-def _launch(what: str, a: torch.Tensor, w: KernelWeight, e: torch.Tensor | None) -> torch.Tensor:
+def _form(what: str, k: int, form: str | None) -> str:
+    """``form`` checked for a contraction ``k`` deep (None:
+    :func:`denoise_form`'s); checked on the CPU too, where the plain
+    version runs whatever the form."""
+    if form is None:
+        return denoise_form(k)
+    if form not in FORMS or (form == "strip" and k > STRIP_MAX_K):
+        raise ValueError(f"{what}: no {form!r} form for a contraction {k} deep")
+    return form
+
+
+def _launch(what: str, a: torch.Tensor, w: KernelWeight, e: torch.Tensor | None, form: str) -> torch.Tensor:
     """``epilogue(a (M, K) @ w (K, N), e)`` by kernel ``what`` (no ``e``:
-    the raw product), with the split-K scratch the kernel asks for."""
+    the raw product) in ``form``, with the split-K scratch the gemm form
+    asks for."""
     lib = _lib()
     (m, k), n, dev = a.shape, w.n, a.device
-    splits, tile_n = _plan(m, n, k, dev)
+    splits, tile_n, blocks = _plan(m, n, k, form, dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    part = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32, device=dev)
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
     ptrs = (a.data_ptr(), w.data.data_ptr()) + (() if e is None else (e.data_ptr(),))
     check_launch(
         getattr(lib, what)(
-            *ptrs, out.data_ptr(), part.data_ptr(),
-            m, k, n, splits, tile_n, torch.cuda.current_stream(dev).cuda_stream,
+            *ptrs, out.data_ptr(), None if part is None else part.data_ptr(),
+            m, k, n, splits, tile_n, blocks, torch.cuda.current_stream(dev).cuda_stream,
         ),
         what,
     )
@@ -212,11 +254,13 @@ def _plain_weight(what: str, w) -> torch.Tensor:
     return w
 
 
-def denoise_layer1(x: torch.Tensor, w1x, temb_proj: torch.Tensor) -> torch.Tensor:
+def denoise_layer1(x: torch.Tensor, w1x, temb_proj: torch.Tensor, form: str | None = None) -> torch.Tensor:
     """K2, ``tanh(x @ w1x + temb_proj)``: the hand kernel for CUDA tensors,
     the plain version for CPU tensors (only there). x (B, K), temb_proj (B,
     H) with b1 folded in, f32; w1x a (K, H) f32 tensor or, on the card, its
-    :class:`KernelWeight`."""
+    :class:`KernelWeight`. ``form`` names the kernel's form where a caller
+    holds one against the other (default: :func:`denoise_form`'s)."""
+    form = _form("denoise_layer1", x.shape[1], form)
     if not _on_cuda("denoise_layer1", x):
         return layer1_plain(x, _plain_weight("denoise_layer1", w1x), temb_proj)
     (B, K), H, dev = x.shape, _out_dim(w1x), x.device
@@ -225,15 +269,18 @@ def denoise_layer1(x: torch.Tensor, w1x, temb_proj: torch.Tensor) -> torch.Tenso
         _check("denoise_layer1", "x", x, (B, K), dev),
         _weight("denoise_layer1", "w1x", w1x, K, H, dev),
         _check("denoise_layer1", "temb_proj", temb_proj, (B, H), dev),
+        form,
     )
 
 
-def denoise_layer1_partial(x: torch.Tensor, w1x) -> torch.Tensor:
+def denoise_layer1_partial(x: torch.Tensor, w1x, form: str | None = None) -> torch.Tensor:
     """K2's partial product ``x @ w1x`` (the ``kNone`` epilogue: no tanh, no
     addend), the part of one catalog shard: the hand kernel for CUDA
     tensors, the plain version for CPU tensors (only there). x (B, K) f32;
-    w1x a (K, H) f32 tensor or, on the card, its :class:`KernelWeight`. A
-    build or launch that fails raises."""
+    w1x a (K, H) f32 tensor or, on the card, its :class:`KernelWeight`;
+    ``form`` as for :func:`denoise_layer1`. A build or launch that fails
+    raises."""
+    form = _form("denoise_layer1_partial", x.shape[1], form)
     if not _on_cuda("denoise_layer1_partial", x):
         return layer1_partial_plain(x, _plain_weight("denoise_layer1_partial", w1x))
     (B, K), H, dev = x.shape, _out_dim(w1x), x.device
@@ -242,13 +289,16 @@ def denoise_layer1_partial(x: torch.Tensor, w1x) -> torch.Tensor:
         _check("denoise_layer1_partial", "x", x, (B, K), dev),
         _weight("denoise_layer1_partial", "w1x", w1x, K, H, dev),
         None,
+        form,
     )
 
 
-def denoise_layer2(h: torch.Tensor, w2, b2: torch.Tensor) -> torch.Tensor:
+def denoise_layer2(h: torch.Tensor, w2, b2: torch.Tensor, form: str | None = None) -> torch.Tensor:
     """K3, ``h @ w2 + b2``: the hand kernel for CUDA tensors, the plain
     version for CPU tensors (only there). h (B, H), b2 (N,), f32; w2 an
-    (H, N) f32 tensor or, on the card, its :class:`KernelWeight`."""
+    (H, N) f32 tensor or, on the card, its :class:`KernelWeight`; ``form``
+    as for :func:`denoise_layer1`."""
+    form = _form("denoise_layer2", h.shape[1], form)
     if not _on_cuda("denoise_layer2", h):
         return layer2_plain(h, _plain_weight("denoise_layer2", w2), b2)
     (B, H), N, dev = h.shape, _out_dim(w2), h.device
@@ -257,6 +307,7 @@ def denoise_layer2(h: torch.Tensor, w2, b2: torch.Tensor) -> torch.Tensor:
         _check("denoise_layer2", "h", h, (B, H), dev),
         _weight("denoise_layer2", "w2", w2, H, N, dev),
         _check("denoise_layer2", "b2", b2, (N,), dev),
+        form,
     )
 
 

@@ -83,7 +83,9 @@ def test_init_denoise_params_shapes_and_scale():
     assert abs(float(w.std()) / np.sqrt(2.0 / (310 + 64)) - 1) < 0.05
 
 
-@pytest.mark.parametrize("shape", [(20, 300, 64), (7, 133, 48)], ids=["B20", "ragged"])
+# B20 and ragged: deep enough for K2's gemm form; narrow: web scale's
+# hidden width of 64 (K3's strip form on the card) at a catalog of 1,500
+@pytest.mark.parametrize("shape", [(20, 300, 64), (7, 133, 48), (16, 1500, 64)], ids=["B20", "ragged", "narrow"])
 def test_k2_k3_plain_match_fused_interpret(rng, shape):
     B, K, H = shape
     x = rng.standard_normal((B, K)).astype(np.float32)

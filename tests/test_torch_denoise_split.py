@@ -154,14 +154,29 @@ def test_emulated_3xtf32_within_twice_the_f32_error():
     assert err_one_acc > 5e-5 > 10 * err_3x, (err_one_acc, err_3x)
 
 
+def test_emulated_3xtf32_at_the_strip_depth():
+    """At web scale's hidden width (K 64: two 32-deep slabs, the strip
+    form's contraction; B 64 x N 512): the kernel's arithmetic, which both
+    forms share, within twice the f32 product's error against float64."""
+    rng = np.random.default_rng(1)
+    B, K, N = 64, 64, 512
+    x = torch.as_tensor(np.tanh(rng.standard_normal((B, K))).astype(np.float32))
+    w = torch.as_tensor((rng.standard_normal((K, N)) * np.sqrt(2.0 / (K + N))).astype(np.float32))
+    exact = x.double() @ w.double()
+    err_f32 = float((x @ w - exact).abs().max())
+    err_3x = float((_emulated_kernel(x, w, promote=True) - exact).abs().max())
+    assert err_3x <= 2 * err_f32, (err_3x, err_f32)
+
+
 def _params(item_num, hidden, seed):
     j = jd.init_denoise_params(jax.random.PRNGKey(seed), item_num, hidden, 10, 8)
     return j, denoise_params_from_jax(jax.device_get(j))
 
 
-@pytest.mark.parametrize("item_num", [133, 300])
+# 133 and 300 at hidden 48; 1,500, the narrow case, at web scale's hidden 64
+@pytest.mark.parametrize("item_num", [133, 300, 1500])
 def test_prepared_denoiser_matches_pallas_interpret(rng, item_num):
-    j, t = _params(item_num, [48], seed=2)
+    j, t = _params(item_num, [64 if item_num == 1500 else 48], seed=2)
     prep = prepare_denoiser(t)
     assert isinstance(prep, PreparedDenoiser)
     # on the CPU the prepared form holds the plain weights

@@ -172,6 +172,93 @@ def test_denoise_kernels_match_plain(cuda, shape):
     _f64_gate(out, out_plain, h.double() @ w2.double() + b2.double())
 
 
+@pytest.mark.parametrize("shape", [(512, 64, 100000), (128, 64, 50000)], ids=["S", "S_sparse_demo_shard"])
+def test_denoise_layer2_strip_form_at_web_scale(cuda, shape):
+    """K3 at path S's shapes (B, H 64, N): the web-scale rebuild and the
+    sparse demo's rank block, which take the strip form. Against the plain
+    version within TOL, the f64 gate, the same bits on a second launch and
+    the same bits as the gemm form (the same arithmetic, step for step)."""
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
+        LAUNCHES, denoise_form, denoise_layer2, layer2_plain, prepare_weight,
+    )
+
+    B, H, N = shape
+    assert denoise_form(H) == "strip"
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    h = torch.tanh(torch.randn((B, H), generator=gen, device=cuda))
+    w2 = torch.randn((H, N), generator=gen, device=cuda) * (2.0 / (H + N)) ** 0.5
+    b2 = torch.randn((N,), generator=gen, device=cuda) * 0.001
+    w2p = prepare_weight(w2)
+    before = LAUNCHES["denoise_layer2"]
+    out = denoise_layer2(h, w2p, b2)
+    assert LAUNCHES["denoise_layer2"] == before + 1
+    plain = layer2_plain(h, w2, b2)
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=5e-5)
+    assert torch.equal(out, denoise_layer2(h, w2p, b2))
+    assert torch.equal(out, denoise_layer2(h, w2p, b2, form="gemm"))
+    _f64_gate(out, plain, h.double() @ w2.double() + b2.double())
+
+
+# (B, K, N) with K at most 64 (the strip form): several strips and row
+# tiles; B under one warpgroup's 64 rows; N % 4 != 0 (vector stores with a
+# scalar head and tail a row) and N % 4 == 0 (bulk copies); K odd (A's
+# 1-float loads) and K 32 and under (one slab); one strip's columns cut
+# short
+@pytest.mark.parametrize(
+    "shape",
+    [(7, 48, 133), (300, 64, 1000), (129, 64, 1030), (100, 33, 17), (130, 64, 250), (1000, 17, 3000),
+     (257, 32, 4099), (64, 63, 513), (513, 64, 20000)],
+)
+def test_strip_form_matches_gemm_form(cuda, shape):
+    """Each entry in the strip form against the gemm form on the same
+    inputs, bitwise, and against its plain version within TOL; A also from
+    a base 4 bytes past a 16-byte boundary (its 1-float loads)."""
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
+        LAUNCHES, denoise_form, denoise_layer1, denoise_layer1_partial, denoise_layer2, layer1_plain,
+        layer1_partial_plain, layer2_plain, prepare_weight,
+    )
+
+    B, K, N = shape
+    assert denoise_form(K) == "strip"
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn((B, K), generator=gen, device=cuda)
+    shifted = torch.empty(B * K + 1, device=cuda)[1:].view(B, K).copy_(x)
+    w = torch.randn((K, N), generator=gen, device=cuda) * (2.0 / (K + N)) ** 0.5
+    tp = torch.randn((B, N), generator=gen, device=cuda) * 0.1
+    b = torch.randn((N,), generator=gen, device=cuda) * 0.01
+    wp = prepare_weight(w)
+    cases = (
+        ("denoise_layer1", lambda a, f: denoise_layer1(a, wp, tp, f), layer1_plain(x, w, tp)),
+        ("denoise_layer1_partial", lambda a, f: denoise_layer1_partial(a, wp, f), layer1_partial_plain(x, w)),
+        ("denoise_layer2", lambda a, f: denoise_layer2(a, wp, b, f), layer2_plain(x, w, b)),
+    )
+    for name, kern, plain in cases:
+        before = LAUNCHES[name]
+        got = kern(x, None)
+        assert LAUNCHES[name] == before + 1
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=5e-5)
+        assert torch.equal(got, kern(x, "gemm")), name
+        assert torch.equal(got, kern(shifted, None)), name
+
+
+@pytest.mark.parametrize("K", [3355, 6710, 63])
+def test_denoise_loads_at_any_alignment(cuda, K):
+    """A's rows at every 4-byte offset from a 16-byte boundary (K 3,355: a
+    1x2 mesh's shard of tiktok's catalog, odd; 6,710: the whole catalog;
+    63: the strip form): the 1- and 2-float loads read the same floats as
+    the wider ones, so every offset gives the same bits, in both forms."""
+    from diffmm_tpu_torch.ops.kernels.denoise_mlp import denoise_layer1_partial, prepare_weight
+
+    B, H = 300, 96
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn((B, K), generator=gen, device=cuda)
+    wp = prepare_weight(torch.randn((K, H), generator=gen, device=cuda) * (2.0 / (K + H)) ** 0.5)
+    want = denoise_layer1_partial(x, wp)
+    for off in (1, 2, 3):
+        moved = torch.empty(B * K + off, device=cuda)[off:].view(B, K).copy_(x)
+        assert torch.equal(denoise_layer1_partial(moved, wp), want), off
+
+
 def test_denoise_wrappers_reject_bad_prepared_weights(cuda):
     from diffmm_tpu_torch.ops.kernels.denoise_mlp import KernelWeight, denoise_layer1, prepare_weight
 
