@@ -20,9 +20,14 @@ with a plain C interface, loaded through ``ctypes``, at first use, into
 carries a hash of its source, so an edited source never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
 
-Each wrapper counts its launches in its module's ``LAUNCHES``;
-:func:`launch_counts` reads them all and :func:`add_launches` adds to them
-(a captured CUDA graph's launches, ``train/graphs.py``).
+The kernels' work counters are one registry here: each wrapper counts its
+launches (:func:`count`, its module's ``LAUNCHES`` a view of its own), and
+K4's entries also the least bytes of the function each launch computes
+(``<kernel>.bytes``). A wrapper counts where its Python code runs, which is
+once at a CUDA graph's capture and never at its replay, so ``train/graphs.py``
+adds a captured step's counts back at every replay (:func:`add_work`).
+:func:`work_counts` reads every counter, :func:`launch_counts` the launches
+alone and :func:`add_launches` adds to them.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections.abc import MutableMapping
 
 import torch
 
@@ -125,19 +131,78 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def _counters() -> tuple[dict[str, int], ...]:
-    from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual
+# kernel name -> launches, "<kernel>.bytes" -> bytes (the kernels that count them)
+_WORK: dict[str, int] = {}
 
-    return spmm_dual.LAUNCHES, denoise_mlp.LAUNCHES, segsum.LAUNCHES
+
+class Launches(MutableMapping):
+    """A wrapper module's view of its kernels' launch counts in the
+    registry (its ``LAUNCHES``), made once when the module is imported;
+    ``with_bytes`` also registers each kernel's byte counter."""
+
+    def __init__(self, *names: str, with_bytes: bool = False):
+        self._names = names
+        for name in names:
+            _WORK[name] = 0
+            if with_bytes:
+                _WORK[f"{name}.bytes"] = 0
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self._names:
+            raise KeyError(name)
+        return _WORK[name]
+
+    def __setitem__(self, name: str, value: int) -> None:
+        if name not in self._names:
+            raise KeyError(name)
+        _WORK[name] = value
+
+    def __delitem__(self, name: str) -> None:
+        raise TypeError("a kernel's launch counter cannot be removed")
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+def count(name: str, n_bytes: int | None = None) -> None:
+    """One launch of kernel ``name``, computing a function of ``n_bytes``
+    least bytes where the kernel counts them."""
+    _WORK[name] += 1
+    if n_bytes is not None:
+        _WORK[f"{name}.bytes"] += n_bytes
+
+
+def _registered() -> dict[str, int]:
+    from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual  # noqa: F401  (they register)
+
+    return _WORK
+
+
+def work_counts() -> dict[str, int]:
+    """Every work counter so far: each kernel's launches by its name, and
+    ``<kernel>.bytes`` where it counts bytes."""
+    return dict(_registered())
+
+
+def add_work(delta: dict[str, int]) -> None:
+    """Add ``delta[key]`` to each counter named in it (negative: take back)."""
+    work = _registered()
+    for key, n in delta.items():
+        if key in work:
+            work[key] += n
 
 
 def launch_counts() -> dict[str, int]:
     """Every kernel's launch count so far, by kernel name."""
-    return {name: n for counts in _counters() for name, n in counts.items()}
+    return {name: n for name, n in _registered().items() if "." not in name}
 
 
 def add_launches(delta: dict[str, int]) -> None:
     """Add ``delta[name]`` to kernel ``name``'s count (negative: take back)."""
-    for counts in _counters():
-        for name in counts:
-            counts[name] += delta.get(name, 0)
+    add_work({name: n for name, n in delta.items() if "." not in name})

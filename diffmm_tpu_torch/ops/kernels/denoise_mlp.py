@@ -43,14 +43,14 @@ import functools
 import torch
 
 from diffmm_tpu_torch.models.denoise import timestep_embedding
-from diffmm_tpu_torch.ops.kernels import check_launch, load_library, round_up, sm_count
+from diffmm_tpu_torch.ops.kernels import Launches, check_launch, count, load_library, round_up, sm_count
 from diffmm_tpu_torch.parallel.collectives import all_reduce_sum_
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"denoise_layer1": 0, "denoise_layer1_partial": 0, "denoise_layer2": 0}
+LAUNCHES = Launches("denoise_layer1", "denoise_layer1_partial", "denoise_layer2")
 
 KT = 32  # contraction depth of a kernel tile (kBK in csrc/denoise_mlp.cu)
 NT = 128  # N padding of the prepared weights (kPadN)
@@ -244,7 +244,7 @@ def _launch(what: str, a: torch.Tensor, w: KernelWeight, e: torch.Tensor | None,
         ),
         what,
     )
-    LAUNCHES[what] += 1
+    count(what)
     return out
 
 

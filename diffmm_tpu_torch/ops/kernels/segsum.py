@@ -18,7 +18,9 @@ edges, hubs cut into 256-edge pieces summed in piece order, no atomics on
 values) and its bound. :func:`segsum` is the same kernel on a (nnz, d)
 message tensor (row e for edge e): the unfused route, kept as a yardstick;
 nothing of the training or serving path calls it, and ``LAUNCHES`` counts
-its launches apart (``segsum_unfused``).
+its launches apart (``segsum_unfused``). Each launch also counts the least
+bytes of the function it computes (:func:`least_bytes`): they belong to the
+function, so any kernel that computes it counts the same.
 
 The kernel and its plain version take the segment boundaries ``offsets``
 (n + 1,) in place of the ids, so both read the segments from the same
@@ -44,11 +46,11 @@ import functools
 
 import torch
 
-from diffmm_tpu_torch.ops.kernels import check_launch, load_library
+from diffmm_tpu_torch.ops.kernels import Launches, check_launch, count, load_library
 
 # Launches of the kernel, counted where it launches: the fused entry
-# (segsum_gather) and the unfused one (segsum), apart.
-LAUNCHES = {"segsum": 0, "segsum_unfused": 0}
+# (segsum_gather) and the unfused one (segsum), apart; each with its bytes.
+LAUNCHES = Launches("segsum", "segsum_unfused", with_bytes=True)
 # Modalities one launch takes (kMaxModal of csrc/segsum.cu): the shipped
 # configurations have at most 3.
 MAX_MODAL = 4
@@ -71,6 +73,18 @@ def segment_offsets(ids: torch.Tensor, n: int) -> torch.Tensor:
     offsets[s + 1])`` and the pads (ids >= n) lie past ``offsets[n]``."""
     bounds = torch.arange(n + 1, dtype=ids.dtype, device=ids.device)
     return torch.searchsorted(ids, bounds)
+
+
+def least_bytes(M: int, R: int, d: int, elem: int, nnz: int, n: int, indexed: bool = True) -> int:
+    """The least bytes one call's function moves, from sizes the host knows
+    (a call also runs inside a graph's capture, where no device value may be
+    read): the table rows the edges can name, at most one a row and one an
+    edge, each read once (``M·min(nnz, R)·d·elem``), the index vectors
+    (``4·nnz·M``, where the call has them: not the unfused entry, whose row
+    is its edge), the offsets (``8·(n + 1)``) and the f32 output
+    (``4·n·M·d``). Where every row is named and no edge is a pad it is
+    ``chip_smoke.py``'s bound bytes."""
+    return M * min(nnz, R) * d * elem + (4 * nnz * M if indexed else 0) + 8 * (n + 1) + 4 * n * M * d
 
 
 def segsum_plain(msgs: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
@@ -183,6 +197,7 @@ def _launch(tables: torch.Tensor, srcs: list[torch.Tensor] | None, offsets: torc
         return torch.zeros((n, M * d), dtype=torch.float32, device=dev)
     if R >= 2**31 or nnz >= 2**31:
         raise ValueError(f"segsum: {R} rows and {nnz} edges, the kernel's int32 rows take fewer than 2^31")
+    n_bytes = least_bytes(M, R, d, tables.element_size(), nnz, n, indexed=srcs is not None)
     if tables.dtype == torch.bfloat16 and _vec(d, tables.data_ptr(), 2) < 2:
         # the kernel copies 4 bytes or more a lane; f32 holds every bf16 value
         # exactly and the kernel sums in f32, so the sums are the same bits
@@ -198,7 +213,7 @@ def _launch(tables: torch.Tensor, srcs: list[torch.Tensor] | None, offsets: torc
         parts, tickets, n, nnz, group, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(err, "segsum")
-    LAUNCHES[counter] += 1
+    count(counter, n_bytes)
     return out
 
 

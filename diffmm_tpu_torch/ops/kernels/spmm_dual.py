@@ -35,13 +35,13 @@ from dataclasses import dataclass
 
 import torch
 
-from diffmm_tpu_torch.ops.kernels import check_launch, load_library, round_up, sm_count
+from diffmm_tpu_torch.ops.kernels import Launches, check_launch, count, load_library, round_up, sm_count
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # Launches of the kernel, counted by spmm_dual where it launches.
-LAUNCHES = {"spmm_dual": 0}
+LAUNCHES = Launches("spmm_dual")
 
 _SUPPORTED_D = (16, 32, 64)
 
@@ -211,7 +211,7 @@ def _launch_one(mat, zu, zi, y_i) -> torch.Tensor:
         U, I, d, p.raw, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(err, "spmm_dual")
-    LAUNCHES["spmm_dual"] += 1
+    count("spmm_dual")
     return y_u
 
 

@@ -116,7 +116,7 @@ from diffmm_tpu_torch.utils.checkpoint import (
 )
 from diffmm_tpu_torch.utils.device import resolve_device
 from diffmm_tpu_torch.utils.logging import Log, NullLog
-from diffmm_tpu_torch.utils.profiling import PhaseTimer
+from diffmm_tpu_torch.utils.profiling import PhaseTimer, StepParts, settle, span
 
 # Blocks budget where the device reports no memory size (the CPU), as in
 # the JAX package; on the card the budget derives from its memory.
@@ -129,6 +129,8 @@ _DENSE_STORES = {"int8": (torch.int8, 1.0), "bf16": (torch.bfloat16, 2.0), "int4
 _PARAM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 _LOSS_NAMES = {"image": "image loss", "text": "text loss", "audio": "audio loss"}
+# the eval's parts (its span's): the GCN forward, then the ranking
+_EVAL_PARTS = StepParts("eval", ("forward", "rank"))
 
 
 def resolve_dense_store(name: str) -> tuple[torch.dtype, float]:
@@ -343,7 +345,7 @@ class Coach:
         self._joint_idx, _ = _pad_blocks(host.nnz, batch)
         self.cum_dcg = dcg_table(config.base.topk, self.device)
         self._fused_eval_cache: dict = {}
-        self.timer = PhaseTimer()
+        self.timer = PhaseTimer(self.device)
         self.ckpt = None
         # the full state (parameters and Adam moments of every model) is
         # saved on an interval, and always after the last epoch
@@ -608,9 +610,13 @@ class Coach:
         ``self.timer`` is its own (at the cost of the overlap between
         phases). Returns the epoch's loss dict (read from the card once, at
         the end)."""
-        (tables,) = self._epoch_tables(epoch, 1)
+        with span("tables", self.device):
+            (tables,) = self._epoch_tables(epoch, 1)
         modal_acc, joint_acc = self._epoch_on_device(tables, fence)
-        return self._epoch_result(joint_acc.cpu().numpy(), modal_acc.cpu().numpy())
+        with span("readback", self.device):
+            joint_acc, modal_acc = joint_acc.cpu().numpy(), modal_acc.cpu().numpy()
+        settle()
+        return self._epoch_result(joint_acc, modal_acc)
 
     def _joint_phase(self, perm: torch.Tensor, negs: torch.Tensor, lr, hp: dict) -> torch.Tensor:
         """Phase 3, joint GCN training (reference Main.py:291-377), over the
@@ -687,39 +693,44 @@ class Coach:
         if self.knn:
             raise ValueError("epoch fusion needs the diffusion rebuild path "
                              "(hyper.use_knn_adj rebuilds nothing per epoch)")
-        tables = self._epoch_tables(epoch0, n)
+        with span("tables", self.device):
+            tables = self._epoch_tables(epoch0, n)
         flags = eval_blocks = None
         if eval_split is not None:
             flags = [(epoch0 + e) % cfg.train.tstEpoch == 0 for e in range(n)]
             if any(flags):
                 eval_blocks = self._fused_eval_blocks(eval_split)
         with_eval = eval_blocks is not None
-        if with_eval:
-            best_recall = torch.full((), -torch.inf, device=self.device)
-            best_g = tree_map(lambda p: p.detach().clone(), self.gcn_params)
-            best_bufs = ([b.clone() for b in self.edge_buffers] if self.edge_buffers is not None
-                         else [torch.zeros(self.edge_buf_len, dtype=torch.int32, device=self.device)
-                               for _ in range(self.n_modal)])
         modal_accs, joint_accs, eval_sums = [], [], []
         with self.timer.phase("fused"):
+            if with_eval:
+                best_recall = torch.full((), -torch.inf, device=self.device)
+                best_g = tree_map(lambda p: p.detach().clone(), self.gcn_params)
+                best_bufs = ([b.clone() for b in self.edge_buffers] if self.edge_buffers is not None
+                             else [torch.zeros(self.edge_buf_len, dtype=torch.int32, device=self.device)
+                                   for _ in range(self.n_modal)])
             for e in range(n):
                 modal_acc, joint_acc = self._epoch_on_device(tables[e])
                 modal_accs.append(modal_acc)
                 joint_accs.append(joint_acc)
                 if with_eval and flags[e]:
-                    sums = self._eval_sums(eval_blocks[1])
-                    # best-Recall tracking on the card (reference model
-                    # selection, Main.py:71-78): strictly greater keeps the
-                    # first best epoch
-                    is_best = sums[0] > best_recall
-                    best_recall = torch.where(is_best, sums[0], best_recall)
-                    for kept, live in zip(tree_leaves(best_g), tree_leaves(self.gcn_params)):
-                        kept.copy_(torch.where(is_best, live, kept))
-                    for kept, live in zip(best_bufs, self.edge_buffers):
-                        kept.copy_(torch.where(is_best, live, kept))
-                    eval_sums.append(sums)
-            modal_accs = torch.stack(modal_accs).cpu().numpy()
-            joint_accs = torch.stack(joint_accs).cpu().numpy()
+                    with self.timer.phase("eval"):
+                        sums = self._eval_sums(eval_blocks[1])
+                        # best-Recall tracking on the card (reference model
+                        # selection, Main.py:71-78): strictly greater keeps
+                        # the first best epoch
+                        is_best = sums[0] > best_recall
+                        best_recall = torch.where(is_best, sums[0], best_recall)
+                        for kept, live in zip(tree_leaves(best_g), tree_leaves(self.gcn_params)):
+                            kept.copy_(torch.where(is_best, live, kept))
+                        for kept, live in zip(best_bufs, self.edge_buffers):
+                            kept.copy_(torch.where(is_best, live, kept))
+                        eval_sums.append(sums)
+            with span("readback", self.device):
+                modal_accs = torch.stack(modal_accs).cpu().numpy()
+                joint_accs = torch.stack(joint_accs).cpu().numpy()
+                eval_rows = torch.stack(eval_sums).cpu().numpy() if eval_sums else None
+            settle()
         results = [self._epoch_result(joint_accs[e], modal_accs[e]) for e in range(n)]
         if eval_split is None:
             return results
@@ -728,7 +739,7 @@ class Coach:
             zero = {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0}
             return results, [zero if f else None for f in flags], None
         n_eval = eval_blocks[0]
-        sums = iter(torch.stack(eval_sums).cpu().numpy())
+        sums = iter(eval_rows)
         eval_results = []
         for flag in flags:
             row = next(sums) if flag else None
@@ -779,25 +790,33 @@ class Coach:
         a mesh each rank ranks its rows of every block (``split.rows``)
         against its catalog shard, the top-k merged over the model axis, and
         the sums are added over ``split.rows``."""
+        dev = self.device
+        _EVAL_PARTS.claim(dev)
+        _EVAL_PARTS.mark(0, dev)
         u_final, i_final = embeddings if embeddings is not None else self.forward()
+        _EVAL_PARTS.mark(1, dev)
         users, valid, items, counts = blocks
         split = self.split
         if split is None:
-            return eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
+            sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
                               self.cum_dcg, self.config.base.topk)
-        lo, hi = split.rows.span(users.shape[1])
-        users, valid, items, counts = (a[:, lo:hi] for a in (users, valid, items, counts))
-        sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
-                          self.cum_dcg, self.config.base.topk, (split.lo, split.hi), split.cat)
-        return all_reduce_sum_(sums, split.rows.group)
+        else:
+            lo, hi = split.rows.span(users.shape[1])
+            users, valid, items, counts = (a[:, lo:hi] for a in (users, valid, items, counts))
+            sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
+                              self.cum_dcg, self.config.base.topk, (split.lo, split.hi), split.cat)
+            sums = all_reduce_sum_(sums, split.rows.group)
+        _EVAL_PARTS.mark(2, dev)
+        return sums
 
     def _capture_best_from(self, best_g, best_bufs, epoch: int) -> None:
         """capture_best from a fused chunk's device copies of its best epoch."""
-        self.best_snapshot = {
-            "epoch": epoch,
-            "gcn_params": tree_map(lambda p: p.to("cpu", copy=True), best_g),
-            "edge_buffers": None if best_bufs is None else [b.to("cpu", copy=True) for b in best_bufs],
-        }
+        with span("best", self.device):
+            self.best_snapshot = {
+                "epoch": epoch,
+                "gcn_params": tree_map(lambda p: p.to("cpu", copy=True), best_g),
+                "edge_buffers": None if best_bufs is None else [b.to("cpu", copy=True) for b in best_bufs],
+            }
 
     def _chunk_size(self, epoch: int, n_epochs: int) -> int:
         """``train.epoch_scan`` when a whole chunk of that many epochs fits
@@ -842,6 +861,7 @@ class Coach:
         n_test, blocks = blocks
         with self.timer.phase("eval"):
             sums = self._eval_sums(blocks, embeddings).cpu().numpy()
+            settle()
         return {
             "Recall": float(sums[0]) / n_test,
             "NDCG": float(sums[1]) / n_test,

@@ -33,9 +33,13 @@ generator's seed and offset as it starts and advances the offset by what
 the captured step draws, so it draws what the eager step draws from the
 same state, and the generator ends where the eager steps leave it.
 
-Launch counts: a kernel wrapper counts where its Python code runs, which is
-once at capture and never at replay. The capture's counts are taken back
-and kept as the graph's launches a replay; each replay adds them.
+Work counts: a kernel wrapper counts its launches (and K4 its bytes,
+``ops/kernels``) where its Python code runs, which is once at capture and
+never at replay. The capture's counts are taken back and kept as the
+graph's work a replay; each replay adds them. Captures and replays are
+counted by the key's phase (``utils/profiling.py`` ``GRAPHS``), and a
+graph's first eager run and its capture are one ``capture`` span, a child
+of its phase's.
 
 A capture that fails raises; nothing falls back to eager on the card. On the
 CPU there is no graph: every call runs the step.
@@ -56,21 +60,23 @@ from typing import Callable
 
 import torch
 
-from diffmm_tpu_torch.ops.kernels import add_launches, launch_counts
+from diffmm_tpu_torch.ops.kernels import add_work, work_counts
+from diffmm_tpu_torch.utils.profiling import GRAPHS, span
 
 
 class BlockGraph:
     """One step function, run eagerly once, then captured and replayed."""
 
     def __init__(self, step: Callable[..., None], generator: torch.Generator, stream,
-                 error_mode: str = "global"):
+                 error_mode: str = "global", phase: str = "step"):
         self.step = step
+        self.phase = phase
         self.generator = generator
         self.stream = stream
         self.error_mode = error_mode
         self.graph: torch.cuda.CUDAGraph | None = None
         self.inputs: tuple[torch.Tensor, ...] = ()
-        self.launches: dict[str, int] = {}  # kernel launches a replay
+        self.work: dict[str, int] = {}  # kernel work counts a replay (ops/kernels work_counts)
         self.replays = 0
 
     def __call__(self, *inputs: torch.Tensor) -> None:
@@ -80,10 +86,21 @@ class BlockGraph:
         for slot, x in zip(self.inputs, inputs):
             slot.copy_(x)
         self.graph.replay()
-        add_launches(self.launches)
+        add_work(self.work)
         self.replays += 1
+        GRAPHS[f"{self.phase}.replays"] += 1
+
+    @property
+    def launches(self) -> dict[str, int]:
+        """Kernel launches a replay."""
+        return {k: n for k, n in self.work.items() if "." not in k}
 
     def _run_and_capture(self, inputs) -> None:
+        with span("capture", self.stream.device):
+            self._capture(inputs)
+        GRAPHS[f"{self.phase}.captures"] += 1
+
+    def _capture(self, inputs) -> None:
         main = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
@@ -91,12 +108,12 @@ class BlockGraph:
             self.inputs = tuple(x.clone() for x in inputs)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        before = launch_counts()
+        before = work_counts()
         with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=self.error_mode):
             self.step(*self.inputs)
-        after = launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        add_launches({k: -v for k, v in self.launches.items()})
+        after = work_counts()
+        self.work = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        add_work({k: -v for k, v in self.work.items()})
         main.wait_stream(self.stream)
         self.graph = graph
 
@@ -133,7 +150,8 @@ class GraphCache:
         if graph is None:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
-            graph = self.graphs[key] = BlockGraph(step, self.generator, self._stream, self.error_mode)
+            graph = self.graphs[key] = BlockGraph(step, self.generator, self._stream, self.error_mode,
+                                                  key[0])
         graph(*inputs)
 
     def buffer(self, key: tuple, shape, dtype: torch.dtype) -> torch.Tensor:

@@ -92,6 +92,13 @@ from diffmm_tpu_torch.parallel.collectives import AllGatherRows, all_reduce_sum_
 from diffmm_tpu_torch.parallel.sharding import REPLICATED, ROWS, reduce_grads
 from diffmm_tpu_torch.train.graphs import GraphCache, buffer, hold, run_step
 from diffmm_tpu_torch.train.optim import AdamState, adam_scalars, adam_update, tree_leaves, tree_map
+from diffmm_tpu_torch.utils.profiling import StepParts
+
+
+# the parts that tile a diffusion and a joint step (utils/profiling.py): each
+# phase's span takes its last block's, in device seconds
+DIFFUSION_PARTS = StepParts("diffusion", ("forward", "backward", "adam"))
+JOINT_PARTS = StepParts("joint", ("forward", "loss", "backward", "adam"))
 
 
 def _trainable(params):
@@ -238,8 +245,10 @@ def diffusion_block(
             whole = all_reduce_sum_(torch.stack(losses).detach(), split.world.group)
             denom = sum(whole.unbind())
         leaves = [tree_leaves(p) for p in live]
+        DIFFUSION_PARTS.mark(1, users.device)
         grads = torch.autograd.grad(total / denom, [g for ls in leaves for g in ls])
     grads = reduce_grads(grads, None if split is None else [split.dn_place] * n_modal, split)
+    DIFFUSION_PARTS.mark(2, users.device)
     at = 0
     for m, (params, state, ls) in enumerate(zip(dn_params_list, dn_states, leaves)):
         adam_update(params, list(grads[at:at + len(ls)]), state,
@@ -283,12 +292,15 @@ def diffusion_epoch(
     i_embs = gcn_params["i_embs"]
 
     def step(users, weights, sc):
+        DIFFUSION_PARTS.mark(0, dev)
         losses = diffusion_block(
             schedule, dn_params_list, dn_states, feats, i_embs, train_store,
             users, weights, sc, hp, item_num, generator=generator, split=split,
         )
         acc.copy_((acc + losses) / torch.clamp_min(losses.sum(), 1e-12))
+        DIFFUSION_PARTS.mark(3, dev)
 
+    DIFFUSION_PARTS.claim(dev)
     key = ("diffusion", users_blocks.shape[1], _hp_key(hp))
     for j in range(n):
         run_step(graphs, key, step, users_blocks[j], weight_blocks[j], scalars[j])
@@ -606,6 +618,7 @@ def joint_block(
             bpr_plans = (own[0].plan, own[1].plan)
         out = gcn_mm(whole, adj, list(modal_adjs), raw_feats, hp["modal_adj_weight"],
                      hp["residual_weight"], compute)
+        JOINT_PARTS.mark(1, users.device)
         rec = bpr_loss(gather(out.u_final, bpr_rows[0], bpr_plans[0]),
                        gather(out.i_final, bpr_rows[1], bpr_plans[1]),
                        gather(out.i_final, bpr_rows[2], gather_plan(bpr_rows[2], n_items)), total_rows)
@@ -617,9 +630,11 @@ def joint_block(
                             plans, own)
         cl = cl + modal_cl(out, users, pos_items, hp, cl_method, plans, own)
         total = rec + reg + cl
+        JOINT_PARTS.mark(2, users.device)
         grads = torch.autograd.grad(total, tree_leaves(live))
-    adam_update(gcn_params, reduce_grads(grads, None if split is None else split.gcn_place, split),
-                opt_state, lr)
+    grads = reduce_grads(grads, None if split is None else split.gcn_place, split)
+    JOINT_PARTS.mark(3, users.device)
+    adam_update(gcn_params, grads, opt_state, lr)
     return torch.stack([total, rec, reg, cl]).detach()
 
 
@@ -652,9 +667,12 @@ def joint_epoch(
     acc = buffer(graphs, ("joint_acc",), (4,), torch.float32, dev).zero_()
 
     def step(blk, sc):
+        JOINT_PARTS.mark(0, dev)
         acc.add_(joint_block(gcn_params, opt_state, adj, modal_adjs, raw_feats, blk[0], blk[1],
                              blk[2], sc, hp, cl_method, compute, generator=generator, split=split))
+        JOINT_PARTS.mark(4, dev)
 
+    JOINT_PARTS.claim(dev)
     key = ("joint", blocks.shape[2], cl_method, compute, _hp_key(hp))
     for j in range(n):
         run_step(graphs, key, step, blocks[j], scalars[j])

@@ -246,3 +246,7 @@ def test_cli_trace_dir_writes_a_trace(tmp_path, monkeypatch):
     trace = json.loads((trace_dir / "trace.json").read_text())
     names = {event.get("name") for event in trace["traceEvents"]}
     assert {"neg_sampling", "diffusion", "rebuild", "joint", "eval"} <= names
+    spans = json.loads((trace_dir / "spans.json").read_text())
+    assert {"tables", "neg_sampling", "diffusion", "rebuild", "joint", "readback", "eval"} <= {
+        s["name"] for s in spans} <= names
+    assert all(s["enter_ns"] <= s["exit_ns"] and s["device_s"] is None for s in spans)
