@@ -320,6 +320,7 @@ def phase_kernels(dev) -> dict:
 
     from diffmm_tpu_torch.ops.kernels import denoise_mlp as dm
     from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+    from diffmm_tpu_torch.tools.joint_profile import graphed
 
     gen = torch.Generator(device=dev).manual_seed(1818)
     out = {}
@@ -368,6 +369,10 @@ def phase_kernels(dev) -> dict:
             "bound_ms": b,
             "bound_by": by,
             "library_ms": time_ms(lambda: (m16 @ zi16, m16.T @ zu16), 50),
+            # the device's time alone: replays of one captured call (eager,
+            # the wrapper's host work can set the pace of back-to-back calls)
+            "graph_ms": time_ms(graphed(lambda: sd.spmm_dual(mat, z_u, z_i), dev), 50),
+            "library_graph_ms": time_ms(graphed(lambda: (m16 @ zi16, m16.T @ zu16), dev), 50),
         }
         del m16
         if kind == "int8":
@@ -471,6 +476,7 @@ def _spmm_dual_shard_cases(dev, mask, z_u, z_i) -> dict:
 
     from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
     from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+    from diffmm_tpu_torch.tools.joint_profile import graphed
 
     U, I = mask.shape
     d = z_u.shape[1]
@@ -528,6 +534,8 @@ def _spmm_dual_shard_cases(dev, mask, z_u, z_i) -> dict:
             "backward_ms": time_ms(lambda: sd.spmm_dual(mat, g_u, g_i), 50),
             "bound_ms": b, "bound_by": by,
             "library_ms": time_ms(lambda: (m16 @ zi16, m16.T @ zu16), 50),
+            "graph_ms": time_ms(graphed(lambda: sd.spmm_dual(mat, z_u, zi), dev), 50),
+            "library_graph_ms": time_ms(graphed(lambda: (m16 @ zi16, m16.T @ zu16), dev), 50),
         }
         del m16, halves
         out[f"spmm_dual_shard_{kind}"] = rec
@@ -544,6 +552,7 @@ def _spmm_dual_backward(dev, gen, mat, I: int) -> dict:
     import torch
 
     from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+    from diffmm_tpu_torch.tools.joint_profile import graphed
 
     U, d = mat.shape[0], 64
     z_u = torch.randn((U, d), generator=gen, device=dev).requires_grad_()
@@ -579,7 +588,9 @@ def _spmm_dual_backward(dev, gen, mat, I: int) -> dict:
            "launches_per_backward": launches, "backward_ms": time_ms(backward, 50),
            "ms": time_ms(lambda: sd.spmm_dual(mat, g_u, g_i), 50),
            "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, g_u, g_i), 10), "bound_ms": b,
-           "bound_by": by, "library_ms": time_ms(lambda: (m16 @ g16[1], m16.T @ g16[0]), 50)}
+           "bound_by": by, "library_ms": time_ms(lambda: (m16 @ g16[1], m16.T @ g16[0]), 50),
+           "graph_ms": time_ms(graphed(lambda: sd.spmm_dual(mat, g_u, g_i), dev), 50),
+           "library_graph_ms": time_ms(graphed(lambda: (m16 @ g16[1], m16.T @ g16[0]), dev), 50)}
     print(f"[kernels] spmm_dual_backward[{kind}]: {json.dumps(rec)}")
     return rec
 
@@ -735,6 +746,7 @@ def _s_shape_cases(dev) -> dict:
     from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
     from diffmm_tpu_torch.ops.kernels import denoise_mlp as dm
     from diffmm_tpu_torch.ops.kernels import spmm_dual as sd
+    from diffmm_tpu_torch.tools.joint_profile import graphed
 
     gen = torch.Generator(device=dev).manual_seed(13)
     out = {}
@@ -775,6 +787,8 @@ def _s_shape_cases(dev) -> dict:
         "plain_ms": time_ms(lambda: sd.spmm_dual_plain(mat, z_u, z_i), 5),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(lambda: (m16 @ zi16, m16.T @ zu16), 20),
+        "graph_ms": time_ms(graphed(lambda: sd.spmm_dual(mat, z_u, z_i), dev), 20),
+        "library_graph_ms": time_ms(graphed(lambda: (m16 @ zi16, m16.T @ zu16), dev), 20),
     }
     del m16, mat, z_u, z_i
     out["spmm_dual_s_shard"] = rec

@@ -3,10 +3,13 @@
 Counterpart of ``diffmm_tpu/ops/pallas/spmm_dual.py`` (``_dual_call``;
 kernel ``_dual_kernel``): ``(y_u, y_i) = (M @ z_i, Mᵀ @ z_u)`` for the (U, I)
 0/1 block M stored int8, bf16 or packed int4, with z rounded to bf16 and f32
-accumulation. The hand kernel is ``csrc/spmm_dual.cu``: one launch, M fed
-to ``wgmma`` by TMA, z rounded to bf16 on chip, the cross-block sums in
-distributed shared memory and in L2, in a fixed order; its source note gives
-the design and its bound.
+accumulation. The hand kernel is ``csrc/spmm_dual.cu``: one cooperative
+launch a (U, I) block, warp-specialised (a producer thread keeps M's TMA
+loads in flight, a converter warpgroup turns each box into a bf16 tile once,
+and two consumer warpgroups read it through ``wgmma`` with M on the wide side
+of both products), z rounded to bf16 once in the launch's first phase, and
+the cross-block partial sums added in a fixed order at the end; its source
+note gives the design and what bounds it.
 
 Packed int4 (``train.dense_store="int4"``): torch has no 4-bit type, so M is
 a uint8 tensor of (U, ceil(I / 2)) bytes, two cells a byte: cell (u, 2j) in
@@ -96,8 +99,10 @@ def _lib():
         lib.spmm_dual_plan.restype = i
         lib.spmm_dual_max_items.argtypes = [i, i, i]
         lib.spmm_dual_max_items.restype = i
-        lib.spmm_dual_forward.argtypes = [p, i, ctypes.c_longlong] + [p] * 7 + [i] * 3 + [p, p]
+        lib.spmm_dual_forward.argtypes = [p, i, ctypes.c_longlong] + [p] * 8 + [i] * 3 + [p, p]
         lib.spmm_dual_forward.restype = i
+        lib.spmm_dual_zb_rows.argtypes = [i, i]
+        lib.spmm_dual_zb_rows.restype = i
         lib._typed = True
     return lib
 
@@ -105,11 +110,13 @@ def _lib():
 @dataclass(frozen=True)
 class Plan:
     """The kernel's launch plan for one (U, I, D, storage) on one card (see
-    ``csrc/spmm_dual.cu``): ``cluster`` blocks a cluster along I,
-    ``col_blocks`` (a multiple of it) by ``row_blocks`` blocks, each column
-    block ``items`` I columns and each row block ``rows`` U rows, ``groups``
-    clusters along I and ``strips`` 128-row strips of U. ``raw`` is the C
-    array the kernel takes."""
+    ``csrc/spmm_dual.cu``): ``col_blocks`` by ``row_blocks`` blocks, each
+    column block ``items`` I columns and each row block ``rows`` U rows,
+    ``groups`` partial sums of y_u (one a column block) and ``strips``
+    128-row strips of U; ``cluster`` (blocks of a cluster) is 1, as the launch
+    has none. The plan depends on the shape and the card only, so every
+    storage of M takes the same one. ``raw`` is the C array the kernel
+    takes."""
 
     cluster: int
     col_blocks: int
@@ -139,7 +146,13 @@ def plan(user_num: int, item_num: int, d: int, kind: str, device: torch.device) 
     return Plan(*raw[:7], raw=raw)
 
 
-# The kernel's grid barrier: two int32 words a card, zeroed once (the kernel
+@functools.cache
+def _zb_rows(user_num: int, item_num: int) -> int:
+    """Rows of the bf16 copy of z a launch over (U, I) writes and reads."""
+    return _lib().spmm_dual_zb_rows(user_num, item_num)
+
+
+# The kernel's grid barriers: two int32 words a card, zeroed once (the kernel
 # leaves the arrival count at zero). Calls run on one stream at a time.
 _BARRIER: dict[torch.device, torch.Tensor] = {}
 
@@ -202,11 +215,13 @@ def _launch_one(mat, zu, zi, y_i) -> torch.Tensor:
     kind = store_kind(mat.dtype)
     p = plan(U, I, d, kind, dev)
     y_u = torch.empty((U, d), dtype=torch.float32, device=dev)
+    # z rounded to bf16 by the launch's first phase, rows of 64 columns
+    z_b = torch.empty((_zb_rows(U, I), 64), dtype=torch.bfloat16, device=dev)
     p_u = torch.empty((p.groups, U, d) if p.groups > 1 else (0,), dtype=torch.float32, device=dev)
     p_i = torch.empty((p.row_blocks, I, d) if p.row_blocks > 1 else (0,), dtype=torch.float32,
                       device=dev)
     err = _lib().spmm_dual_forward(
-        mat.data_ptr(), _KIND_CODE[kind], mat.stride(0), zu.data_ptr(), zi.data_ptr(),
+        mat.data_ptr(), _KIND_CODE[kind], mat.stride(0), zu.data_ptr(), zi.data_ptr(), z_b.data_ptr(),
         y_u.data_ptr(), y_i.data_ptr(), p_u.data_ptr(), p_i.data_ptr(), _barrier(dev).data_ptr(),
         U, I, d, p.raw, torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -102,6 +102,144 @@ def test_spmm_dual_wide_catalog_in_chunks(cuda, store):
         assert torch.equal(g, a)
 
 
+# K1 at the main paths' shapes: tiktok's (9,308 x 6,710) block in every storage
+# and width, the model-axis shard's (9,308 x 3,355) columns, the dense demo's
+# (60,000 x 15,000) rank block; each against the plain version, bitwise across
+# launches, int4 bitwise int8 on the same cells (the plan does not depend on
+# the storage)
+def _k1_inputs(cuda, U, I, d, seed, density=0.001):
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, pack_int4
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mask = torch.rand((U, I), generator=gen, device=cuda) < density
+    mats = {store: dense_storage(U, I, store, cuda).copy_(pack_int4(mask) if store == torch.uint8 else mask)
+            for store in (torch.int8, torch.bfloat16, torch.uint8)}
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    return mats, z_u, z_i
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_spmm_dual_tiktok_shape_every_storage(cuda, d):
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import LAUNCHES, plan, spmm_dual, spmm_dual_plain
+
+    U, I = 9308, 6710
+    mats, z_u, z_i = _k1_inputs(cuda, U, I, d, seed=31)
+    got = {}
+    for store, mat in mats.items():
+        before = LAUNCHES["spmm_dual"]
+        got[store] = spmm_dual(mat, z_u, z_i)
+        again = spmm_dual(mat, z_u, z_i)
+        assert LAUNCHES["spmm_dual"] == before + 2
+        for g, a, w in zip(got[store], again, spmm_dual_plain(mat, z_u, z_i)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            assert torch.equal(g, a)
+    assert all(torch.equal(a, b) for a, b in zip(got[torch.uint8], got[torch.int8]))
+    assert _layout(plan(U, I, d, "int4", cuda)) == _layout(plan(U, I, d, "int8", cuda))
+
+
+@pytest.mark.parametrize("store", [torch.int8, torch.uint8], ids=["int8", "int4"])
+def test_spmm_dual_model_axis_shard(cuda, store):
+    """The model axis's (9,308 x 3,355) block, built in place from the whole
+    edges as the mesh Coach builds it, forward and backward (one launch each)."""
+    from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import LAUNCHES, SpmmDual, spmm_dual, spmm_dual_plain
+
+    U, I, d = 9308, 6710, 64
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    edges = (torch.rand((U, I), generator=gen, device=cuda) < 0.001).nonzero()
+    rows, cols = edges[:, 0].to(torch.int32), edges[:, 1].to(torch.int32)
+    mat = build_dense_bi_adj_device(rows, cols, U, I, store, cols=(I // 2, I)).mat
+    z_u = torch.randn((U, d), generator=gen, device=cuda, requires_grad=True)
+    z_i = torch.randn((I - I // 2, d), generator=gen, device=cuda, requires_grad=True)
+    got, again = spmm_dual(mat, z_u.detach(), z_i.detach()), spmm_dual(mat, z_u.detach(), z_i.detach())
+    for g, a, w in zip(got, again, spmm_dual_plain(mat, z_u.detach(), z_i.detach())):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g, a)
+    g_u, g_i = torch.randn_like(z_u), torch.randn_like(z_i)
+    outs = SpmmDual.apply(mat, z_u, z_i)
+    before = LAUNCHES["spmm_dual"]
+    grads = torch.autograd.grad(outs, (z_u, z_i), (g_u, g_i))
+    assert LAUNCHES["spmm_dual"] == before + 1
+    for g, w in zip(grads, spmm_dual_plain(mat, g_u, g_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_spmm_dual_dense_demo_block(cuda):
+    """The dense demo's rank block: columns [15,000, 30,000) of a 60,000 x
+    30,000 catalog at density 0.0015, int8, d 64."""
+    from diffmm_tpu_torch.ops.graph import build_dense_bi_adj_device
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import LAUNCHES, spmm_dual, spmm_dual_plain
+
+    U, I, d = 60_000, 30_000, 64
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    flat = torch.unique(torch.randint(0, U * I, (int(U * I * 0.0015),), generator=gen, device=cuda))
+    mat = build_dense_bi_adj_device((flat // I).to(torch.int32), (flat % I).to(torch.int32), U, I, torch.int8,
+                                    cols=(I // 2, I)).mat
+    del flat
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I - I // 2, d), generator=gen, device=cuda)
+    before = LAUNCHES["spmm_dual"]
+    got = spmm_dual(mat, z_u, z_i)
+    assert LAUNCHES["spmm_dual"] == before + 1
+    again = spmm_dual(mat, z_u, z_i)
+    for g, a, w in zip(got, again, spmm_dual_plain(mat, z_u, z_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("store", [torch.int8, torch.uint8], ids=["int8", "int4"])
+def test_spmm_dual_repeats_bitwise(cuda, store):
+    """Fifty launches on the same inputs at tiktok's shape give the same bits:
+    the cross-block sums take a fixed order, and every block's writes are
+    seen by the grid before they are summed."""
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import spmm_dual
+
+    mats, z_u, z_i = _k1_inputs(cuda, 9308, 6710, 64, seed=34)
+    first = spmm_dual(mats[store], z_u, z_i)
+    for _ in range(50):
+        assert all(torch.equal(a, b) for a, b in zip(spmm_dual(mats[store], z_u, z_i), first))
+
+
+# U and I off every multiple of the tiles (128 rows, 64 columns) and of the
+# column blocks, packed int4 among them; a catalog wider than one launch
+@pytest.mark.parametrize("store", [torch.int8, torch.bfloat16, torch.uint8], ids=["int8", "bf16", "int4"])
+@pytest.mark.parametrize("shape", [(1, 1), (127, 63), (257, 4097), (1001, 385), (4093, 2311)])
+def test_spmm_dual_ragged_every_storage(cuda, store, shape):
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, pack_int4, spmm_dual, spmm_dual_plain
+
+    U, I = shape
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    mask = torch.rand((U, I), generator=gen, device=cuda) < 0.1
+    mat = dense_storage(U, I, store, cuda).copy_(pack_int4(mask) if store == torch.uint8 else mask)
+    z_u = torch.randn((U, 32), generator=gen, device=cuda)
+    z_i = torch.randn((I, 32), generator=gen, device=cuda)
+    got, again = spmm_dual(mat, z_u, z_i), spmm_dual(mat, z_u, z_i)
+    for g, a, w in zip(got, again, spmm_dual_plain(mat, z_u, z_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g, a)
+
+
+def test_spmm_dual_wide_catalog_int4_in_chunks(cuda):
+    """Packed int4 past one launch's columns: two launches, each chunk
+    starting on a byte."""
+    from diffmm_tpu_torch.ops.kernels.spmm_dual import (
+        LAUNCHES, dense_storage, max_items, pack_int4, spmm_dual, spmm_dual_plain)
+
+    U, d = 200, 32
+    I = max_items(d, "int4", cuda) + 1001
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    mask = torch.rand((U, I), generator=gen, device=cuda) < 0.05
+    mat = dense_storage(U, I, torch.uint8, cuda).copy_(pack_int4(mask))
+    z_u = torch.randn((U, d), generator=gen, device=cuda)
+    z_i = torch.randn((I, d), generator=gen, device=cuda)
+    before = LAUNCHES["spmm_dual"]
+    got = spmm_dual(mat, z_u, z_i)
+    assert LAUNCHES["spmm_dual"] == before + 2
+    for g, w in zip(got, spmm_dual_plain(mat, z_u, z_i)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
 def test_spmm_dual_int8_values_are_exact(cuda):
     """Any int8 value of M, not only 0/1, converts exactly to bf16."""
     from diffmm_tpu_torch.ops.kernels.spmm_dual import dense_storage, spmm_dual, spmm_dual_plain
