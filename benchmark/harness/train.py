@@ -22,19 +22,29 @@ plain reference (``benchmark/reference/diffmm.py``) trains from the same
 seed on the same inputs through the first step, and follows the program's
 own state after each checked step (:func:`~benchmark.harness.checks.
 train_numbers`; PERF.md says why the later steps are not compared).
+
+On a mesh (a rank of a cell whose configuration has ``mesh``; ``r.mesh``
+its DeviceMesh) every rank makes the same inputs from the seed (one digest
+of them is compared across the ranks at set-up) and builds its Coach with
+``mesh=``. The window's clock is rank 0's: after each step rank 0 decides
+whether the window has closed and every rank follows it, so each runs the
+same whole steps. The records that the check reads are gathered whole
+(``Coach._whole``; every rank takes part), and once every rank has freed
+its state, rank 0 alone runs the single-device reference on its card.
 """
 
 from __future__ import annotations
 
 import copy
 import gc
+import hashlib
 import math
 import time
 
 import numpy as np
 import torch
 
-from benchmark.harness import checks, health
+from benchmark.harness import checks
 from benchmark.harness.data import make_inputs
 from benchmark.harness.trace import profiled
 from benchmark.reference.diffmm import Reference, leaves
@@ -118,6 +128,63 @@ def _mu_norms(gcn_state, dn_states, names) -> dict:
     return {n: float(torch.linalg.vector_norm(t.float())) for (n, _), t in zip(names, mus)}
 
 
+def _whole_params(coach) -> tuple:
+    """The parameter trees, whole: the live ones on one device; on a mesh
+    gathered from the ranks' slices (a collective: every rank calls it)."""
+    if coach.mesh is None:
+        return coach.gcn_params, coach.dn_params
+    whole = coach._whole(coach.gcn_params, coach.dn_params)
+    return whole["gcn_params"], whole["dn_params"]
+
+
+def _whole_states(coach) -> tuple:
+    """The Adam states, whole (as :func:`_whole_params`)."""
+    if coach.mesh is None:
+        return coach.gcn_opt_state, coach.dn_opt_states
+    whole = coach._whole(gcn_state=coach.gcn_opt_state, dn_states=coach.dn_opt_states)
+    return whole["gcn_opt_state"], whole["dn_opt_states"]
+
+
+def inputs_digest(inputs) -> str:
+    """One digest of everything the inputs hold: the host arrays' bytes and
+    the features' bits (summed on the device as integers, with weights by
+    position, in blocks)."""
+    h = hashlib.sha256()
+    for a in (inputs.rows, inputs.cols, inputs.degrees, inputs.test_items, inputs.test_counts):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for f in inputs.feats:
+        bits = f.contiguous().view(-1).view(torch.int32)
+        total = 0
+        for lo in range(0, bits.numel(), 1 << 22):
+            block = bits[lo:lo + (1 << 22)].to(torch.int64)
+            weights = torch.arange(lo, lo + block.numel(), device=block.device, dtype=torch.int64) * 2 + 1
+            total += int((block * weights).sum())
+        h.update(f"{tuple(f.shape)}:{total}".encode())
+    return h.hexdigest()
+
+
+def _same_inputs(inputs) -> None:
+    """Raise unless every rank made the same inputs."""
+    import torch.distributed as dist
+
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, inputs_digest(inputs))
+    if len(set(digests)) > 1:
+        raise RuntimeError(f"the ranks made different inputs from one seed: {digests}")
+
+
+def _agreed(r, stop: bool) -> bool:
+    """Rank 0's ``stop``, on every rank of a mesh (``stop`` as it is
+    without one)."""
+    if r.mesh is None:
+        return stop
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(stop)], device=r.device)
+    dist.broadcast(flag, src=0)
+    return bool(flag.item())
+
+
 def _snapshot(named) -> dict:
     return {n: t.detach().to("cpu", copy=True) for n, t in named}
 
@@ -134,8 +201,10 @@ def run(r) -> dict:
     traffic = r.traffic
     dev = r.device
     inputs = make_inputs(r.config["data"], r.seed, dev)
+    if r.mesh is not None:
+        _same_inputs(inputs)
     pc = program_config(r, inputs)
-    coach = Coach(pc, host_data(inputs), device=dev, log=NullLog())
+    coach = Coach(pc, host_data(inputs), device=dev, log=NullLog(), mesh=r.mesh)
     scan = max(1, int(pc.train.epoch_scan))
     steps = ProgramSteps(coach, scan, traffic["eval_split"])
     n_checked = int(traffic["checked_steps"])
@@ -144,7 +213,7 @@ def run(r) -> dict:
     failed = 0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    health.note("card before window", smi=r.smi())
+    r.note("card before window", smi=r.smi())
 
     # the window: whole steps until --seconds have passed
     t_start = time.perf_counter()
@@ -155,15 +224,17 @@ def run(r) -> dict:
         epochs += len(results)
         failed += sum(not all(math.isfinite(v) for v in x.values()) for x in results)
         elapsed = time.perf_counter() - t_start
-        if elapsed >= r.seconds:
+        if _agreed(r, elapsed >= r.seconds):
             break
     train_epoch_s = elapsed / epochs
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    health.note("card after window", smi=r.smi())
-    health.note("window", epochs=epochs, seconds=elapsed, train_epoch_s=train_epoch_s,
-                max_memory_allocated=peak, setup_s=setup_s)
+    smi = r.smi()
+    r.note("card after window", smi=smi)
+    r.note("window", epochs=epochs, seconds=elapsed, train_epoch_s=train_epoch_s,
+           max_memory_allocated=peak, setup_s=setup_s)
 
-    layer = {"kind": "train", "train_epoch_s": train_epoch_s, "shape": shape(inputs, pc), "phases": {}}
+    layer = {"kind": "train", "train_epoch_s": train_epoch_s, "shape": shape(inputs, pc), "phases": {},
+             "cards": r.world}
     summary = None
     if r.trace:
         traces = []
@@ -175,31 +246,37 @@ def run(r) -> dict:
         layer["trace"] = summary
         layer["trace_epochs"] = n_steps * scan
         traced = summary.window_s / (n_steps * scan)
-        health.note("tracing overhead", traced_epoch_s=traced, untraced_epoch_s=train_epoch_s,
-                    overhead=traced / train_epoch_s - 1.0)
+        r.note("tracing overhead", traced_epoch_s=traced, untraced_epoch_s=train_epoch_s,
+               overhead=traced / train_epoch_s - 1.0)
         for _ in range(int(traffic["fenced_epochs"])):
             coach.timer.reset()
             coach.train_epoch(steps.epoch, fence=True)
             steps.epoch += 1
             for ph in PHASES:
                 layer["phases"].setdefault(ph, []).append(coach.timer.totals.get(ph, 0.0))
-        health.note("phases", **layer["phases"])
+        r.note("phases", **layer["phases"])
 
     # the check: the reference, once the program's state is freed
     del coach, steps
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    t_ref = time.perf_counter()
-    spec = r.config["program"]
-    ref = reference_records(spec, inputs, r.seed, dev, 1, scan)
-    follower = Reference(spec, inputs, r.seed, dev)
-    numbers = checks.train_numbers(rec, ref, follower, inputs)
-    health.note("reference", seconds=time.perf_counter() - t_ref)
+    numbers = None
+    if r.mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()  # every rank's state is freed
+    if r.rank == 0:
+        t_ref = time.perf_counter()
+        spec = r.config["program"]
+        ref = reference_records(spec, inputs, r.seed, dev, 1, scan)
+        follower = Reference(spec, inputs, r.seed, dev)
+        numbers = checks.train_numbers(rec, ref, follower, inputs)
+        r.note("reference", seconds=time.perf_counter() - t_ref)
     return {
         "metrics": {"setup_s": setup_s, "train_epoch_s": train_epoch_s},
         "attempted": epochs, "failed": failed, "numbers": numbers,
-        "memory_peak_bytes": peak, "layer": layer, "trace": summary,
+        "memory_peak_bytes": peak, "layer": layer, "trace": summary, "smi": smi,
     }
 
 
@@ -223,9 +300,9 @@ def program_records(coach, steps, n_steps: int, inputs) -> dict:
     """The program's records over its first ``n_steps`` window calls: each
     epoch's losses and eval, each step's end state, after the first step
     the Adam first moments' norms and the parameters' change, and the
-    embeddings that the first step's eval ranked."""
-    names = _named(coach.gcn_params, coach.dn_params)
-    before = _snapshot(names)
+    embeddings that the first step's eval ranked. On a mesh the state is
+    gathered whole on every rank (every rank calls this)."""
+    before = _snapshot(_named(*_whole_params(coach)))
     rec = {"losses": [], "evals": [], "steps": [], "embed": None}
     for s in range(n_steps):
         if s == 0:
@@ -245,10 +322,11 @@ def program_records(coach, steps, n_steps: int, inputs) -> dict:
         rec["losses"] += [_losses(x, inputs.modalities) for x in results]
         evals = [{k: ev[k] for k in ("Recall", "NDCG")} for ev in evals if ev is not None]
         rec["evals"] += evals
-        _keep_step(rec, coach.gcn_params, coach.dn_params, [b[: inputs.nnz] for b in coach.edge_buffers],
-                   evals[-1] if evals else None)
+        gcn, dn = _whole_params(coach)
+        _keep_step(rec, gcn, dn, [b[: inputs.nnz] for b in coach.edge_buffers], evals[-1] if evals else None)
         if s == 0:
-            rec["mu1"] = _mu_norms(coach.gcn_opt_state, coach.dn_opt_states, names)
+            names = _named(gcn, dn)
+            rec["mu1"] = _mu_norms(*_whole_states(coach), names)
             rec["delta"] = _delta(names, before)
             del before
     return rec

@@ -12,6 +12,12 @@ sets up and warms up, measures for ``--seconds``, checks what the timed
 path produced against the plain reference, and prints one JSON line last
 on standard output. It needs the CUDA cards the cell asks for, and exits
 with an error and no result without them.
+
+A configuration with ``"mesh": "DxM"`` runs as D·M ranks, one card each,
+that this process starts (``benchmark/harness/ranks.py``); the cell's
+``chips`` is D·M. Each rank measures its own card; the line reports every
+card (``device.count``, the fullest card's peak) and rank 0's per-layer
+metrics, and this process prints it.
 """
 
 from __future__ import annotations
@@ -60,6 +66,12 @@ class Run:
         self.limits = _load(os.path.join(here, "limits", f"{workload}.json"))
         for key, value in (overrides or {}).items():
             _set(self, key, value)
+        self.layout = mesh_layout(self.config, self.cell)
+        if self.layout is not None and self.traffic["kind"] != "train":
+            raise SystemExit(f"cell {workload!r}: a mesh runs the train kind only, not {self.traffic['kind']!r}")
+        self.world = 1 if self.layout is None else self.layout[0] * self.layout[1]
+        self.rank = 0
+        self.mesh = None  # the (data, model) DeviceMesh, in a rank of a mesh cell
         self.seed = int(seed) % (1 << 63)
         self.seconds = float(seconds)
         self.trace = bool(trace)
@@ -70,6 +82,31 @@ class Run:
         from benchmark.harness.health import smi
 
         return smi(self.device.index or 0) if self.device.type == "cuda" else "cpu"
+
+    def note(self, what: str, **values) -> None:
+        """A ``health`` line on standard error; a rank of a mesh cell names
+        itself."""
+        from benchmark.harness.health import note
+
+        note(what if self.layout is None else f"rank {self.rank} {what}", **values)
+
+
+def mesh_layout(config: dict, cell: dict) -> tuple[int, int] | None:
+    """``(D, M)`` of the configuration's ``mesh`` key (``"DxM"``), or None
+    without one. The cell's ``chips`` must be D·M."""
+    spec = config.get("mesh")
+    if spec is None:
+        return None
+    try:
+        data, model = (int(v) for v in str(spec).lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"configuration {cell['config']!r}: mesh must be 'DxM', got {spec!r}") from None
+    if data < 1 or model < 1:
+        raise SystemExit(f"configuration {cell['config']!r}: mesh {spec!r} needs both sizes at least 1")
+    if data * model != int(cell["chips"]):
+        raise SystemExit(f"configuration {cell['config']!r} has mesh {spec!r}, {data * model} cards, "
+                         f"but cell {cell['name']!r} has chips {cell['chips']}")
+    return data, model
 
 
 def _load(path: str) -> dict:
@@ -102,20 +139,37 @@ def read_metric(name: str, layer: dict, here: str = HERE):
 
 
 def run_cell(r: Run) -> dict:
-    """Run the cell; the result line as a dict (``checks`` last)."""
+    """Run the cell; the result line as a dict (``checks`` last). A mesh
+    cell runs in its ranks (:func:`benchmark.harness.ranks.launch`)."""
+    if r.layout is None:
+        return line(r, [measure(r)])
+    from benchmark.harness import ranks
+
+    return line(r, ranks.launch(r, "benchmark.run.measure"))
+
+
+def measure(r: Run) -> dict:
+    """This process's part of a run: the driver's run on its card, and what
+    the line takes of it. Rank 0 (the only rank of a cell without a mesh)
+    also judges ``correct`` and reads the metrics; every rank reports its
+    card."""
     from benchmark.harness import checks
 
     driver = importlib.import_module(f"benchmark.harness.{r.traffic['kind']}")
     out = driver.run(r)
+    part = {"rank": r.rank, "attempted": int(out["attempted"]), "failed": int(out["failed"]),
+            "kind": _device_kind(r.device), "memory_peak_bytes": int(out["memory_peak_bytes"]),
+            "smi": out.get("smi")}
+    summary = out["trace"]
+    if summary is not None:
+        part["busy_s"], part["window_s"] = summary.busy_s, summary.window_s
+    if r.rank != 0:
+        return part
     correct, judged = checks.judge(out["numbers"], r.limits)
     e2e = {m["name"]: m for m in r.manifest["end_to_end"]}
     reported = {n for n in out["metrics"] if n in e2e and ("workloads" not in e2e[n] or r.name in e2e[n]["workloads"])}
-    result = {"correct": correct, "attempted": int(out["attempted"]), "failed": int(out["failed"])}
-    device = {"platform": "gpu" if r.device.type == "cuda" else r.device.type,
-              "kind": _device_kind(r.device), "count": 1,
-              "memory_peak_bytes": int(out["memory_peak_bytes"])}
     if not r.trace:
-        result["metrics"] = {n: {"value": out["metrics"][n], "unit": e2e[n]["unit"]} for n in sorted(reported)}
+        metrics = {n: {"value": out["metrics"][n], "unit": e2e[n]["unit"]} for n in sorted(reported)}
     else:
         metrics = {}
         for m in r.manifest["per_layer"]:
@@ -123,14 +177,40 @@ def run_cell(r: Run) -> dict:
                 value = read_metric(m["name"], out["layer"], r.here)
                 if value is not None:
                     metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-        result["metrics"] = metrics
-        summary = out["trace"]
-        device["busy_s"] = summary.busy_s
-        device["window_s"] = summary.window_s
-        result["breakdown"] = {"device_ops": summary.top_ops(), "idle_gaps": summary.idle_gaps()}
+        part["breakdown"] = {"device_ops": summary.top_ops(), "idle_gaps": summary.idle_gaps()}
+    part.update(correct=correct, metrics=metrics, checks=judged)
+    return part
+
+
+def line(r: Run, parts: list[dict]) -> dict:
+    """The result line from each card's part (rank order): rank 0's
+    correctness, counts and metrics, every card counted, the fullest card's
+    peak. Each card's reading goes on a ``health`` line first, and the
+    numbers compared last."""
+    from benchmark.harness import checks, health
+
+    head = parts[0]
+    steps = [p["attempted"] for p in parts]
+    if len(set(steps)) > 1:
+        raise SystemExit(f"benchmark: the ranks ran different numbers of steps: {steps}")
+    result = {"correct": head["correct"], "attempted": head["attempted"], "failed": head["failed"]}
+    device = {"platform": "gpu" if r.device.type == "cuda" else r.device.type,
+              "kind": head["kind"], "count": len(parts),
+              "memory_peak_bytes": max(p["memory_peak_bytes"] for p in parts)}
+    result["metrics"] = head["metrics"]
+    if r.trace:
+        device["busy_s"] = head["busy_s"]
+        device["window_s"] = head["window_s"]
+        result["breakdown"] = head["breakdown"]
     result["device"] = device
-    checks.print_checks(judged)
-    result["checks"] = judged
+    for p in parts:
+        card = {"kind": p["kind"], "smi": p["smi"], "memory_peak_bytes": p["memory_peak_bytes"],
+                "attempted": p["attempted"]}
+        if "busy_s" in p:
+            card.update(busy_s=p["busy_s"], window_s=p["window_s"], busy_share=p["busy_s"] / p["window_s"])
+        health.note(f"card {p['rank']}", **card)
+    checks.print_checks(head["checks"])
+    result["checks"] = head["checks"]
     return result
 
 
@@ -170,7 +250,13 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 3
     r = Run(manifest, args.workload, args.seed, args.seconds, bool(args.trace), torch.device("cuda", 0))
-    result = run_cell(r)
+    from benchmark.harness.ranks import RankFailure
+
+    try:
+        result = run_cell(r)
+    except RankFailure as e:
+        print(f"benchmark: {e}", file=sys.stderr)
+        return 5
     found = forbidden_modules()
     if found:
         print(f"benchmark: JAX or the JAX package was loaded: {found}", file=sys.stderr)

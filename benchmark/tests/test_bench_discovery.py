@@ -5,10 +5,11 @@ no file that exists edited."""
 from __future__ import annotations
 
 import json
+import pathlib
 import shutil
 
 from benchmark import run as bench
-from benchmark.tests.tiny import manifest, tiny_run
+from benchmark.tests.tiny import manifest, tiny_mesh_run, tiny_run
 
 
 def test_new_files_are_found_by_name(tmp_path):
@@ -47,4 +48,18 @@ def test_new_files_are_found_by_name(tmp_path):
     assert result["metrics"]["dummy_metric"]["value"] == 42.0
     assert "phase_s.joint" not in result["metrics"]  # listed for other cells only
     # nothing that was there changed
+    assert all(p.read_bytes() == data for p, data in before.items())
+
+
+def test_new_mesh_configuration_is_found_by_name(tmp_path):
+    """A configuration with ``"mesh": "2x1"`` and its two-chip cell, added as
+    files and entries alone, run as two ranks."""
+    before = {p: p.read_bytes() for p in pathlib.Path(bench.HERE).rglob("*")
+              if p.is_file() and "__pycache__" not in p.parts and ".cache" not in p.parts}
+    r = tiny_mesh_run(tmp_path, "2x1")
+    assert r.config["name"] == "tiktok_mesh" and r.cell["chips"] == 2
+    result = bench.run_cell(r)
+    assert result["correct"] is True, result["checks"]
+    assert result["device"]["count"] == 2
+    assert set(result["metrics"]) == {"setup_s", "train_epoch_s"}
     assert all(p.read_bytes() == data for p, data in before.items())

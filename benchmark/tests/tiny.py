@@ -48,3 +48,39 @@ def tiny_run(workload: str, seed: int = 7, seconds: float = 0.5, trace: bool = F
         kind = json.load(fh)["kind"]
     over.update(TRAIN if kind == "train" else SERVE)
     return bench.Run(m, workload, seed, seconds, trace, torch.device("cpu"), overrides=over, here=here)
+
+
+def mesh_cell(tmp_path, layout: str, base: str = "tiktok") -> tuple[dict, str]:
+    """``(manifest, here)`` with a configuration ``<base>_mesh`` (``base``'s,
+    with ``"mesh": layout``) and its cell ``<base>_mesh.train`` on D·M chips,
+    added as new files in a copy of the benchmark's data folders and new
+    manifest entries alone; the cell reports what ``<base>.train`` does."""
+    import shutil
+
+    here = tmp_path / "benchmark"
+    for sub in ("configs", "traffic", "metrics", "limits"):
+        shutil.copytree(os.path.join(bench.HERE, sub), here / sub)
+    name = f"{base}_mesh"
+    config = json.loads((here / "configs" / f"{base}.json").read_text())
+    config.update(name=name, mesh=layout)
+    (here / "configs" / f"{name}.json").write_text(json.dumps(config))
+    (here / "limits" / f"{name}.train.json").write_text((here / "limits" / f"{base}.train.json").read_text())
+    data, model = (int(v) for v in layout.split("x"))
+    m = manifest()
+    m["configs"].append({"name": name, "source": "a test's own", "file": f"benchmark/configs/{name}.json",
+                         "reduced": [], "why": "a mesh found by name"})
+    m["workloads"].append({"name": f"{name}.train", "config": name, "traffic": "train_epochs",
+                           "chips": data * model, "why": "a mesh found by name"})
+    for metric in m["end_to_end"] + m["per_layer"]:
+        if f"{base}.train" in metric.get("workloads", []):
+            metric["workloads"].append(f"{name}.train")
+    return m, str(here)
+
+
+def tiny_mesh_run(tmp_path, layout: str, trace: bool = False, base: str = "tiktok",
+                  seed: int = 2**31 + 77, extra: dict | None = None) -> bench.Run:
+    """A :class:`benchmark.run.Run` of :func:`mesh_cell`'s cell at ``base``'s
+    tiny shape on CPU ranks."""
+    m, here = mesh_cell(tmp_path, layout, base)
+    over = {**SHAPES[base], **TRAIN, **(extra or {})}
+    return bench.Run(m, f"{base}_mesh.train", seed, 0.5, trace, torch.device("cpu"), overrides=over, here=here)

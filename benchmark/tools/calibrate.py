@@ -14,6 +14,12 @@ next one below the top k). ``--set`` changes a setting of the program's
 run (a lower-precision path of the program's own, read as a control); the
 reference keeps the configuration as stated. One JSON line per seed and
 candidate on standard output. PERF.md sets each limit from these readings.
+
+A cell whose configuration has a ``mesh`` is read as its runs run: its
+ranks are started as ``benchmark.run`` starts them
+(``harness/ranks.py``), once for all the seeds; the program's records come
+from the Coach on the mesh, gathered whole, and rank 0 reads every
+candidate's numbers on its card once the ranks have freed their state.
 """
 
 from __future__ import annotations
@@ -45,12 +51,14 @@ def train_readings(r, candidates: list[str], program_set: dict):
         for key, value in program_set.items():
             section, name = key.split(".")[-2:]
             setattr(getattr(pc, section), name, value)
-        coach = Coach(pc, train.host_data(inputs), device=r.device, log=NullLog())
+        coach = Coach(pc, train.host_data(inputs), device=r.device, log=NullLog(), mesh=r.mesh)
         cands["program"] = train.program_records(coach, train.ProgramSteps(coach, scan, r.traffic["eval_split"]),
                                                  n_steps, inputs)
         del coach
         gc.collect()
         torch.cuda.empty_cache()
+    if r.rank != 0:
+        return
     truth = train.reference_records(spec, inputs, r.seed, r.device, 1, scan)
     follower = train.Reference(spec, inputs, r.seed, r.device)
     for name in candidates:
@@ -59,6 +67,24 @@ def train_readings(r, candidates: list[str], program_set: dict):
         elif name == "half":
             cands[name] = train.reference_records(spec, inputs, r.seed, r.device, n_steps, scan, fault=name)
         yield name, checks.train_numbers(cands.pop(name), truth, follower, inputs)
+
+
+def mesh_readings(r, seeds: list[int], candidates: list[str], program_set: dict) -> list:
+    """On each rank of a mesh cell: ``(seed, candidate, numbers)`` of every
+    seed (rank 0's; the other ranks' lists are empty)."""
+    import torch.distributed as dist
+
+    out = []
+    for seed in seeds:
+        r.seed = seed % (1 << 63)
+        out += [(seed, name, numbers) for name, numbers in train_readings(r, candidates, program_set)]
+        dist.barrier()  # rank 0 has read this seed's numbers
+    return out
+
+
+def _line(workload: str, seed: int, name: str, program_set: dict, numbers: dict) -> None:
+    print(json.dumps({"workload": workload, "seed": seed, "candidate": name,
+                      "set": program_set if name == "program" else {}, "numbers": numbers}), flush=True)
 
 
 def serve_readings(r, candidates: list[str], program_set: dict):
@@ -99,12 +125,21 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cands = args.candidates.split(",")
     program_set = dict(kv.split("=", 1) for kv in args.set)
-    for seed in (int(s) for s in args.seeds.split(",")):
+    seeds = [int(s) for s in args.seeds.split(",")]
+    r = bench.Run(manifest, args.workload, seeds[0], args.seconds, False, dev)
+    if r.layout is not None:
+        from benchmark.harness import ranks
+
+        rows = ranks.launch(r, "benchmark.tools.calibrate.mesh_readings", seeds, cands, program_set,
+                            run_s=ranks.RUN_S * len(seeds) * len(cands))[0]
+        for seed, name, numbers in rows:
+            _line(args.workload, seed, name, program_set, numbers)
+        return 0
+    for seed in seeds:
         r = bench.Run(manifest, args.workload, seed, args.seconds, False, dev)
         readings = train_readings if r.traffic["kind"] == "train" else serve_readings
         for name, numbers in readings(r, cands, program_set):
-            print(json.dumps({"workload": args.workload, "seed": seed, "candidate": name,
-                              "set": program_set if name == "program" else {}, "numbers": numbers}), flush=True)
+            _line(args.workload, seed, name, program_set, numbers)
         gc.collect()
         torch.cuda.empty_cache()
     return 0
