@@ -143,8 +143,8 @@ def _recommend_sharded(index: RecIndex, users, k: int, k_pad: int, mask_seen: bo
         scores = torch.cat([scores, scores.new_zeros((scores.shape[0], 1))], dim=1)
         scores = scores.scatter_(1, loc, -1e9)[:, :width]
     vals, idx = torch.topk(scores, k_pad, dim=1, sorted=True)
-    vals_all = placed_all_reduce(vals, r * k_pad, m * k_pad, group, dim=1)
-    ids_all = placed_all_reduce(idx + off, r * k_pad, m * k_pad, group, dim=1)
+    vals_all = placed_all_reduce(vals, r * k_pad, m * k_pad, group, dim=1, site="topk")
+    ids_all = placed_all_reduce(idx + off, r * k_pad, m * k_pad, group, dim=1, site="topk")
     top_scores, sel = torch.topk(vals_all, k_pad, dim=1, sorted=True)
     top_ids = torch.gather(ids_all, 1, sel)
     return top_ids[:, :k].to(torch.int32), top_scores[:, :k]

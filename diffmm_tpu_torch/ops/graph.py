@@ -283,7 +283,7 @@ def _sum(table: torch.Tensor, src, offsets: torch.Tensor, shard) -> torch.Tensor
         return segsum_gather(table, src, offsets)
     nnz = (src if isinstance(src, torch.Tensor) else src[0]).shape[0]
     lo, hi = shard.span(nnz)
-    return all_reduce_sum_(slice_segsum_gather(table, src, offsets, lo, hi), shard.group)
+    return all_reduce_sum_(slice_segsum_gather(table, src, offsets, lo, hi), shard.group, "propagate")
 
 
 def _partial(table: torch.Tensor, src, offsets: torch.Tensor, shard) -> torch.Tensor:
@@ -303,7 +303,7 @@ def _total(g: torch.Tensor, shard) -> torch.Tensor:
     edge range's transpose must see the whole cotangent)."""
     if shard is None:
         return g
-    return all_reduce_sum_(g.contiguous().clone(), shard.group)
+    return all_reduce_sum_(g.contiguous().clone(), shard.group, "propagate")
 
 
 class Propagate(torch.autograd.Function):
@@ -424,13 +424,14 @@ class MeshSpmmDual(torch.autograd.Function):
         if split.cat is None:
             return y_u, y_i
         group = split.cat.group
-        return all_reduce_sum_(y_u, group), placed_all_reduce(y_i, lo, z_i.shape[0], group)
+        return (all_reduce_sum_(y_u, group, "propagate"),
+                placed_all_reduce(y_i, lo, z_i.shape[0], group, site="propagate"))
 
     @staticmethod
     def backward(ctx, g_u, g_i):
         (mat,) = ctx.saved_tensors
         split = ctx.split
-        total = all_reduce_sum_(torch.cat([g_u.reshape(-1), g_i.reshape(-1)]), split.world.group)
+        total = all_reduce_sum_(torch.cat([g_u.reshape(-1), g_i.reshape(-1)]), split.world.group, "propagate")
         g_u, g_i = (t.view(g.shape) for t, g in zip(total.split([g_u.numel(), g_i.numel()]), (g_u, g_i)))
         lo, hi = split.lo, split.hi
         dz_u, dz_i_s = spmm_dual(mat, g_u, g_i[lo:hi])

@@ -26,6 +26,10 @@ K4's entries also the least bytes of the function each launch computes
 (``<kernel>.bytes``). A wrapper counts where its Python code runs, which is
 once at a CUDA graph's capture and never at its replay, so ``train/graphs.py``
 adds a captured step's counts back at every replay (:func:`add_work`).
+The mesh's collectives count there too (:func:`count_allreduce`): each
+all-reduce's calls and bytes by the site that asks for it, under
+``allreduce.<site>.calls`` and ``allreduce.<site>.bytes``, made at the
+first all-reduce, so a process that runs none has no such counter.
 :func:`work_counts` reads every counter, :func:`launch_counts` the launches
 alone and :func:`add_launches` adds to them.
 """
@@ -178,6 +182,21 @@ def count(name: str, n_bytes: int | None = None) -> None:
         _WORK[f"{name}.bytes"] += n_bytes
 
 
+# where an all-reduce comes from (parallel/collectives.py): the gradients'
+# sum, a propagation's (K1's and K4's mesh forms, forward and backward), a
+# gather of row or column shards, a top-k's merge, anything else
+ALLREDUCE_SITES = ("grads", "propagate", "gather", "topk", "other")
+
+
+def count_allreduce(site: str, n_bytes: int) -> None:
+    """One all-reduce of an ``n_bytes`` buffer, asked for at ``site`` (one
+    of :data:`ALLREDUCE_SITES`)."""
+    if site not in ALLREDUCE_SITES:
+        raise ValueError(f"unknown all-reduce site {site!r}; known: {ALLREDUCE_SITES}")
+    for key, n in ((f"allreduce.{site}.calls", 1), (f"allreduce.{site}.bytes", n_bytes)):
+        _WORK[key] = _WORK.get(key, 0) + n
+
+
 def _registered() -> dict[str, int]:
     from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual  # noqa: F401  (they register)
 
@@ -185,8 +204,9 @@ def _registered() -> dict[str, int]:
 
 
 def work_counts() -> dict[str, int]:
-    """Every work counter so far: each kernel's launches by its name, and
-    ``<kernel>.bytes`` where it counts bytes."""
+    """Every work counter so far: each kernel's launches by its name,
+    ``<kernel>.bytes`` where it counts bytes, and the all-reduces'
+    ``allreduce.<site>.calls`` and ``.bytes`` once there has been one."""
     return dict(_registered())
 
 

@@ -42,8 +42,8 @@ def catalog_topk(scores: torch.Tensor, k: int, offset: int = 0, cat=None) -> tor
     idx = idx + offset
     if cat is not None:
         at, total = cat.index * kl, cat.count * kl
-        vals = placed_all_reduce(vals, at, total, cat.group, dim=1)
-        idx = placed_all_reduce(idx, at, total, cat.group, dim=1)
+        vals = placed_all_reduce(vals, at, total, cat.group, dim=1, site="topk")
+        idx = placed_all_reduce(idx, at, total, cat.group, dim=1, site="topk")
     return torch.gather(idx, 1, torch.topk(vals, k, dim=1, sorted=True).indices)
 
 

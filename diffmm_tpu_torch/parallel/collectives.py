@@ -22,6 +22,14 @@ transposes give. A replicated value whose cotangent every rank holds whole
 would be counted once a rank: that is why every loss term that the ranks
 of an axis would compute alike is counted on one rank of it only
 (``train/steps.py``).
+
+Every sum goes through :func:`all_reduce_sum_`, which counts it in the
+kernels' work counters (``ops/kernels``: ``allreduce.<site>.calls`` and
+``allreduce.<site>.bytes``, through graph replays too) under the site its
+caller names: ``grads`` (:func:`all_reduce_grads`), ``propagate`` (K1's and
+K4's mesh forms and their backward), ``gather`` (a placed all-reduce),
+``topk`` (the merge of a catalog-sharded top-k) or ``other``. A sum over
+a group of one rank (a model axis of 1) moves nothing and is not counted.
 """
 
 from __future__ import annotations
@@ -29,15 +37,21 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from diffmm_tpu_torch.ops.kernels import count_allreduce
 
-def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``x`` (contiguous) over ``group`` in place; returns it."""
+
+def all_reduce_sum_(x: torch.Tensor, group, site: str = "other") -> torch.Tensor:
+    """Sum ``x`` (contiguous) over ``group`` in place, counted under
+    ``site`` where the group has more than one rank; returns it."""
+    if dist.get_world_size(group) > 1:
+        count_allreduce(site, x.numel() * x.element_size())
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 
 class AllReduceSum(torch.autograd.Function):
-    """``AllReduceSum.apply(x, group)``: the sum of every rank's ``x``.
+    """``AllReduceSum.apply(x, group, site="other")``: the sum of every
+    rank's ``x``, counted under ``site``.
 
     The backward all-reduces the cotangent too: each rank's cotangent is
     its own share of the loss's, and the input of the sum needs the whole
@@ -45,24 +59,25 @@ class AllReduceSum(torch.autograd.Function):
     global loss)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_reduce_sum_(x.contiguous().clone(), group)
+    def forward(ctx, x, group, site="other"):
+        ctx.group, ctx.site = group, site
+        return all_reduce_sum_(x.contiguous().clone(), group, site)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum_(g.contiguous().clone(), ctx.group), None
+        return all_reduce_sum_(g.contiguous().clone(), ctx.group, ctx.site), None, None
 
 
-def placed_all_reduce(local: torch.Tensor, offset: int, total: int, group, dim: int = 0) -> torch.Tensor:
+def placed_all_reduce(local: torch.Tensor, offset: int, total: int, group, dim: int = 0,
+                      site: str = "gather") -> torch.Tensor:
     """The all-gather of the mesh: ``local`` written at ``offset`` along
-    ``dim`` of a zero frame ``total`` long there, summed over ``group``.
-    The ranks' parts must not overlap."""
+    ``dim`` of a zero frame ``total`` long there, summed over ``group``
+    (counted under ``site``). The ranks' parts must not overlap."""
     shape = list(local.shape)
     shape[dim] = total
     frame = local.new_zeros(shape)
     frame.narrow(dim, offset, local.shape[dim]).copy_(local)
-    return all_reduce_sum_(frame, group)
+    return all_reduce_sum_(frame, group, site)
 
 
 class AllGatherRows(torch.autograd.Function):
@@ -78,7 +93,7 @@ class AllGatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        whole = all_reduce_sum_(g.contiguous().clone(), ctx.group)
+        whole = all_reduce_sum_(g.contiguous().clone(), ctx.group, "gather")
         return whole[ctx.offset:ctx.offset + ctx.n], None, None, None
 
 
@@ -90,7 +105,7 @@ def all_reduce_grads(grads: list[torch.Tensor], group) -> list[torch.Tensor]:
     out: list[torch.Tensor | None] = [None] * len(grads)
     for dtype in dict.fromkeys(g.dtype for g in grads):
         idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
-        flat = all_reduce_sum_(torch.cat([grads[i].reshape(-1) for i in idx]), group)
+        flat = all_reduce_sum_(torch.cat([grads[i].reshape(-1) for i in idx]), group, "grads")
         for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
             out[i] = part.view(grads[i].shape)
     return out

@@ -46,4 +46,4 @@ def sharded_segsum_gather(table: torch.Tensor, src, offsets: torch.Tensor, lo: i
     """The whole ``segsum_gather`` when the ranks of ``group`` pass slices
     that cover the edges once: :func:`slice_segsum_gather`, then
     :class:`~diffmm_tpu_torch.parallel.collectives.AllReduceSum`."""
-    return AllReduceSum.apply(slice_segsum_gather(table, src, offsets, lo, hi), group)
+    return AllReduceSum.apply(slice_segsum_gather(table, src, offsets, lo, hi), group, "propagate")

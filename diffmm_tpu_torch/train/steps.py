@@ -96,9 +96,23 @@ from diffmm_tpu_torch.utils.profiling import StepParts
 
 
 # the parts that tile a diffusion and a joint step (utils/profiling.py): each
-# phase's span takes its last block's, in device seconds
+# phase's span takes its last block's, in device seconds; on a mesh the
+# gradients' all-reduce is a part of its own, ``reduce``, before ``adam``
 DIFFUSION_PARTS = StepParts("diffusion", ("forward", "backward", "adam"))
 JOINT_PARTS = StepParts("joint", ("forward", "loss", "backward", "adam"))
+MESH_DIFFUSION_PARTS = StepParts("diffusion", ("forward", "backward", "reduce", "adam"))
+MESH_JOINT_PARTS = StepParts("joint", ("forward", "loss", "backward", "reduce", "adam"))
+
+
+def _reduced(grads, place, split, parts: StepParts, device) -> list:
+    """The gradients summed over the mesh
+    (:func:`~diffmm_tpu_torch.parallel.sharding.reduce_grads`), as the
+    ``reduce`` part of ``parts``, which ends where ``adam`` starts; the
+    gradients as they are on one device."""
+    if split is None:
+        return list(grads)
+    parts.mark(parts.parts.index("reduce"), device)
+    return reduce_grads(grads, place, split)
 
 
 def _trainable(params):
@@ -245,10 +259,11 @@ def diffusion_block(
             whole = all_reduce_sum_(torch.stack(losses).detach(), split.world.group)
             denom = sum(whole.unbind())
         leaves = [tree_leaves(p) for p in live]
-        DIFFUSION_PARTS.mark(1, users.device)
+        parts = DIFFUSION_PARTS if split is None else MESH_DIFFUSION_PARTS
+        parts.mark(1, users.device)
         grads = torch.autograd.grad(total / denom, [g for ls in leaves for g in ls])
-    grads = reduce_grads(grads, None if split is None else [split.dn_place] * n_modal, split)
-    DIFFUSION_PARTS.mark(2, users.device)
+    grads = _reduced(grads, None if split is None else [split.dn_place] * n_modal, split, parts, users.device)
+    parts.mark(parts.parts.index("adam"), users.device)
     at = 0
     for m, (params, state, ls) in enumerate(zip(dn_params_list, dn_states, leaves)):
         adam_update(params, list(grads[at:at + len(ls)]), state,
@@ -290,17 +305,18 @@ def diffusion_epoch(
     acc = buffer(graphs, ("diffusion_acc",), (n_modal,), torch.float32, dev).zero_()
     scalars = lr if isinstance(lr, torch.Tensor) else _scalars(lr, dn_states, n, dev)
     i_embs = gcn_params["i_embs"]
+    parts = DIFFUSION_PARTS if split is None else MESH_DIFFUSION_PARTS
 
     def step(users, weights, sc):
-        DIFFUSION_PARTS.mark(0, dev)
+        parts.mark(0, dev)
         losses = diffusion_block(
             schedule, dn_params_list, dn_states, feats, i_embs, train_store,
             users, weights, sc, hp, item_num, generator=generator, split=split,
         )
         acc.copy_((acc + losses) / torch.clamp_min(losses.sum(), 1e-12))
-        DIFFUSION_PARTS.mark(3, dev)
+        parts.mark(len(parts.parts), dev)
 
-    DIFFUSION_PARTS.claim(dev)
+    parts.claim(dev)
     key = ("diffusion", users_blocks.shape[1], _hp_key(hp))
     for j in range(n):
         run_step(graphs, key, step, users_blocks[j], weight_blocks[j], scalars[j])
@@ -618,7 +634,8 @@ def joint_block(
             bpr_plans = (own[0].plan, own[1].plan)
         out = gcn_mm(whole, adj, list(modal_adjs), raw_feats, hp["modal_adj_weight"],
                      hp["residual_weight"], compute)
-        JOINT_PARTS.mark(1, users.device)
+        parts = JOINT_PARTS if split is None else MESH_JOINT_PARTS
+        parts.mark(1, users.device)
         rec = bpr_loss(gather(out.u_final, bpr_rows[0], bpr_plans[0]),
                        gather(out.i_final, bpr_rows[1], bpr_plans[1]),
                        gather(out.i_final, bpr_rows[2], gather_plan(bpr_rows[2], n_items)), total_rows)
@@ -630,10 +647,10 @@ def joint_block(
                             plans, own)
         cl = cl + modal_cl(out, users, pos_items, hp, cl_method, plans, own)
         total = rec + reg + cl
-        JOINT_PARTS.mark(2, users.device)
+        parts.mark(2, users.device)
         grads = torch.autograd.grad(total, tree_leaves(live))
-    grads = reduce_grads(grads, None if split is None else split.gcn_place, split)
-    JOINT_PARTS.mark(3, users.device)
+    grads = _reduced(grads, None if split is None else split.gcn_place, split, parts, users.device)
+    parts.mark(parts.parts.index("adam"), users.device)
     adam_update(gcn_params, grads, opt_state, lr)
     return torch.stack([total, rec, reg, cl]).detach()
 
@@ -665,14 +682,15 @@ def joint_epoch(
     blocks = torch.stack([users_blocks, pos_blocks, neg_blocks], dim=1)  # (n, 3, B)
     scalars = lr if isinstance(lr, torch.Tensor) else _scalars(lr, [opt_state], n, dev)[:, 0]
     acc = buffer(graphs, ("joint_acc",), (4,), torch.float32, dev).zero_()
+    parts = JOINT_PARTS if split is None else MESH_JOINT_PARTS
 
     def step(blk, sc):
-        JOINT_PARTS.mark(0, dev)
+        parts.mark(0, dev)
         acc.add_(joint_block(gcn_params, opt_state, adj, modal_adjs, raw_feats, blk[0], blk[1],
                              blk[2], sc, hp, cl_method, compute, generator=generator, split=split))
-        JOINT_PARTS.mark(4, dev)
+        parts.mark(len(parts.parts), dev)
 
-    JOINT_PARTS.claim(dev)
+    parts.claim(dev)
     key = ("joint", blocks.shape[2], cl_method, compute, _hp_key(hp))
     for j in range(n):
         run_step(graphs, key, step, blocks[j], scalars[j])

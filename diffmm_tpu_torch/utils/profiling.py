@@ -11,7 +11,7 @@ Counterpart of ``diffmm_tpu/utils/profiling.py``:
   in a trace), its device seconds (a pair of timing events on the current
   stream, read when the record is read, after the host has waited anyway;
   None on the CPU), and the deltas over it of the kernels' work counters
-  (``ops/kernels``: launches, K4's bytes) and of the CUDA graphs' captures
+  (``ops/kernels``: launches, K4's bytes, a mesh's all-reduces) and of the CUDA graphs' captures
   and replays by phase (:data:`GRAPHS`, counted by ``train/graphs.py``).
 * :class:`StepParts`: timing events that cut a captured step into named
   parts. A capture turns each into an event-record node that every replay
