@@ -34,7 +34,13 @@ exit, no result line):
    unfused route it replaces, ``index_select`` then K4 on the messages);
    times (CUDA events, warm, many launches) of the kernel, the plain
    version, one PyTorch library call computing the same function and, for
-   K4, the unfused route, beside the bound.
+   K4, the unfused route, beside the bound. Adam's one pass
+   (``ops/kernels/adam.py``, replacing no TPU kernel) on each benchmark
+   configuration's denoiser trees (a diffusion step's, one launch a tree;
+   electronics's gradients views of one flat buffer, as a mesh sums them)
+   and GCN tree (a joint step's): three steps bitwise ``_adam_f32``, its
+   time beside the bound (28 bytes a parameter), ``_adam_f32``'s and
+   ``torch._fused_adam_``'s (a yardstick the port never calls).
 3. reference: a tiny synthetic Coach on the card against the same Coach on
    the CPU (plain versions) with the same parameters, dense form and sparse
    form; the sparse one also against the dense one on the same graphs; and
@@ -406,6 +412,90 @@ def phase_kernels(dev) -> dict:
     out.update(_segsum_cases(dev, gen))
     out.update(_segsum_backward_cases(dev, gen))
     out.update(_gather_backward_cases(dev, gen))
+    out["adam"] = _adam_cases(dev)
+    return out
+
+
+# the benchmark's configurations (benchmark/configs): users, items and the
+# modalities' feature widths; every one at latdim 64, hidden 1,024 and a
+# time embedding of 10, as conf/tiktok.toml and conf/sports.toml
+ADAM_CELLS = {"tiktok": (9308, 6710, [128, 768, 128]), "sports": (35598, 18357, [4096, 1024]),
+              "electronics": (48101, 63001, [4096, 1024])}
+
+
+def _adam_case(dev, trees: list, grads: list, steps: int = 3) -> dict:
+    """One Adam step over each of ``trees`` (leaf lists; ``grads`` theirs):
+    ``steps`` steps from zero moments bitwise ``_adam_f32`` on copies, then
+    the times of a step over all the trees (one launch a tree)."""
+    import torch
+
+    from diffmm_tpu_torch.ops.kernels.adam import LAUNCHES, fused_adam, least_bytes
+    from diffmm_tpu_torch.train.optim import _adam_f32, adam_scalars
+
+    mus = [[torch.zeros_like(p) for p in t] for t in trees]
+    nus = [[torch.zeros_like(p) for p in t] for t in trees]
+    twins = ([[p.clone() for p in t] for t in trees], [[m.clone() for m in t] for t in mus],
+             [[v.clone() for v in t] for t in nus])
+    rows = torch.as_tensor(adam_scalars(1e-3, 0, steps), device=dev)
+    before = LAUNCHES["adam"]
+    bitwise = True
+    for k in range(steps):
+        for t, g, mu, nu, tp, tm, tn in zip(trees, grads, mus, nus, *twins):
+            fused_adam(t, g, mu, nu, rows[k])
+            _adam_f32(tp, g, tm, tn, rows[k, 0], rows[k, 1], rows[k, 2])
+        torch.cuda.synchronize()
+        bitwise = bitwise and all(torch.equal(a, b) for xs, ys in zip((trees, mus, nus), twins)
+                                  for x, y in zip(xs, ys) for a, b in zip(x, y))
+    launches = (LAUNCHES["adam"] - before) // steps
+    del twins
+    n = sum(p.numel() for t in trees for p in t)
+    row = rows[0]
+    steps_t = [[torch.ones((), device=dev) for _ in t] for t in trees]
+    b, by = bound_ms(least_bytes(n), 0, F32_FLOPS)
+    rec = {
+        "params": n, "trees": len(trees), "launches_per_step": launches, "bitwise": bitwise,
+        "ms": time_ms(lambda: [fused_adam(t, g, mu, nu, row) for t, g, mu, nu in zip(trees, grads, mus, nus)],
+                      20),
+        "bound_ms": b, "bound_by": by,
+        "plain_ms": time_ms(lambda: [_adam_f32(t, g, mu, nu, row[0], row[1], row[2])
+                                     for t, g, mu, nu in zip(trees, grads, mus, nus)], 10),
+        "library_ms": time_ms(lambda: [torch._fused_adam_(t, g, mu, nu, [], st, lr=1e-3, beta1=0.9, beta2=0.999,
+                                                          weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)
+                                       for t, g, mu, nu, st in zip(trees, grads, mus, nus, steps_t)], 20),
+    }
+    rec["ok"] = bitwise and launches == len(trees)
+    return rec
+
+
+def _adam_cases(dev) -> dict:
+    """Adam's one pass at each configuration's trees: the denoisers (a
+    diffusion step: one launch each) and the GCN (a joint step)."""
+    import torch
+
+    from diffmm_tpu_torch.models.denoise import init_denoise_params
+    from diffmm_tpu_torch.models.gcn import init_gcn_params
+    from diffmm_tpu_torch.train.optim import tree_leaves
+
+    out = {}
+    for name, (U, I, feats) in ADAM_CELLS.items():
+        gen = torch.Generator(device=dev).manual_seed(23)
+        dns = [tree_leaves(init_denoise_params(gen, I, [1024], 10, 64, dev)) for _ in feats]
+        gcn = [tree_leaves(init_gcn_params(gen, U, I, 64, feats, dev))]
+        if name == "electronics":
+            # a mesh's summed gradients: views of one flat buffer, cut at the
+            # leaves' boundaries (parallel/collectives.py::all_reduce_grads)
+            flat = torch.randn(sum(p.numel() for t in dns for p in t), generator=gen, device=dev) * 1e-3
+            parts = iter(flat.split([p.numel() for t in dns for p in t]))
+            dn_grads = [[next(parts).view(p.shape) for p in t] for t in dns]
+        else:
+            dn_grads = [[torch.randn(p.shape, generator=gen, device=dev) * 1e-3 for p in t] for t in dns]
+        gcn_grads = [[torch.randn(p.shape, generator=gen, device=dev) * 1e-2 for p in t] for t in gcn]
+        out[name] = {"diffusion": _adam_case(dev, dns, dn_grads), "joint": _adam_case(dev, gcn, gcn_grads)}
+        print(f"[kernels] adam {name}: {json.dumps(out[name])}")
+        del dns, gcn, dn_grads, gcn_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(all(r["ok"] for cell in out.values() for r in cell.values()), f"adam: {out}")
     return out
 
 
@@ -1301,9 +1391,9 @@ def _twin(dev, cfg, like):
 
 
 def _counters():
-    from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual
+    from diffmm_tpu_torch.ops.kernels import adam, denoise_mlp, segsum, spmm_dual
 
-    return (spmm_dual.LAUNCHES, denoise_mlp.LAUNCHES, segsum.LAUNCHES)
+    return (spmm_dual.LAUNCHES, denoise_mlp.LAUNCHES, segsum.LAUNCHES, adam.LAUNCHES)
 
 
 def _zero_counters() -> None:
@@ -1503,7 +1593,8 @@ def phase_profile(work, label: str, report_dir: str) -> dict:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     counts = {e.key: e.count for e in kernels}
     # the port's own kernels, whether or not they make the top rows
-    own = ("dual_kernel", "gemm_3xtf32", "strip_3xtf32", "splitk_sum", "segsum_kernel", "segsum_plan")
+    own = ("dual_kernel", "gemm_3xtf32", "strip_3xtf32", "splitk_sum", "segsum_kernel", "segsum_plan",
+           "adam_kernel")
 
     def share(*names):
         return sum(v for k, v in dev_us.items() if any(name in k for name in names)) / 1e6 / busy
@@ -1600,6 +1691,7 @@ def drive_training(dev, cfg, host, label: str, epochs: int, overflowing: tuple =
     import torch
 
     from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.train.optim import tree_leaves
 
     gc.collect()
     before = torch.cuda.memory_allocated(dev)
@@ -1657,6 +1749,11 @@ def drive_training(dev, cfg, host, label: str, epochs: int, overflowing: tuple =
         check(all(got[k] == v for k, v in want.items()),
               f"{label} joint launches {got}, want {want}")
     check(launches["segsum_unfused"] == 0, f"{label}: the unfused K4 launched ({launches})")
+    # Adam's one pass: a launch a tree a step, every f32 tree (bf16
+    # denoisers take the op-by-op step)
+    f32_dn = sum(all(p.dtype == torch.float32 for p in tree_leaves(dn)) for dn in coach.dn_params)
+    want_adam = epochs * (n_diff * f32_dn + n_joint)
+    check(launches["adam"] == want_adam, f"{label}: {launches['adam']} Adam launches, want {want_adam}")
     graphs = {key[0] + ("" if key[0] != "rebuild" else f"_{key[1]}"):
               {"replays": g.replays, "launches_a_replay": g.launches}
               for key, g in coach.graphs.graphs.items()}

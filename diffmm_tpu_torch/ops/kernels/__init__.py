@@ -13,6 +13,8 @@ package with the same name:
   offsets with the row gather in front of it fused in (``segsum_gather``:
   the rows each edge names, read from L2 inside the kernel; replaces
   ``ops/pallas/segsum.py::_segsum_kernel`` and the ``take`` before it).
+* ``adam``        — Adam's f32 step over a parameter tree in one pass
+  (replaces no Pallas kernel: XLA fuses optax's update on the TPU).
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``, at first use, into
@@ -22,10 +24,11 @@ carries a hash of its source, so an edited source never loads a stale build.
 
 The kernels' work counters are one registry here: each wrapper counts its
 launches (:func:`count`, its module's ``LAUNCHES`` a view of its own), and
-K4's entries also the least bytes of the function each launch computes
-(``<kernel>.bytes``). A wrapper counts where its Python code runs, which is
-once at a CUDA graph's capture and never at its replay, so ``train/graphs.py``
-adds a captured step's counts back at every replay (:func:`add_work`).
+K4's entries and Adam also the least bytes of the function each launch
+computes (``<kernel>.bytes``). A wrapper counts where its Python code runs,
+which is once at a CUDA graph's capture and never at its replay, so
+``train/graphs.py`` adds a captured step's counts back at every replay
+(:func:`add_work`).
 The mesh's collectives count there too (:func:`count_allreduce`): each
 all-reduce's calls and bytes by the site that asks for it, under
 ``allreduce.<site>.calls`` and ``allreduce.<site>.bytes``, made at the
@@ -49,7 +52,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("spmm_dual", "denoise_mlp", "segsum")
+SOURCES = ("spmm_dual", "denoise_mlp", "segsum", "adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -198,7 +201,7 @@ def count_allreduce(site: str, n_bytes: int) -> None:
 
 
 def _registered() -> dict[str, int]:
-    from diffmm_tpu_torch.ops.kernels import denoise_mlp, segsum, spmm_dual  # noqa: F401  (they register)
+    from diffmm_tpu_torch.ops.kernels import adam, denoise_mlp, segsum, spmm_dual  # noqa: F401  (they register)
 
     return _WORK
 

@@ -41,8 +41,10 @@ counted by the key's phase (``utils/profiling.py`` ``GRAPHS``), and a
 graph's first eager run and its capture are one ``capture`` span, a child
 of its phase's.
 
-A capture that fails raises; nothing falls back to eager on the card. On the
-CPU there is no graph: every call runs the step.
+A capture that fails raises; nothing falls back to eager on the card.
+Each capture first collects Python's cyclic garbage: a dropped graph that
+the collector freed during a capture would end it. On the CPU there is no
+graph: every call runs the step.
 
 On a mesh the steps hold their collectives (the gradient all-reduce, K4's
 mesh forms, the diffusion losses' sum). NCCL's are captured with the rest
@@ -56,6 +58,7 @@ eagerly on the card too.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -108,6 +111,11 @@ class BlockGraph:
             self.inputs = tuple(x.clone() for x in inputs)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
+        # what is garbage already goes now: a dropped graph (a reset or a
+        # discarded Coach's, in a reference cycle) that the collector freed
+        # inside the capture would end it, as CUDA refuses to destroy a graph
+        # while a stream captures
+        gc.collect()
         before = work_counts()
         with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=self.error_mode):
             self.step(*self.inputs)

@@ -29,6 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from diffmm_tpu_torch.ops.kernels.adam import fused_adam
+
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -99,7 +101,10 @@ def adam_update(params, grads: list[torch.Tensor], state: AdamState, lr) -> Adam
     and advances it (a captured step runs no host code). Returns the state
     (its tensors updated in place).
 
-    A tree with leaves narrower than f32 (bf16 denoisers, ``base.
+    A tree of f32 leaves takes the step in one pass on the card
+    (``ops/kernels/adam.py``, one launch over the tree's leaves) and in
+    :func:`_adam_f32`'s passes on the CPU, bit for bit the same. A tree
+    with leaves narrower than f32 (bf16 denoisers, ``base.
     denoise_param_dtype``) takes the step in their type, op by op as optax
     takes it there: the moments are of the leaves' type (optax's
     ``zeros_like``), each operation rounds to it, its constants are cast to
@@ -113,10 +118,13 @@ def adam_update(params, grads: list[torch.Tensor], state: AdamState, lr) -> Adam
         state.count += 1
     else:
         scalars = lr
-    lr_t, bc1, bc2 = scalars[0], scalars[1], scalars[2]
     if all(p.dtype == torch.float32 for p in leaves):
-        _adam_f32(leaves, grads, state.mu, state.nu, lr_t, bc1, bc2)
+        if leaves[0].device.type == "cuda":
+            fused_adam(leaves, grads, state.mu, state.nu, scalars)
+        else:
+            _adam_f32(leaves, grads, state.mu, state.nu, scalars[0], scalars[1], scalars[2])
         return state
+    lr_t, bc1, bc2 = scalars[0], scalars[1], scalars[2]
     for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
         c = functools.partial(_weak, dtype=p.dtype)
         mu.copy_(g * c(1 - B1) + mu * c(B1))
@@ -133,7 +141,10 @@ def _weak(x: float, dtype: torch.dtype) -> float:
 
 
 def _adam_f32(leaves, grads, mu, nu, lr_t, bc1, bc2) -> None:
-    """The step of a tree of f32 leaves, fused over them (``torch._foreach_*``)."""
+    """The step of a tree of f32 leaves, fused over them (``torch._foreach_*``):
+    the CPU's, and the plain version of the card's one pass
+    (``ops/kernels/adam.py::fused_adam``), which rounds each operation as
+    these passes do."""
     torch._foreach_mul_(mu, B1)
     torch._foreach_add_(mu, grads, alpha=1 - B1)
     torch._foreach_mul_(nu, B2)

@@ -1355,3 +1355,40 @@ def test_model_axis_two_gloo_ranks_on_the_card(cuda):
         for got, ref in zip(rank0[form][:2], want):
             for k in ref:
                 assert got[k] == pytest.approx(ref[k], rel=2e-3, abs=1e-5), (form, k)
+
+
+def test_a_dropped_graph_cannot_end_a_later_capture(cuda):
+    """A captured graph dropped in a reference cycle (a reset or discarded
+    Coach's) is freed only by Python's cyclic collector; were it freed
+    inside a later graph's capture (a step's Python allocations reach the
+    collector's threshold), its destruction would end that capture.
+    ``BlockGraph`` collects the garbage before it captures."""
+    import gc
+
+    from diffmm_tpu_torch.train.graphs import BlockGraph
+
+    x = torch.zeros(4, device=cuda)
+    stream = torch.cuda.Stream(cuda)
+    old = BlockGraph(lambda v: x.add_(v), torch.Generator(device=cuda), stream)
+    for _ in range(2):  # the eager step and its capture, then a replay
+        old(torch.ones(4, device=cuda))
+    held = [old]
+    del old
+
+    def step(v):
+        [[i] for i in range(1000)]  # Python allocations past the collector's threshold
+        if held:  # the eager run's end: the old graph becomes garbage, in a cycle
+            cycle = {"graph": held.pop()}
+            cycle["cycle"] = cycle
+        x.mul_(v)
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(100, 1, 1)
+    try:
+        new = BlockGraph(step, torch.Generator(device=cuda), stream)
+        for _ in range(2):
+            new(torch.full((4,), 2.0, device=cuda))
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full((4,), 8.0, device=cuda))

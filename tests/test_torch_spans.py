@@ -23,7 +23,7 @@ from diffmm_tpu_torch.utils.profiling import RING, PhaseTimer, span, span_record
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 KERNELS = {"spmm_dual", "denoise_layer1", "denoise_layer1_partial", "denoise_layer2", "segsum",
-           "segsum_unfused"}
+           "segsum_unfused", "adam"}
 
 
 def _by_name(records):
@@ -154,7 +154,7 @@ def test_k4_byte_rule_is_chip_smokes_bound_where_every_row_is_named(case):
 def test_launch_counters_read_and_add_as_before():
     counts, work = launch_counts(), work_counts()
     assert set(counts) == KERNELS
-    assert set(work) == KERNELS | {"segsum.bytes", "segsum_unfused.bytes"}
+    assert set(work) == KERNELS | {"segsum.bytes", "segsum_unfused.bytes", "adam.bytes"}
     add_launches({"segsum": 3, "spmm_dual": 2, "not_a_kernel": 5, "segsum.bytes": 99})
     after = launch_counts()
     assert after["segsum"] == counts["segsum"] + 3 and after["spmm_dual"] == counts["spmm_dual"] + 2
