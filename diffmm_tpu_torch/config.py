@@ -198,22 +198,39 @@ def apply_overrides(config: Config, overrides: list[str]) -> Config:
     return config
 
 
+# every execution knob with a spelling, and the spellings the port takes (the
+# JAX package's). ``base.denoiser_impl`` and ``train.rebuild_topk`` are checked
+# as the JAX package checks them, then ignored: the port has one denoiser path
+# (K2/K3 on the card, their plain versions on the CPU) and one top-k
+# (``ops/topk.py::catalog_topk``); so is ``train.stack_modal``, any value: the
+# sparse form always stacks its modal propagations (``models/gcn.py``).
+_KNOBS = (
+    ("base.denoise_param_dtype", ("f32", "bf16")),
+    ("base.denoiser_impl", ("auto", "xla", "pallas")),
+    ("train.rebuild_compute", ("f32", "bf16")),
+    ("train.rebuild_topk", ("approx", "exact")),
+    ("train.dense_store", ("int8", "bf16", "int4")),
+    ("train.segsum_compute", ("f32", "bf16")),
+    ("train.train_store", ("auto", "dense", "csr")),
+    ("train.rebuild_order", ("identity", "degree")),
+)
+
+
 def check_slice_support(config: Config) -> None:
     """Raise ``ValueError`` for a spelling of an execution knob that the
-    port does not know; every value the JAX package accepts is ported.
+    port does not know (``_KNOBS``), or for ``train.epoch_scan`` below 1;
+    every value the JAX package accepts is ported.
 
-    The knobs: ``base.denoise_param_dtype`` and ``train.rebuild_compute``
-    (f32|bf16) and ``train.dense_store`` (int8|bf16|int4); a denoiser of any
-    depth, ``hyper.use_knn_adj`` and ``train.donate_buffers`` take any
-    value. The other settings' values are checked by the code that reads
-    them, as in the JAX package. The CLI's ``--mesh`` and ``--distributed``
-    check the mesh against the world size (``cli.py``)."""
-    for name, allowed in (
-        ("base.denoise_param_dtype", ("f32", "bf16")),
-        ("train.rebuild_compute", ("f32", "bf16")),
-        ("train.dense_store", ("int8", "bf16", "int4")),
-    ):
+    A denoiser of any depth, ``hyper.use_knn_adj`` and
+    ``train.donate_buffers`` take any value. ``train.graph_form`` is checked
+    where it is read (``train/coach.py::choose_graph_form``), the other
+    settings' values by the code that reads them, as in the JAX package. The
+    CLI's ``--mesh`` and ``--distributed`` check the mesh against the world
+    size (``cli.py``)."""
+    for name, allowed in _KNOBS:
         section, key = name.split(".")
         value = getattr(getattr(config, section), key)
         if value not in allowed:
             raise ValueError(f"{name} must be {'|'.join(allowed)}, got {value!r}")
+    if config.train.epoch_scan < 1:
+        raise ValueError(f"train.epoch_scan must be >= 1, got {config.train.epoch_scan}")

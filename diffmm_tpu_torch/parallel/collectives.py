@@ -30,6 +30,11 @@ caller names: ``grads`` (:func:`all_reduce_grads`), ``propagate`` (K1's and
 K4's mesh forms and their backward), ``gather`` (a placed all-reduce),
 ``topk`` (the merge of a catalog-sharded top-k) or ``other``. A sum over
 a group of one rank (a model axis of 1) moves nothing and is not counted.
+
+A ``None`` group is one device, with no process group (the one-device
+:class:`~diffmm_tpu_torch.parallel.sharding.Split`): every helper here then
+returns its input as it is, before it allocates anything, and counts
+nothing. No caller passes ``None`` for the default group.
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ from diffmm_tpu_torch.ops.kernels import count_allreduce
 
 def all_reduce_sum_(x: torch.Tensor, group, site: str = "other") -> torch.Tensor:
     """Sum ``x`` (contiguous) over ``group`` in place, counted under
-    ``site`` where the group has more than one rank; returns it."""
+    ``site`` where the group has more than one rank; returns it (as it is
+    without a group)."""
+    if group is None:
+        return x
     if dist.get_world_size(group) > 1:
         count_allreduce(site, x.numel() * x.element_size())
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
@@ -61,10 +69,14 @@ class AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, site="other"):
         ctx.group, ctx.site = group, site
+        if group is None:
+            return x
         return all_reduce_sum_(x.contiguous().clone(), group, site)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.group is None:
+            return g, None, None
         return all_reduce_sum_(g.contiguous().clone(), ctx.group, ctx.site), None, None
 
 
@@ -73,6 +85,8 @@ def placed_all_reduce(local: torch.Tensor, offset: int, total: int, group, dim: 
     """The all-gather of the mesh: ``local`` written at ``offset`` along
     ``dim`` of a zero frame ``total`` long there, summed over ``group``
     (counted under ``site``). The ranks' parts must not overlap."""
+    if group is None:
+        return local
     shape = list(local.shape)
     shape[dim] = total
     frame = local.new_zeros(shape)
@@ -89,10 +103,14 @@ class AllGatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, offset, total, group):
         ctx.offset, ctx.n, ctx.group = offset, x.shape[0], group
+        if group is None:
+            return x
         return placed_all_reduce(x.contiguous(), offset, total, group)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.group is None:
+            return g, None, None, None
         whole = all_reduce_sum_(g.contiguous().clone(), ctx.group, "gather")
         return whole[ctx.offset:ctx.offset + ctx.n], None, None, None
 
@@ -101,7 +119,9 @@ def all_reduce_grads(grads: list[torch.Tensor], group) -> list[torch.Tensor]:
     """Every gradient summed over ``group`` with one all-reduce of one flat
     buffer a dtype (one for f32 parameters; the bf16 denoisers of
     ``base.denoise_param_dtype="bf16"`` add a second). Returns new tensors
-    in the gradients' shapes."""
+    in the gradients' shapes (the gradients themselves without a group)."""
+    if group is None:
+        return list(grads)
     out: list[torch.Tensor | None] = [None] * len(grads)
     for dtype in dict.fromkeys(g.dtype for g in grads):
         idx = [i for i, g in enumerate(grads) if g.dtype == dtype]

@@ -35,6 +35,15 @@ the data axis and its catalog columns over the model axis; on one it does
 not divide, the catalog stays whole on every rank (the rule of
 :func:`catalog_spec`) and the rows go over the whole world. A joint block's
 rows always go over the world: its GCN outputs are whole on every rank.
+
+One device is a mesh of one rank with no process group
+(``make_split(None, item_num)``): its shares are ``Shard(0, 1, None)``, its
+catalog is whole and every leaf is :data:`REPLICATED`. The training steps
+and the Coach run that split through the same code as a mesh's: every
+placement here is then an identity, and every collective
+(``parallel/collectives.py``) returns its input. Whether there is a process
+group is the split's fact (``world.group`` is None on one device), not a
+question each step asks of a mesh.
 """
 
 from __future__ import annotations
@@ -191,7 +200,8 @@ def denoise_param_shardings(params: dict, mesh) -> dict:
 
 
 class Split(NamedTuple):
-    """How this rank cuts a training step on a mesh (:func:`make_split`).
+    """How this rank cuts a training step (:func:`make_split`; one device
+    is a split of one rank).
 
     Attributes:
       rows: the rank's share of a diffusion, rebuild or eval block's rows:
@@ -199,14 +209,16 @@ class Split(NamedTuple):
         ``rows.group`` hold different rows of one catalog range, so the
         gradients of the cut parameters are summed over it.
       world: the rank's share of a joint block's rows, and the group of the
-        losses' sums and of the replicated parameters' gradients.
+        losses' sums and of the replicated parameters' gradients (None on
+        one device: no process group).
       cat: the model axis when it cuts the catalog, else None.
       lo, hi: the rank's catalog range (the whole catalog when ``cat`` is
         None).
       item_num: the catalog's size.
       gcn_place, dn_place: the placement trees of the GCN parameters and of
         one denoiser (:func:`gcn_param_shardings`,
-        :func:`denoise_param_shardings`).
+        :func:`denoise_param_shardings`); on one device :data:`REPLICATED`,
+        which places a whole tree.
     """
 
     rows: Shard
@@ -219,10 +231,16 @@ class Split(NamedTuple):
     dn_place: dict
 
 
-def make_split(mesh, gcn_params: dict, dn_params: dict) -> Split:
-    """The :class:`Split` of ``mesh`` for parameters shaped as the whole
-    ``gcn_params`` and one whole denoiser ``dn_params``."""
-    item_num = gcn_params["i_embs"].shape[0]
+def make_split(mesh, item_num: int, gcn_params: dict | None = None, dn_params: dict | None = None) -> Split:
+    """The :class:`Split` of ``mesh`` for a catalog of ``item_num`` items
+    and parameters shaped as the whole ``gcn_params`` and one whole
+    denoiser ``dn_params``. ``mesh=None`` is one device, a mesh of one rank
+    with no process group, which places every leaf whole (the trees are not
+    read)."""
+    if mesh is None:
+        alone = Shard(0, 1, None)
+        return Split(rows=alone, world=alone, cat=None, lo=0, hi=item_num, item_num=item_num,
+                     gcn_place=REPLICATED, dn_place=REPLICATED)
     world = edge_shard(mesh)
     lo, hi = catalog_range(item_num, mesh)
     cut = catalog_spec(item_num, mesh) == CATALOG
@@ -234,6 +252,10 @@ def make_split(mesh, gcn_params: dict, dn_params: dict) -> Split:
 
 
 def _map2(fn, tree, place):
+    """``fn(leaf, place)`` over ``tree`` and its placement tree; a
+    :data:`REPLICATED` node places its whole subtree, which stays as it is."""
+    if place == REPLICATED:
+        return tree
     if isinstance(tree, dict):
         return {k: _map2(fn, v, place[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -242,9 +264,8 @@ def _map2(fn, tree, place):
 
 
 def shard_leaf(leaf, place: str, split: Split):
-    """This rank's part of one whole leaf (its own storage)."""
-    if place == REPLICATED:
-        return leaf
+    """This rank's part of one whole leaf cut by ``place`` (its own
+    storage)."""
     if place == COLS:
         return leaf[:, split.lo:split.hi].contiguous()
     if leaf.shape[0] == split.item_num:
@@ -253,10 +274,8 @@ def shard_leaf(leaf, place: str, split: Split):
 
 
 def gather_leaf(leaf, place: str, split: Split):
-    """One whole leaf from the ranks' parts (a collective over the model
-    axis for a cut leaf; every rank of the axis calls it)."""
-    if place == REPLICATED:
-        return leaf
+    """One whole leaf from the ranks' parts of a leaf cut by ``place`` (a
+    collective over the model axis; every rank of the axis calls it)."""
     group, n = split.cat.group, split.hi - split.lo
     if place == COLS:
         return placed_all_reduce(leaf.contiguous(), split.lo, split.item_num, group, dim=1)
@@ -264,49 +283,44 @@ def gather_leaf(leaf, place: str, split: Split):
     return whole if leaf.shape[0] == n else torch.cat([whole, leaf[n:]])
 
 
-def shard_params(tree, place, split: Split | None):
-    """The rank's slices of a whole parameter tree placed by ``place``
-    (identity without a split)."""
-    if split is None:
-        return tree
+def shard_params(tree, place, split: Split):
+    """The rank's slices of a whole parameter tree placed by ``place``."""
     return _map2(lambda t, p: shard_leaf(t, p, split), tree, place)
 
 
-def gather_params(tree, place, split: Split | None):
+def gather_params(tree, place, split: Split):
     """The whole parameter tree from the ranks' slices (a collective over
-    the model axis; identity without a split)."""
-    if split is None:
-        return tree
+    the model axis)."""
     return _map2(lambda t, p: gather_leaf(t, p, split), tree, place)
 
 
-def place_adam_state(state, place, split: Split | None):
+def _leaf_places(place):
+    return place if place == REPLICATED else tree_leaves(place)
+
+
+def place_adam_state(state, place, split: Split):
     """An Adam state over whole leaves with its moments cut as the
     parameters (JAX ``place_adam_state``: mu and nu mirror the params)."""
-    if split is None:
-        return state
-    places = tree_leaves(place)
-    cut = lambda ms: [shard_leaf(t, p, split) for t, p in zip(ms, places)]  # noqa: E731
+    places = _leaf_places(place)
+    cut = lambda ms: _map2(lambda t, p: shard_leaf(t, p, split), ms, places)  # noqa: E731
     return type(state)(state.count, cut(state.mu), cut(state.nu))
 
 
-def gather_adam_state(state, place, split: Split | None):
+def gather_adam_state(state, place, split: Split):
     """The whole moments of a cut Adam state (collective, as
     :func:`gather_params`)."""
-    if split is None:
-        return state
-    places = tree_leaves(place)
-    whole = lambda ms: [gather_leaf(t, p, split) for t, p in zip(ms, places)]  # noqa: E731
+    places = _leaf_places(place)
+    whole = lambda ms: _map2(lambda t, p: gather_leaf(t, p, split), ms, places)  # noqa: E731
     return type(state)(state.count, whole(state.mu), whole(state.nu))
 
 
-def reduce_grads(grads: list, place, split: Split | None) -> list:
+def reduce_grads(grads: list, place, split: Split) -> list:
     """The step's gradients summed over the ranks: a replicated leaf's (and
     the replicated time rows of a cut in-layer) over the world, a cut
     leaf's catalog part over ``split.rows`` only (the ranks that hold the
     same catalog range). Each rank's gradient is its share of the one
-    loss's; identity without a split."""
-    if split is None:
+    loss's. One device has nothing to sum: the gradients as they are."""
+    if split.world.group is None:
         return list(grads)
     n = split.hi - split.lo
     world, local, plan = [], [], []

@@ -188,7 +188,7 @@ def run_dense(args, mesh, dev, say) -> None:
     gcn = init_gcn_params(gen, U, I, cfg.base.latdim, host.feat_dims, dev)
     dns = [init_denoise_params(gen, I, cfg.base.denoise_dims(), cfg.base.d_emb_size, cfg.base.latdim, dev)
            for _ in host.modalities]
-    split = make_split(mesh, gcn, dns[0])
+    split = make_split(mesh, I, gcn, dns[0])
     store_dtype, _ = resolve_dense_store(cfg.train.dense_store)
     adj = build_dense_bi_adj_device(data.train_rows, data.train_cols, U, I, store_dtype,
                                     cols=(split.lo, split.hi))._replace(shard=split)

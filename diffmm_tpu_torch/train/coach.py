@@ -29,13 +29,22 @@ once as it starts and reads its results once as it ends; a fused chunk of
 eval of each ``tstEpoch`` boundary and the best epoch's state kept on the
 card between.
 
-The execution knobs: ``base.denoise_param_dtype="bf16"`` stores the
+The execution knobs (their spellings checked once, by
+``config.check_slice_support``): ``base.denoise_param_dtype="bf16"`` stores the
 denoisers and their Adam moments in bf16 (``train/optim.py``);
 ``train.rebuild_compute`` and the denoiser's depth choose the rebuild's
 forward (``train/steps.py::rebuild_forward``); ``train.dense_store="int4"``
 packs the dense blocks two cells a byte, which K1 reads;
 ``train.donate_buffers`` is accepted and changes nothing (the port updates
 its state in place already).
+
+The Coach has one path for one device and a mesh: its state, its steps
+and its eval run on this rank's
+:class:`~diffmm_tpu_torch.parallel.sharding.Split` (``self.split``), which
+on one device is the split of one rank with no process group, where every
+placement is an identity and every collective returns its input. Only the
+process group's own questions ask for ``mesh``: the rank, the edge shard,
+whether steps are captured, the checkpoint's barrier and the log line.
 
 On a mesh (``mesh=``, a ``(data, model)`` DeviceMesh of
 ``parallel/mesh.py``) the Coach computes the JAX mesh Coach's function,
@@ -46,11 +55,10 @@ rows of ``i_embs``, its catalog range of each denoiser's first in-layer and
 its columns of the last out-layer, with their Adam moments, its (U, I/m)
 columns of a dense train store, and on the dense form its (U, I/m) column
 block of every adjacency; the rest is replicated (a CSR store too). Each
-rank takes its part of every diffusion, rebuild, joint and eval block (a
-:class:`~diffmm_tpu_torch.parallel.sharding.Split`; the batch sizes must
-divide over the data axis), sums its range of the sparse form's
-edges (K4's mesh forms), and the steps' collectives make the rest global
-(``train/steps.py``). The steps are captured CUDA graphs under NCCL, with
+rank takes its part of every diffusion, rebuild, joint and eval block (the
+batch sizes must divide over the data axis), sums its range of the sparse
+form's edges (K4's mesh forms), and the steps' collectives make the rest
+global (``train/steps.py``). The steps are captured CUDA graphs under NCCL, with
 their collectives inside; under gloo (named for CPU ranks and for ranks
 that share a card) they run eagerly, decided from the backend here and
 said in the log. Checkpoints hold whole arrays, gathered from the ranks'
@@ -129,15 +137,15 @@ _DENSE_STORES = {"int8": (torch.int8, 1.0), "bf16": (torch.bfloat16, 2.0), "int4
 _PARAM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 _LOSS_NAMES = {"image": "image loss", "text": "text loss", "audio": "audio loss"}
+_METRICS = ("Recall", "NDCG", "Precision")
 # the eval's parts (its span's): the GCN forward, then the ranking
 _EVAL_PARTS = StepParts("eval", ("forward", "rank"))
 
 
 def resolve_dense_store(name: str) -> tuple[torch.dtype, float]:
     """``train.dense_store``'s block storage type and bytes a cell (JAX
-    ``resolve_dense_store``)."""
-    if name not in _DENSE_STORES:
-        raise ValueError(f"train.dense_store must be {'|'.join(_DENSE_STORES)}, got {name!r}")
+    ``resolve_dense_store``; the spelling checked by
+    ``config.check_slice_support``)."""
     return _DENSE_STORES[name]
 
 
@@ -191,6 +199,24 @@ def choose_graph_form(
     raise ValueError(f"train.graph_form must be auto|dense|sparse, got {form!r}")
 
 
+def _metric_dict(sums=(0.0, 0.0, 0.0), n: int = 1) -> dict[str, float]:
+    """An eval's metric dict from its (3,) Recall/NDCG/Precision sums over
+    ``n`` users; zeros for an empty split."""
+    return {name: float(v) / n for name, v in zip(_METRICS, sums)}
+
+
+def _fold_eval(best: dict, result: dict[str, float], epoch: int) -> bool:
+    """Fold one eval ``result`` into the run's best-Recall record ``best``
+    (reference model selection, `Main.py:71-78`): ``his_max`` is each
+    metric's running maximum, and a strictly greater Recall makes ``epoch``
+    the best (so the first best is kept). True where it did."""
+    best["his_max"] = [max(a, b) for a, b in zip([result[k] for k in _METRICS], best["his_max"])]
+    improved = result["Recall"] > best["Recall"]
+    if improved:
+        best.update({k: result[k] for k in _METRICS}, best_epoch=epoch)
+    return improved
+
+
 def _pad_blocks(n: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
     """Indices [0, n) padded to a multiple of ``batch`` + validity mask."""
     n_blocks = max(1, -(-n // batch))
@@ -237,21 +263,6 @@ class Coach:
             self.capture_steps = dist.get_backend() == "nccl"
         self.log = log or Log("coach", config.data.name) if self.rank == 0 else NullLog()
         self.n_modal = len(host.modalities)
-        # Checked as the JAX package checks them, then ignored: the port has
-        # one denoiser path (K2/K3 on the card, their plain versions on the
-        # CPU) and one top-k (``ops/topk.py::catalog_topk``). So is
-        # ``train.stack_modal``: the sparse form always stacks its modal
-        # propagations (``models/gcn.py``).
-        for name, allowed in (
-            ("base.denoiser_impl", ("auto", "xla", "pallas")),
-            ("train.rebuild_topk", ("approx", "exact")),
-        ):
-            section, key = name.split(".")
-            value = getattr(getattr(config, section), key)
-            if value not in allowed:
-                raise ValueError(f"{name} must be {'|'.join(allowed)}, got {value!r}")
-        if config.train.epoch_scan < 1:
-            raise ValueError(f"train.epoch_scan must be >= 1, got {config.train.epoch_scan}")
         # bf16 denoisers with their Adam moments (JAX coach.py:422-441); K2/K3
         # take them widened to f32 (train/steps.py::rebuild_forward), so the
         # JAX package's refusal for its Pallas kernel's f32 VMEM plan has no
@@ -286,25 +297,17 @@ class Coach:
                 f"auto graph form: sparse (blocks+reserve {blocks / 2**30:.2f} GiB > budget "
                 f"{budget * model_parallel / 2**30:.2f} GiB; train.dense_budget_gb overrides)"
             )
-        if config.train.segsum_compute not in ("f32", "bf16"):
-            raise ValueError(
-                f"train.segsum_compute must be f32|bf16, got {config.train.segsum_compute!r}"
-            )
-        store = config.train.train_store
-        if store == "auto":
+        self.train_store_form = config.train.train_store
+        if self.train_store_form == "auto":
             # the sparse form exists because O(U·I) does not fit, so its
             # membership store is O(nnz) too (JAX coach.py:281-287)
             self.train_store_form = "dense" if self.dense_graphs else "csr"
-        elif store in ("dense", "csr"):
-            self.train_store_form = store
-        else:
-            raise ValueError(f"train.train_store must be auto|dense|csr, got {store!r}")
         # a dense train store keeps a rank's catalog columns only (JAX
         # _place_train_store: the largest array of the dense regime)
         self.data = to_device(
             host, self.device, self.train_store_form,
             with_sparse_adj=not self.dense_graphs, batch=config.train.batch,
-            store_cols=None if mesh is None else catalog_range(host.item_num, mesh),
+            store_cols=catalog_range(host.item_num, mesh),
         )
         if mesh is not None:
             self.data = shard_device_data(self.data, mesh)
@@ -322,14 +325,9 @@ class Coach:
             plan = plan_rebuild_buckets(host.user_degrees, batch, host.item_num)
             u_of_pos = plan.row_of_user[u_of_pos]
             blocks, widths, starts = plan.user_blocks, plan.widths, plan.row_starts
-        elif config.train.rebuild_order == "identity":
+        else:  # identity
             idx, _ = _pad_blocks(host.user_num, batch)
             blocks, widths, starts = (idx.reshape(-1, batch),), (host.k_max,), (0,)
-        else:
-            raise ValueError(
-                "train.rebuild_order must be identity|degree, got "
-                f"{config.train.rebuild_order!r}"
-            )
         self.rebuild_blocks = tuple(torch.as_tensor(b, device=self.device) for b in blocks)
         self.rebuild_widths = tuple(int(w) for w in widths)
         self.rebuild_starts = tuple(int(s) for s in starts)
@@ -352,7 +350,6 @@ class Coach:
         self.checkpoint_every = max(1, checkpoint_every)
         if checkpoint_dir is not None:
             self.ckpt = CheckpointManager(checkpoint_dir)
-        self.split = None
         self._init_state()
         if self.dense_graphs:
             self.data = self.data._replace(
@@ -400,10 +397,9 @@ class Coach:
             ))
             for _ in range(self.n_modal)
         ]
-        if self.mesh is not None:
-            # every rank draws the whole parameters from the one seed and keeps
-            # its slices (JAX shard_model_params)
-            self.split = make_split(self.mesh, gcn_params, dn_params[0])
+        # every rank draws the whole parameters from the one seed and keeps its
+        # slices (JAX shard_model_params); one device is a split of one rank
+        self.split = make_split(self.mesh, host.item_num, gcn_params, dn_params[0])
         self._set_params(gcn_params, dn_params)
         self.gcn_opt_state = adam_init(self.gcn_params)
         self.dn_opt_states = [adam_init(p) for p in self.dn_params]
@@ -434,9 +430,8 @@ class Coach:
         slices of them (:func:`~diffmm_tpu_torch.parallel.sharding.
         shard_params`), in their own storage."""
         split = self.split
-        self.gcn_params = shard_params(gcn_params, None if split is None else split.gcn_place, split)
-        self.dn_params = [shard_params(p, None if split is None else split.dn_place, split)
-                          for p in dn_params]
+        self.gcn_params = shard_params(gcn_params, split.gcn_place, split)
+        self.dn_params = [shard_params(p, split.dn_place, split) for p in dn_params]
 
     def load_params(self, gcn_params: dict, dn_params: list[dict],
                     gcn_opt_state: AdamState | None = None,
@@ -463,10 +458,9 @@ class Coach:
             mu, nu = ([m.to(p.dtype) for m, p in zip(ms, tree_leaves(params))] for ms in (state.mu, state.nu))
             return AdamState(state.count, mu, nu)
 
-        g_place, d_place = (None, None) if split is None else (split.gcn_place, split.dn_place)
-        self.gcn_opt_state = state_to(gcn_opt_state, self.gcn_params, g_place)
+        self.gcn_opt_state = state_to(gcn_opt_state, self.gcn_params, split.gcn_place)
         dn_opt_states = dn_opt_states or [None] * self.n_modal
-        self.dn_opt_states = [state_to(s, p, d_place) for s, p in zip(dn_opt_states, self.dn_params)]
+        self.dn_opt_states = [state_to(s, p, split.dn_place) for s, p in zip(dn_opt_states, self.dn_params)]
         self.edge_buffers = None
         self.modal_adjs = None
         self.graphs.clear()
@@ -492,10 +486,9 @@ class Coach:
         place when given), placed on the mesh (:meth:`_place`): a dense one
         holds this rank's catalog columns only."""
         if self.dense_graphs:
-            split = self.split
             return self._place(build_dense_bi_adj_device(
                 rows, cols, self.host.user_num, self.host.item_num, self.dense_store_dtype, out=out,
-                cols=None if split is None else (split.lo, split.hi),
+                cols=(self.split.lo, self.split.hi),
             ))
         return self._place(build_bi_adj_device(rows, cols, self.host.user_num, self.host.item_num, out=out))
 
@@ -736,18 +729,9 @@ class Coach:
             return results
         if not with_eval:
             # an empty split: test_epoch's zero metrics on the flagged epochs
-            zero = {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0}
-            return results, [zero if f else None for f in flags], None
-        n_eval = eval_blocks[0]
+            return results, [_metric_dict() if f else None for f in flags], None
         sums = iter(eval_rows)
-        eval_results = []
-        for flag in flags:
-            row = next(sums) if flag else None
-            eval_results.append(None if row is None else {
-                "Recall": float(row[0]) / n_eval,
-                "NDCG": float(row[1]) / n_eval,
-                "Precision": float(row[2]) / n_eval,
-            })
+        eval_results = [_metric_dict(next(sums), eval_blocks[0]) if f else None for f in flags]
         return results, eval_results, (best_recall, best_g, best_bufs)
 
     def _fused_eval_blocks(self, split: str):
@@ -795,17 +779,12 @@ class Coach:
         _EVAL_PARTS.mark(0, dev)
         u_final, i_final = embeddings if embeddings is not None else self.forward()
         _EVAL_PARTS.mark(1, dev)
-        users, valid, items, counts = blocks
         split = self.split
-        if split is None:
-            sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
-                              self.cum_dcg, self.config.base.topk)
-        else:
-            lo, hi = split.rows.span(users.shape[1])
-            users, valid, items, counts = (a[:, lo:hi] for a in (users, valid, items, counts))
-            sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
-                              self.cum_dcg, self.config.base.topk, (split.lo, split.hi), split.cat)
-            sums = all_reduce_sum_(sums, split.rows.group)
+        lo, hi = split.rows.span(blocks[0].shape[1])
+        users, valid, items, counts = (a[:, lo:hi] for a in blocks)
+        sums = eval_epoch(u_final, i_final, users, valid, self.data.train_store, items, counts,
+                          self.cum_dcg, self.config.base.topk, (split.lo, split.hi), split.cat)
+        sums = all_reduce_sum_(sums, split.rows.group)
         _EVAL_PARTS.mark(2, dev)
         return sums
 
@@ -857,16 +836,12 @@ class Coach:
         blocks = self._fused_eval_blocks(split)
         if blocks is None:
             self.log.info(f"⚠️ eval split {split!r} has no users; skipping")
-            return {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0}
+            return _metric_dict()
         n_test, blocks = blocks
         with self.timer.phase("eval"):
             sums = self._eval_sums(blocks, embeddings).cpu().numpy()
             settle()
-        return {
-            "Recall": float(sums[0]) / n_test,
-            "NDCG": float(sums[1]) / n_test,
-            "Precision": float(sums[2]) / n_test,
-        }
+        return _metric_dict(sums, n_test)
 
     # ------------------------------------------------------------ best epoch
     def capture_best(self, epoch: int) -> None:
@@ -894,9 +869,9 @@ class Coach:
     # ------------------------------------------------------------ checkpoints
     def _whole(self, gcn_params=None, dn_params=None, gcn_state=None, dn_states=None) -> dict:
         """Whole trees from this rank's slices (collectives over the model
-        axis: every rank calls it); the trees as they are without a mesh."""
+        axis: every rank calls it); the trees as they are on one device."""
         split = self.split
-        g_place, d_place = (None, None) if split is None else (split.gcn_place, split.dn_place)
+        g_place, d_place = split.gcn_place, split.dn_place
         out = {}
         if gcn_params is not None:
             out["gcn_params"] = gather_params(tree_to(gcn_params, self.device), g_place, split)
@@ -960,7 +935,7 @@ class Coach:
         steps read keep their addresses) and set its generator, numpy
         stream, Adam counts, edge buffers and best snapshot."""
         split = self.split
-        g_place, d_place = (None, None) if split is None else (split.gcn_place, split.dn_place)
+        g_place, d_place = split.gcn_place, split.dn_place
         cut = lambda tree, place: shard_params(tree_to(tree, self.device), place, split)  # noqa: E731
         with torch.no_grad():
             for live, saved in zip(tree_leaves(self.gcn_params), tree_leaves(cut(arrays["gcn_params"], g_place))):
@@ -1026,18 +1001,12 @@ class Coach:
         cfg = self.config
         n_epochs = epochs if epochs is not None else cfg.train.epoch
         self.total_epochs = n_epochs  # cosine T_max follows the effective count
-        recall_max = ndcg_max = precision_max = 0.0
-        his_max = [0.0, 0.0, 0.0]
-        best_epoch = 0
+        best = {"Recall": 0.0, "NDCG": 0.0, "Precision": 0.0, "his_max": [0.0, 0.0, 0.0], "best_epoch": 0}
         start_epoch = 0
         resumed = self.restore_checkpoint()
         if resumed is not None:
             start_epoch = resumed["epoch"] + 1
-            recall_max = resumed.get("Recall", 0.0)
-            ndcg_max = resumed.get("NDCG", 0.0)
-            precision_max = resumed.get("Precision", 0.0)
-            his_max = resumed.get("his_max", his_max)
-            best_epoch = resumed.get("best_epoch", 0)
+            best = {k: resumed.get(k, v) for k, v in best.items()}
         self.log.info("Model Initialized ✅")
         self.log.info("Start training 🚀")
         try:
@@ -1045,7 +1014,7 @@ class Coach:
             while epoch < n_epochs:
                 chunk = self._chunk_size(epoch, n_epochs)
                 t0 = time.perf_counter()
-                eval_results = best_bundle = None
+                best_bundle = None
                 if chunk > 1:
                     results, eval_results, best_bundle = self.train_epochs_fused(epoch, chunk, eval_split)
                 else:
@@ -1060,60 +1029,32 @@ class Coach:
                     self.log.info(self.make_print("⏩ Train", epoch + j, result, n_epochs))
                 self.log.info(f"⏱️ epoch {self.epoch_times[-1]:.2f}s ({self.timer.summary()})")
                 self.timer.reset()
-                if chunk > 1:
-                    # the chunk evaluated on the card; fold its evals into the
-                    # best tracking as the single-epoch branch below does
-                    improved = False
-                    for j, result in enumerate(eval_results or []):
-                        if result is None:
-                            continue
-                        his_max = [max(a, b) for a, b in zip(
-                            [result["Recall"], result["NDCG"], result["Precision"]], his_max
-                        )]
-                        if result["Recall"] > recall_max:
-                            recall_max = result["Recall"]
-                            ndcg_max = result["NDCG"]
-                            precision_max = result["Precision"]
-                            best_epoch = epoch + j
-                            improved = True
+                if chunk == 1:
+                    eval_results = [self.test_epoch(eval_split) if epoch % cfg.train.tstEpoch == 0 else None]
+                # a chunk evaluated on the card, a single epoch here: one fold,
+                # and the best epoch's state captured once
+                improved = False
+                for j, result in enumerate(eval_results):
+                    if result is not None:
+                        improved = _fold_eval(best, result, epoch + j) or improved
                         self.log.info(self.make_print("🧪 Test", epoch + j, result, n_epochs))
-                    if improved and best_bundle is not None:
-                        self._capture_best_from(best_bundle[1], best_bundle[2], best_epoch)
+                if improved and chunk == 1:
+                    self.capture_best(epoch)
+                elif improved and best_bundle is not None:
+                    self._capture_best_from(best_bundle[1], best_bundle[2], best["best_epoch"])
                 epoch = epoch + chunk - 1  # the chunk's last epoch: checkpoint here
-                if chunk == 1 and epoch % cfg.train.tstEpoch == 0:
-                    result = self.test_epoch(eval_split)
-                    his_max = [max(a, b) for a, b in zip(
-                        [result["Recall"], result["NDCG"], result["Precision"]], his_max
-                    )]
-                    if result["Recall"] > recall_max:
-                        recall_max = result["Recall"]
-                        ndcg_max = result["NDCG"]
-                        precision_max = result["Precision"]
-                        best_epoch = epoch
-                        self.capture_best(epoch)
-                    self.log.info(self.make_print("🧪 Test", epoch, result, n_epochs))
+                his_max = best["his_max"]
                 self.log.info(
-                    f"💡 Current best: Epoch: {best_epoch}, "
-                    f"Recall: {recall_max:.5f}({his_max[0]:.5f}), "
-                    f"NDCG: {ndcg_max:.5f}({his_max[1]:.5f}), "
-                    f"Precision: {precision_max:.5f}({his_max[2]:.5f})"
+                    f"💡 Current best: Epoch: {best['best_epoch']}, "
+                    f"Recall: {best['Recall']:.5f}({his_max[0]:.5f}), "
+                    f"NDCG: {best['NDCG']:.5f}({his_max[1]:.5f}), "
+                    f"Precision: {best['Precision']:.5f}({his_max[2]:.5f})"
                 )
                 if self.ckpt is not None and (
                     (epoch + 1) % self.checkpoint_every == 0 or epoch == n_epochs - 1
                 ):
-                    self.save_checkpoint(epoch, {
-                        "Recall": recall_max,
-                        "NDCG": ndcg_max,
-                        "Precision": precision_max,
-                        "his_max": his_max,
-                        "best_epoch": best_epoch,
-                    })
+                    self.save_checkpoint(epoch, best)
                 epoch += 1
         except KeyboardInterrupt:
             self.log.info("🈲 Training interrupted by user!")
-        return {
-            "best_epoch": best_epoch,
-            "Recall": recall_max,
-            "NDCG": ndcg_max,
-            "Precision": precision_max,
-        }
+        return {"best_epoch": best["best_epoch"], **{k: best[k] for k in _METRICS}}

@@ -29,9 +29,12 @@ Randomness is injected: every step takes its draws (diffusion timesteps
 and noise, the cross-layer CL noise) as optional tensors and draws them
 from a ``torch.Generator`` otherwise.
 
-On a mesh (``split``, this rank's
-:class:`~diffmm_tpu_torch.parallel.sharding.Split`; None on one device)
-every step computes the JAX mesh's function, which is the single-device one
+Every step has one body, run on this rank's
+:class:`~diffmm_tpu_torch.parallel.sharding.Split` (``split``; where a caller
+gives none, one device's, ``make_split(None, item_num)``: whole shares, the
+whole catalog, no process group, so its placements are identities and its
+collectives return their inputs). On a mesh every step computes the JAX
+mesh's function, which is the single-device one
 (``tests/test_parallel.py:58-79``). Each rank's loss is its share of the
 step's one loss, and so are its gradients:
 
@@ -60,10 +63,9 @@ their columns, merge their top-k candidates over the model axis
 (``ops/topk.py::catalog_topk``) and assemble their rows of the top-k
 tables with a placed int32 all-reduce over ``split.rows``.
 
-One device runs the same steps with no collective (the sums over one part
-are the parts; its rebuild takes K2's tanh in the kernel's epilogue, the
-same f32 add and ``tanhf``), so that a mesh of one rank computes what one
-device does, bit for bit.
+A rank whose share is the whole block takes the losses' means and the
+block's gather plans, and zeroes no table; where the catalog is whole, K2
+applies its tanh in its epilogue. One device's steps have no ``reduce`` part.
 """
 
 from __future__ import annotations
@@ -89,7 +91,7 @@ from diffmm_tpu_torch.ops.kernels.denoise_mlp import (
 from diffmm_tpu_torch.ops.losses import RowSlice, bpr_loss, info_nce, l2_normalize, l2_reg_loss
 from diffmm_tpu_torch.ops.topk import catalog_topk, csr_gather_build
 from diffmm_tpu_torch.parallel.collectives import AllGatherRows, all_reduce_sum_
-from diffmm_tpu_torch.parallel.sharding import REPLICATED, ROWS, reduce_grads
+from diffmm_tpu_torch.parallel.sharding import REPLICATED, Split, make_split, reduce_grads
 from diffmm_tpu_torch.train.graphs import GraphCache, buffer, hold, run_step
 from diffmm_tpu_torch.train.optim import AdamState, adam_scalars, adam_update, tree_leaves, tree_map
 from diffmm_tpu_torch.utils.profiling import StepParts
@@ -104,14 +106,19 @@ MESH_DIFFUSION_PARTS = StepParts("diffusion", ("forward", "backward", "reduce", 
 MESH_JOINT_PARTS = StepParts("joint", ("forward", "loss", "backward", "reduce", "adam"))
 
 
-def _reduced(grads, place, split, parts: StepParts, device) -> list:
+def _parts(split: Split, alone: StepParts, mesh: StepParts) -> StepParts:
+    """A step's parts: ``mesh``'s, with the gradients' ``reduce``, where the
+    world has a process group; ``alone``'s on one device."""
+    return mesh if split.world.group is not None else alone
+
+
+def _reduced(grads, place, split: Split, parts: StepParts, device) -> list:
     """The gradients summed over the mesh
     (:func:`~diffmm_tpu_torch.parallel.sharding.reduce_grads`), as the
-    ``reduce`` part of ``parts``, which ends where ``adam`` starts; the
-    gradients as they are on one device."""
-    if split is None:
-        return list(grads)
-    parts.mark(parts.parts.index("reduce"), device)
+    ``reduce`` part of ``parts`` where they have one (it ends where
+    ``adam`` starts)."""
+    if "reduce" in parts.parts:
+        parts.mark(parts.parts.index("reduce"), device)
     return reduce_grads(grads, place, split)
 
 
@@ -134,22 +141,17 @@ def _scalars(lr: float, states: list[AdamState], n: int, device) -> torch.Tensor
     return torch.as_tensor(rows, device=device)
 
 
-def _cols(split, item_num: int) -> tuple[int, int]:
-    """The rank's catalog range (the whole catalog on one device)."""
-    return (0, item_num) if split is None else (split.lo, split.hi)
-
-
-def _group(split):
+def _group(split: Split):
     """The model axis's group where it cuts the catalog, else None."""
-    return None if split is None or split.cat is None else split.cat.group
+    return None if split.cat is None else split.cat.group
 
 
-def local_leaf(leaf: torch.Tensor, place: str, split, dim: int = 0) -> torch.Tensor:
+def local_leaf(leaf: torch.Tensor, place: str, split: Split, dim: int = 0) -> torch.Tensor:
     """The rank's catalog part of a catalog-wide leaf whose catalog runs
-    along ``dim``, differentiable: the leaf itself where it is stored cut
-    (or there is no split), else its catalog range (along dim 0 keeping any
-    rows past the catalog)."""
-    if split is None or place != REPLICATED or (split.lo, split.hi) == (0, split.item_num):
+    along ``dim``, differentiable: the leaf itself where it is stored cut,
+    else its catalog range (along dim 0 keeping any rows past the
+    catalog)."""
+    if place != REPLICATED:
         return leaf
     if dim == 1:
         return leaf[:, split.lo:split.hi]
@@ -158,11 +160,11 @@ def local_leaf(leaf: torch.Tensor, place: str, split, dim: int = 0) -> torch.Ten
     return torch.cat([leaf[split.lo:split.hi], leaf[split.item_num:]])
 
 
-def local_denoiser(params: dict, split) -> dict:
+def local_denoiser(params: dict, split: Split) -> dict:
     """A denoiser's tree with its catalog-wide layers (the first in-layer's
     x rows, the last out-layer) as the rank's catalog part
-    (:func:`local_leaf`); identity on one device."""
-    if split is None:
+    (:func:`local_leaf`); the tree itself where the catalog is whole."""
+    if split.cat is None:
         return params
     first, last = params["in_layers"][0], params["out_layers"][-1]
     place = split.dn_place
@@ -176,11 +178,12 @@ def local_denoiser(params: dict, split) -> dict:
     }
 
 
-def whole_gcn(gcn_params: dict, split) -> dict:
+def whole_gcn(gcn_params: dict, split: Split) -> dict:
     """The GCN parameters with ``i_embs`` whole: gathered over the model
-    axis where it is cut (:class:`AllGatherRows`: its backward gives each
-    rank its rows of the summed cotangent); as they are otherwise."""
-    if split is None or split.gcn_place["i_embs"] != ROWS:
+    axis where it cuts the catalog (:class:`AllGatherRows`: its backward
+    gives each rank its rows of the summed cotangent); as they are
+    otherwise."""
+    if split.cat is None:
         return gcn_params
     i_embs = AllGatherRows.apply(gcn_params["i_embs"], split.lo, split.item_num, split.cat.group)
     return {**gcn_params, "i_embs": i_embs}
@@ -202,7 +205,7 @@ def diffusion_block(
     t: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
-    split=None,
+    split: Split | None = None,
 ) -> torch.Tensor:
     """One Adam step for every modality's denoiser on one block of user
     rows (JAX ``_diffusion_block``); returns the (M,) per-modality losses.
@@ -218,51 +221,46 @@ def diffusion_block(
     :func:`~diffmm_tpu_torch.train.optim.adam_scalars` per modality (the
     caller then advances the counts).
 
-    ``split``: a mesh. The step takes the rank's rows (``split.rows``) and
-    catalog columns of the block and of its draws (drawn whole here when
-    not given, in the order ``training_losses`` draws them: each modality's
-    timesteps, then its noise), the weights' sum over the whole block, the
-    (M,) losses as the ranks' shares summed over the world (one all-reduce)
-    for the loss and the gradient's denominator; then the gradients'
-    all-reduces."""
-    n_modal = len(dn_params_list)
+    ``split``: this rank's (one device's when None). The step takes the
+    rank's rows (``split.rows``) and catalog columns of the block and of its
+    draws (drawn whole here when not given, in the order
+    ``training_losses`` draws them: each modality's timesteps, then its
+    noise), the weights' sum over the whole block, the (M,) losses as the
+    ranks' shares summed over the world (one all-reduce) for the loss and
+    the gradient's denominator; then the gradients' all-reduces."""
+    split = split or make_split(None, item_num)
+    n_modal, batch = len(dn_params_list), users.shape[0]
     w_sum = torch.clamp_min(weights.sum(), 1.0)
-    lo, hi = _cols(split, item_num)
-    group = _group(split)
-    own_sim = split is None or split.cat is None or split.cat.index == 0
-    if split is not None:
-        a, b = split.rows.span(users.shape[0])
-        if t is None or noise is None:
-            draws = [(torch.randint(0, schedule.steps, (users.shape[0],), generator=generator,
-                                    device=users.device),
-                      torch.randn((users.shape[0], item_num), generator=generator, device=users.device))
-                     for _ in range(n_modal)]
-            t, noise = (torch.stack(d) for d in zip(*draws))
-        users, weights, t, noise = users[a:b], weights[a:b], t[:, a:b], noise[:, a:b, lo:hi]
+    lo, hi = split.lo, split.hi
+    a, b = split.rows.span(batch)
+    if t is None or noise is None:
+        draws = [(torch.randint(0, schedule.steps, (batch,), generator=generator, device=users.device),
+                  torch.randn((batch, item_num), generator=generator, device=users.device))
+                 for _ in range(n_modal)]
+    else:
+        draws = list(zip(t, noise))
+    users, weights = users[a:b], weights[a:b]
     x0 = gather_rows(train_store, users, item_num, (lo, hi))
-    i_embs = i_embs if split is None else local_leaf(i_embs, split.gcn_place["i_embs"], split)
+    own_sim = split.cat is None or split.cat.index == 0
     live = [_trainable(p) for p in dn_params_list]
     with torch.enable_grad():
         losses = [
             torch.sum(training_losses(
                 schedule, local_denoiser(live[m], split), x0, i_embs, feats[m][lo:hi], hp["sim_weight"],
-                hp["reg"], t=None if t is None else t[m], noise=None if noise is None else noise[m],
-                generator=generator, item_num=item_num, group=group, own_sim=own_sim,
+                hp["reg"], t=t_m[a:b], noise=noise_m[a:b, lo:hi], item_num=item_num, group=_group(split),
+                own_sim=own_sim,
             ) * weights) / w_sum
-            for m in range(n_modal)
+            for m, (t_m, noise_m) in enumerate(draws)
         ]
         total = sum(losses)
-        if split is None:
-            whole = torch.stack(losses).detach()
-            denom = total.detach()
-        else:
-            whole = all_reduce_sum_(torch.stack(losses).detach(), split.world.group)
-            denom = sum(whole.unbind())
+        whole = all_reduce_sum_(torch.stack(losses).detach(), split.world.group)
+        # one rank's whole losses are its own: their sum is ``total``
+        denom = total.detach() if split.world.count == 1 else sum(whole.unbind())
         leaves = [tree_leaves(p) for p in live]
-        parts = DIFFUSION_PARTS if split is None else MESH_DIFFUSION_PARTS
+        parts = _parts(split, DIFFUSION_PARTS, MESH_DIFFUSION_PARTS)
         parts.mark(1, users.device)
         grads = torch.autograd.grad(total / denom, [g for ls in leaves for g in ls])
-    grads = _reduced(grads, None if split is None else [split.dn_place] * n_modal, split, parts, users.device)
+    grads = _reduced(grads, [split.dn_place] * n_modal, split, parts, users.device)
     parts.mark(parts.parts.index("adam"), users.device)
     at = 0
     for m, (params, state, ls) in enumerate(zip(dn_params_list, dn_states, leaves)):
@@ -286,7 +284,7 @@ def diffusion_epoch(
     item_num: int,
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
-    split=None,
+    split: Split | None = None,
 ) -> torch.Tensor:
     """All diffusion blocks of one epoch, (n_blocks, B) users and weights;
     returns the (M,) loss accumulator with the reference's quirk
@@ -297,6 +295,7 @@ def diffusion_epoch(
     (``_scalars``, made ahead by the caller). Advances each denoiser's Adam
     count by the block count. ``split``: as :func:`diffusion_block` (every
     rank's accumulator is the global one)."""
+    split = split or make_split(None, item_num)
     dev = users_blocks.device
     n_modal, n = len(dn_params_list), users_blocks.shape[0]
     with torch.no_grad():
@@ -305,7 +304,7 @@ def diffusion_epoch(
     acc = buffer(graphs, ("diffusion_acc",), (n_modal,), torch.float32, dev).zero_()
     scalars = lr if isinstance(lr, torch.Tensor) else _scalars(lr, dn_states, n, dev)
     i_embs = gcn_params["i_embs"]
-    parts = DIFFUSION_PARTS if split is None else MESH_DIFFUSION_PARTS
+    parts = _parts(split, DIFFUSION_PARTS, MESH_DIFFUSION_PARTS)
 
     def step(users, weights, sc):
         parts.mark(0, dev)
@@ -336,7 +335,7 @@ def rebuild_block_tables(
     k_table: int,
     generator: torch.Generator | None = None,
     denoise_apply=denoise_forward_fused,
-    split=None,
+    split: Split | None = None,
 ) -> list[torch.Tensor]:
     """Reverse-diffuse a user block per modality -> value-sorted (B,
     k_table) top-index tables, one per modality, with ``denoise_apply`` on
@@ -344,18 +343,19 @@ def rebuild_block_tables(
     the denoise_mlp kernels (K2, K3) on the card, on prepared forms only (a
     params dict would be put in the kernels' layout again at every step).
 
-    ``split``: a mesh. The rank takes its rows (``split.rows``) and its
-    catalog columns of the block (the denoisers are then its shards); each
-    modality's noise is drawn for the whole block, as on one device, and
-    normalised over whole rows; each table is the top-k over the whole
-    catalog of the rank's rows (:func:`~diffmm_tpu_torch.ops.topk.
+    ``split``: this rank's (one device's when None). The rank takes its
+    rows (``split.rows``) and its catalog columns of the block (the
+    denoisers are then its shards); each modality's noise is drawn for the
+    whole block and normalised over whole rows; each table is the top-k over
+    the whole catalog of the rank's rows (:func:`~diffmm_tpu_torch.ops.topk.
     catalog_topk`, merged over the model axis)."""
     fused = denoise_apply is denoise_forward_fused or getattr(denoise_apply, "func", None) is denoise_forward_fused
     if fused and not all(isinstance(p, PreparedDenoiser) for p in denoisers):
         raise TypeError("rebuild_block_tables runs K2/K3 on prepare_denoiser forms only")
+    split = split or make_split(None, item_num)
     batch = users.shape[0]
-    lo, hi = _cols(split, item_num)
-    a, b = (0, batch) if split is None else split.rows.span(batch)
+    lo, hi = split.lo, split.hi
+    a, b = split.rows.span(batch)
     x0 = gather_rows(train_store, users[a:b], item_num, (lo, hi))
     tables = []
     for params in denoisers:
@@ -366,7 +366,7 @@ def rebuild_block_tables(
             schedule, params, x0, sampling_step, generator=generator, noise=raw,
             denoise_apply=denoise_apply, cols=(lo, hi),
         )
-        tables.append(catalog_topk(denoised, k_table, lo, None if split is None else split.cat).to(torch.int32))
+        tables.append(catalog_topk(denoised, k_table, lo, split.cat).to(torch.int32))
     return tables
 
 
@@ -383,19 +383,20 @@ def _bf16_apply(params, x_t: torch.Tensor, t: torch.Tensor, group=None) -> torch
     return denoise_forward(params, x_t, t, compute_dtype=torch.bfloat16, group=group).to(torch.float32)
 
 
-def _on_axis(apply, split):
-    """``apply`` with the model axis's group bound, where there is one."""
-    group = _group(split)
-    return apply if split is None else functools.partial(apply, group=group)
+def _on_axis(apply, split: Split):
+    """``apply`` with the model axis's group bound, where it cuts the
+    catalog."""
+    return apply if split.cat is None else functools.partial(apply, group=split.cat.group)
 
 
 def rebuild_forward(dn_params_list: list, compute: str = "f32", graphs: GraphCache | None = None,
-                    split=None):
+                    split: Split | None = None):
     """The rebuild's denoisers and forward, chosen as the JAX package
     chooses them (``diffmm_tpu/train/steps.py:115-168``), put in their form
-    once per rebuild: ``(denoisers, denoise_apply)``. On a mesh
-    (``split``) the denoisers are the rank's catalog shards and the forward
-    sums its catalog products over the model axis.
+    once per rebuild: ``(denoisers, denoise_apply)``. ``split``: this
+    rank's (one device's when None); where the model axis cuts the catalog
+    the denoisers are the rank's catalog shards and the forward sums its
+    catalog products over the axis.
 
     * ``compute="bf16"`` (``train.rebuild_compute``, its spelling checked
       by ``config.check_slice_support``): the plain forward in bf16 (f32 accumulation on
@@ -408,13 +409,14 @@ def rebuild_forward(dn_params_list: list, compute: str = "f32", graphs: GraphCac
     * f32 and more hidden layers: the plain f32 forward (TF32 off) on the
       parameters as they are; K2/K3 take one hidden layer, and the JAX
       package runs its XLA forward there too."""
+    split = split or make_split(None, dn_params_list[0]["out_layers"][-1]["w"].shape[1])
     dn_params_list = [local_denoiser(p, split) for p in dn_params_list]
     if compute == "bf16":
         cast = [_hold_tree(graphs, ("rebuild_bf16", m), tree_map(lambda a: a.to(torch.bfloat16), p))
                 for m, p in enumerate(dn_params_list)]
         return cast, _on_axis(_bf16_apply, split)
     if any(len(p["in_layers"]) != 1 or len(p["out_layers"]) != 1 for p in dn_params_list):
-        if split is not None:  # a local part may be a new tensor: held where a graph reads it
+        if split.cat is not None:  # a local part may be a new tensor: held where a graph reads it
             dn_params_list = [_hold_tree(graphs, ("rebuild_local", m), p) for m, p in enumerate(dn_params_list)]
         return dn_params_list, _on_axis(denoise_forward, split)
     wide = [tree_map(lambda a: a.to(torch.float32), p) for p in dn_params_list]
@@ -452,7 +454,7 @@ def rebuild_epoch(
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
     compute: str = "f32",
-    split=None,
+    split: Split | None = None,
 ) -> list[torch.Tensor]:
     """All rebuild blocks of one epoch -> one CSR edge buffer per modality.
 
@@ -467,12 +469,14 @@ def rebuild_epoch(
     ``train.rebuild_compute``). A step (one block of one bucket; a graph per
     bucket on the card) writes its users' tables into the bucket's rows.
 
-    ``split``: a mesh. Each rank runs K2/K3 on its rows and catalog
-    columns of every block (its part of each block's noise drawn as the
-    whole) and the merged top-k (:func:`rebuild_block_tables`) into zeroed
-    tables, and one placed int32 all-reduce a table over ``split.rows``
-    assembles them (JAX ``coach.py:858-859``): every rank then builds the
-    same edge buffers."""
+    ``split``: this rank's (one device's when None). Each rank runs K2/K3
+    on its rows and catalog columns of every block (its part of each block's
+    noise drawn as the whole) and the merged top-k
+    (:func:`rebuild_block_tables`) into its rows of the tables, zeroed
+    first where other ranks hold other rows, and one placed int32
+    all-reduce a table over ``split.rows`` assembles them (JAX
+    ``coach.py:858-859``): every rank then builds the same edge buffers."""
+    split = split or make_split(None, item_num)
     denoisers, apply = rebuild_forward(dn_params_list, compute, graphs, split)
     n_modal = len(denoisers)
     dev = row_of_pos.device
@@ -483,8 +487,8 @@ def rebuild_epoch(
                   for m in range(n_modal)]
         rows = torch.arange(nb * batch, dtype=torch.int64, device=dev).view(nb, batch)
         inputs = torch.stack([blocks_b.long(), rows], dim=1)  # (nb, 2, batch): users, table rows
-        own = (0, batch) if split is None else split.rows.span(batch)
-        if split is not None:
+        own = split.rows.span(batch)
+        if split.rows.count > 1:
             for table in tables:
                 table.zero_()
 
@@ -498,9 +502,8 @@ def rebuild_epoch(
         key = ("rebuild", b, batch, k_b, sampling_step, compute)
         for j in range(nb):
             run_step(graphs, key, step, inputs[j])
-        if split is not None:
-            for table in tables:
-                all_reduce_sum_(table, split.rows.group)
+        for table in tables:
+            all_reduce_sum_(table, split.rows.group)
         bucket_tables.append(tables)
 
     row_of_pos = row_of_pos.long()
@@ -601,7 +604,7 @@ def joint_block(
     compute: str = "f32",
     cl_noise: list[torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
-    split=None,
+    split: Split | None = None,
 ) -> torch.Tensor:
     """One Adam step of the main model on one block of interactions (JAX
     ``_joint_block``): the GCN forward, BPR, L2 on the ID embeddings, the
@@ -611,35 +614,36 @@ def joint_block(
     and negative items, shared by all the gathers of each. ``lr`` is a
     float or a (3,) row of ``adam_scalars``, as ``adam_update`` takes it.
 
-    ``split``: a mesh. ``i_embs`` gathered whole (:func:`whole_gcn`); the
-    rank's BPR rows and its rows of each InfoNCE over the world, all as
-    parts of the block's means; the L2 term on rank 0; the gradients summed
+    ``split``: this rank's (one device's when None). ``i_embs`` gathered
+    whole (:func:`whole_gcn`); the rank's BPR rows and its rows of each
+    InfoNCE over the world, as parts of the block's means where they are not
+    the whole block; the L2 term on rank 0; the gradients summed
     (:func:`~diffmm_tpu_torch.parallel.sharding.reduce_grads`). The metrics
     are the rank's parts (``joint_epoch`` sums them over the world once an
     epoch)."""
+    split = split or make_split(None, gcn_params["i_embs"].shape[0])
     live = _trainable(gcn_params)
-    n_users = gcn_params["u_embs"].shape[0]
-    own, total_rows = (None, None), None
+    n_users, batch = gcn_params["u_embs"].shape[0], users.shape[0]
+    lo, hi = split.world.span(batch)
     with torch.enable_grad():
         whole = whole_gcn(live, split)
         n_items = whole["i_embs"].shape[0]
         plans = (gather_plan(users, n_users), gather_plan(pos_items, n_items))
-        bpr_rows, bpr_plans = (users, pos_items, neg_items), plans
-        if split is not None:
-            lo, hi = split.world.span(users.shape[0])
-            total_rows = users.shape[0]
+        bpr_rows, bpr_plans, own, total_rows = (users, pos_items, neg_items), plans, (None, None), None
+        if (lo, hi) != (0, batch):
+            total_rows = batch
             bpr_rows = (users[lo:hi], pos_items[lo:hi], neg_items[lo:hi])
             own = (RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[0], n_users)),
                    RowSlice(lo, hi, total_rows, gather_plan(bpr_rows[1], n_items)))
             bpr_plans = (own[0].plan, own[1].plan)
         out = gcn_mm(whole, adj, list(modal_adjs), raw_feats, hp["modal_adj_weight"],
                      hp["residual_weight"], compute)
-        parts = JOINT_PARTS if split is None else MESH_JOINT_PARTS
+        parts = _parts(split, JOINT_PARTS, MESH_JOINT_PARTS)
         parts.mark(1, users.device)
         rec = bpr_loss(gather(out.u_final, bpr_rows[0], bpr_plans[0]),
                        gather(out.i_final, bpr_rows[1], bpr_plans[1]),
                        gather(out.i_final, bpr_rows[2], gather_plan(bpr_rows[2], n_items)), total_rows)
-        if split is None or split.world.index == 0:
+        if split.world.index == 0:
             reg = l2_reg_loss(hp["reg"], [whole["u_embs"], whole["i_embs"]])
         else:
             reg = torch.zeros((), device=rec.device)
@@ -649,7 +653,7 @@ def joint_block(
         total = rec + reg + cl
         parts.mark(2, users.device)
         grads = torch.autograd.grad(total, tree_leaves(live))
-    grads = _reduced(grads, None if split is None else split.gcn_place, split, parts, users.device)
+    grads = _reduced(grads, split.gcn_place, split, parts, users.device)
     parts.mark(parts.parts.index("adam"), users.device)
     adam_update(gcn_params, grads, opt_state, lr)
     return torch.stack([total, rec, reg, cl]).detach()
@@ -670,19 +674,20 @@ def joint_epoch(
     compute: str = "f32",
     generator: torch.Generator | None = None,
     graphs: GraphCache | None = None,
-    split=None,
+    split: Split | None = None,
 ) -> torch.Tensor:
     """All joint blocks of one epoch, (n_blocks, B) each; returns the
     summed (4,) metrics (JAX ``_joint_epoch``), which each step adds in
     place. ``lr`` is a float or the phase's (n_blocks, 3) Adam scalars.
-    Advances the Adam count by the block count. ``split``: a mesh
-    (:func:`joint_block`); the ranks' sums are added once, at the end."""
+    Advances the Adam count by the block count. ``split``: as
+    :func:`joint_block`; the ranks' sums are added once, at the end."""
+    split = split or make_split(None, gcn_params["i_embs"].shape[0])
     dev = users_blocks.device
     n = users_blocks.shape[0]
     blocks = torch.stack([users_blocks, pos_blocks, neg_blocks], dim=1)  # (n, 3, B)
     scalars = lr if isinstance(lr, torch.Tensor) else _scalars(lr, [opt_state], n, dev)[:, 0]
     acc = buffer(graphs, ("joint_acc",), (4,), torch.float32, dev).zero_()
-    parts = JOINT_PARTS if split is None else MESH_JOINT_PARTS
+    parts = _parts(split, JOINT_PARTS, MESH_JOINT_PARTS)
 
     def step(blk, sc):
         parts.mark(0, dev)
@@ -695,16 +700,17 @@ def joint_epoch(
     for j in range(n):
         run_step(graphs, key, step, blocks[j], scalars[j])
     opt_state.count += n
-    if split is not None:
-        all_reduce_sum_(acc, split.world.group)
+    all_reduce_sum_(acc, split.world.group)
     return acc.clone()
 
 
 # --------------------------------------------------------------------- eval
 def gcn_forward(gcn_params, adj, modal_adjs, raw_feats, hp: dict, segsum_compute: str = "f32",
-                split=None):
+                split: Split | None = None):
     """Final (user, item) embeddings for eval and serving, whole on every
-    rank of a mesh (``split``: ``i_embs`` gathered first)."""
+    rank of a mesh (``split``: ``i_embs`` gathered first where the model
+    axis cuts it; one device's when None)."""
+    split = split or make_split(None, gcn_params["i_embs"].shape[0])
     out = gcn_mm(
         whole_gcn(gcn_params, split), adj, list(modal_adjs), raw_feats,
         modal_adj_weight=hp["modal_adj_weight"],

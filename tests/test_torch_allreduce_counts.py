@@ -207,3 +207,69 @@ def test_one_device_records_no_collective_and_no_reduce_part(monkeypatch):
     assert {(name, parts) for name, parts, _ in log if name != "eval"} == {
         ("diffusion", steps.DIFFUSION_PARTS.parts), ("joint", steps.JOINT_PARTS.parts)}
     assert all("reduce" not in parts for _, parts, _ in log)
+
+
+def _refuse_all_reduce(monkeypatch):
+    import torch.distributed as dist
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("one device called torch.distributed.all_reduce")
+
+    monkeypatch.setattr(dist, "all_reduce", refuse)
+
+
+@pytest.mark.parametrize("form", ["dense", "sparse"])
+def test_one_device_is_a_split_of_one_and_calls_no_collective(monkeypatch, form):
+    """A one-device Coach runs its steps on the split of one rank
+    (``make_split(None, item_num)``: whole shares with no process group, the
+    whole catalog, every leaf replicated) and never reaches
+    ``torch.distributed.all_reduce``: an epoch, its eval and a fused chunk
+    of two with evals."""
+    import numpy as np
+
+    from diffmm_tpu_torch.parallel.sharding import REPLICATED, Shard, make_split
+    from diffmm_tpu_torch.train.coach import Coach
+    from diffmm_tpu_torch.utils.logging import NullLog
+
+    _refuse_all_reduce(monkeypatch)
+    cfg = _config()
+    cfg.train.graph_form = form
+    cfg.train.epoch_scan, cfg.train.tstEpoch = 2, 1
+    coach = Coach(copy.deepcopy(cfg), _host(cfg), device="cpu", log=NullLog())
+    assert coach.dense_graphs == (form == "dense")
+    assert coach.split == make_split(None, 64)
+    alone = Shard(0, 1, None)
+    assert (coach.split.rows, coach.split.world, coach.split.cat) == (alone, alone, None)
+    assert (coach.split.lo, coach.split.hi, coach.split.gcn_place, coach.split.dn_place) == (0, 64, REPLICATED, REPLICATED)
+    losses = coach.train_epoch(0)
+    evals = [coach.test_epoch("test")]
+    results, fused_evals, best = coach.train_epochs_fused(1, 2, "test")
+    evals += fused_evals
+    assert all(np.isfinite(v) for r in [losses, *results] for v in r.values())
+    assert all(0.0 <= e["Recall"] <= 1.0 for e in evals) and best is not None
+
+
+def test_collectives_without_a_group_return_their_input(monkeypatch):
+    """A ``None`` group is one device: each collective helper gives its
+    input back as it is (no frame, no copy), the autograd forms' backward
+    the cotangent as it is, and nothing reaches ``torch.distributed``."""
+    from diffmm_tpu_torch.parallel.collectives import (
+        AllGatherRows,
+        AllReduceSum,
+        all_reduce_grads,
+        all_reduce_sum_,
+        placed_all_reduce,
+    )
+
+    _refuse_all_reduce(monkeypatch)
+    before = work_counts()
+    x = torch.arange(6.0).reshape(3, 2)
+    assert all_reduce_sum_(x, None, "grads") is x
+    assert placed_all_reduce(x, 0, 3, None) is x
+    assert all_reduce_grads([x], None)[0] is x
+    y = x.clone().requires_grad_()
+    out = AllGatherRows.apply(AllReduceSum.apply(y, None), 0, 3, None)
+    assert out.data_ptr() == y.data_ptr()
+    (out * 2.0).sum().backward()
+    assert torch.equal(y.grad, torch.full_like(x, 2.0))
+    assert _allreduce_delta(before) == {}

@@ -85,8 +85,7 @@ def _blocks(coach, inp) -> dict:
         t["users"], t["pos"], t["neg"], LR, coach.hp(), coach.config.base.cl_method,
         cl_noise=[torch.as_tensor(n) for n in inp["cl_noise"]], split=split,
     )
-    if split is not None:
-        metrics = all_reduce_sum_(metrics, split.world.group)
+    metrics = all_reduce_sum_(metrics, split.world.group)
     return {"losses": losses.numpy(), "diffusion_state": after_diffusion, "metrics": metrics.numpy(),
             "joint_state": _whole_state(coach)}
 
@@ -107,14 +106,14 @@ def _rebuild(coach, inp) -> dict:
 
     coach.load_params(*copy.deepcopy(inp["params"]))
     split = coach.split
-    lo, hi = (0, I) if split is None else (split.lo, split.hi)
+    lo, hi = split.lo, split.hi
     denoisers, apply = ts.rebuild_forward(coach.dn_params, "f32", None, split)
     x0 = gather_rows(coach.data.train_store, torch.arange(U), I, (lo, hi))
     raw = torch.randn((U, I), generator=torch.Generator().manual_seed(9))
     scores = []
     for den in denoisers:
         view = generate_view(coach.schedule, den, x0, 2, noise=raw, denoise_apply=apply, cols=(lo, hi))
-        if split is not None and split.cat is not None:
+        if split.cat is not None:
             view = placed_all_reduce(view, lo, I, split.cat.group, dim=1)
         scores.append(view.numpy())
     return {"scores": scores, "bufs": _numpy(coach.rebuild_graphs())}

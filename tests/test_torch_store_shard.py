@@ -44,7 +44,7 @@ def _dense_half(coach):
     store = torch.zeros((U, I), dtype=torch.int8)
     store[:, ::2] = 1
     store[:, 1] = 1
-    if coach.split is None:
+    if coach.split.cat is None:
         return store
     lo, hi = coach.split.lo, coach.split.hi
     return DenseShard(store[:, lo:hi].contiguous(), lo, hi)
@@ -74,8 +74,8 @@ def _readers(coach) -> dict:
     from diffmm_tpu_torch.eval.ranking import local_mask
 
     split, store = coach.split, coach.data.train_store
-    lo, hi = (0, I) if split is None else (split.lo, split.hi)
-    group = None if split is None else split.cat.group
+    lo, hi = split.lo, split.hi
+    group = None if split.cat is None else split.cat.group
     users = torch.arange(U)
     rows = coach.data.train_rows
     return {
